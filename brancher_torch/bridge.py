@@ -1,0 +1,62 @@
+"""Carry state from the JAX package into the port.
+
+The JAX package's state arrives as numpy arrays (``np.asarray`` of its
+jax arrays); these functions turn it into the port's state on a chosen
+device, so that both packages compute the same function in the parity
+tests: the ``params`` dict of a compiled model, the fields of a
+``FusedFamily``, flat ``z`` batches and step-size / inverse-mass arrays.
+Nothing here imports JAX or ``brancher_tpu``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .config import resolve_device
+
+
+def to_tensor(array: Any, device=None, dtype=torch.float32) -> torch.Tensor:
+    """A numpy array (or scalar) as a tensor of ``dtype`` on ``device``;
+    ``dtype=None`` keeps the array's own dtype."""
+    t = torch.from_numpy(np.array(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(resolve_device(device))
+
+
+def params_to_torch(params: Mapping[str, Any], device=None) -> Dict[str, Any]:
+    """A compiled model's ``params`` dict (possibly nested) on ``device``."""
+    out: Dict[str, Any] = {}
+    for k, v in params.items():
+        out[k] = params_to_torch(v, device) if isinstance(v, Mapping) else to_tensor(v, device, dtype=None)
+    return out
+
+
+FUSED_FIELDS = ("family", "x", "y", "b", "u", "c0", "prior_mean", "prior_inv_var", "ll_scale")
+
+
+def fused_family_from_numpy(fields: Mapping[str, Any], device=None):
+    """A port ``FusedFamily`` from the fields of a JAX one
+    (``{name: np.asarray(getattr(fam, name))}``)."""
+    from .ops.glm import FusedFamily
+
+    dev = resolve_device(device)
+    u = fields.get("u")
+    return FusedFamily(
+        family=str(fields["family"]),
+        x=to_tensor(fields["x"], dev).contiguous(),
+        y=to_tensor(fields["y"], dev).reshape(-1),
+        b=to_tensor(fields["b"], dev).reshape(-1),
+        u=None if u is None else to_tensor(u, dev).reshape(-1),
+        c0=float(fields["c0"]),
+        prior_mean=to_tensor(fields["prior_mean"], dev).reshape(-1),
+        prior_inv_var=to_tensor(fields["prior_inv_var"], dev).reshape(-1),
+        ll_scale=float(fields["ll_scale"]),
+    )
+
+
+def sampler_state_to_torch(state: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """Flat ``z`` batches, step sizes and inverse masses as float32 tensors."""
+    return {k: to_tensor(v, device) for k, v in state.items()}

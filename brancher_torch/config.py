@@ -1,0 +1,75 @@
+"""Runtime configuration: the default device, dtype and seed.
+
+Counterpart of ``brancher_tpu/config.py``.  The JAX package's config
+describes mesh axis names and a PRNG key policy; here it names the device
+every entry point runs on unless its caller says otherwise, and the seed
+of the ``torch.Generator`` an entry point makes when none is given.
+
+Entry points default to ``"cuda"``.  Where CUDA is absent they raise
+instead of carrying on quietly on the CPU; the CPU is used only when a
+caller asks for it (``device="cpu"``), as the tests do.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+@dataclasses.dataclass
+class RuntimeConfig:
+    """Defaults read by the entry points.
+
+    Attributes:
+      device: where models compile and samplers run when no ``device`` is
+        passed.
+      dtype: floating dtype of parameters, latents and data.
+      seed: seed of the generator an entry point makes when it is given
+        none.
+    """
+
+    device: str = "cuda"
+    dtype: torch.dtype = torch.float32
+    seed: int = 0
+
+
+config = RuntimeConfig()
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: ``device`` or the default.
+
+    Raises when the result is a CUDA device and CUDA is not available, so
+    that no run falls back to the CPU without being asked to.
+    """
+    dev = torch.device(config.device if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested (the default is "
+            f"{config.device!r}) but CUDA is not available; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def make_generator(
+    seed: Union[int, torch.Generator, None], device: torch.device
+) -> torch.Generator:
+    """A generator on ``device``: ``seed`` itself when it is one, else a
+    new one seeded with ``seed`` (or ``config.seed``)."""
+    if isinstance(seed, torch.Generator):
+        if seed.device.type != torch.device(device).type:
+            raise ValueError(
+                f"generator lives on {seed.device}, the run on {device}"
+            )
+        return seed
+    gen = torch.Generator(device=device)
+    gen.manual_seed(config.seed if seed is None else int(seed))
+    return gen
+
+
+def default_dtype() -> torch.dtype:
+    return config.dtype

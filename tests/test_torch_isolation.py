@@ -1,0 +1,40 @@
+"""The port stands alone: importing it loads neither JAX nor brancher_tpu
+and builds nothing, and no module of it imports the JAX package."""
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "brancher_torch"
+
+
+def test_import_loads_no_jax_and_builds_nothing():
+    code = (
+        "import sys, json, brancher_torch, brancher_torch.inference, brancher_torch.ops.glm, "
+        "brancher_torch.models, brancher_torch.bridge, brancher_torch.ops.cuda_build;"
+        "print(json.dumps({'jax': 'jax' in sys.modules, "
+        "'tpu': any(m.startswith('brancher_tpu') for m in sys.modules), "
+        "'loaded': sorted(brancher_torch.ops.cuda_build._loaded)}))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"jax": False, "tpu": False, "loaded": []}
+
+
+def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
+    offenders = []
+    for path in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "brancher_tpu"):
+                    offenders.append(f"{path.relative_to(ROOT)}: {name}")
+    assert not offenders, offenders
+    assert (PORT / "csrc" / "glm_vg.cu").exists()
