@@ -29,7 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .config import make_generator
+from .config import make_generator, resolve_device
 from .transforms import transform_for
 from .variables import (
     DeterministicVariable,
@@ -45,10 +45,11 @@ Tensor = torch.Tensor
 
 
 class CompiledModel:
-    """Frozen lowering of a ProbabilisticModel onto one device."""
+    """Frozen lowering of a ProbabilisticModel onto one device (default
+    ``config.device``, as for every entry point)."""
 
-    def __init__(self, model: ProbabilisticModel, device=torch.device("cpu")):
-        dev = torch.device(device)
+    def __init__(self, model: ProbabilisticModel, device=None):
+        dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev

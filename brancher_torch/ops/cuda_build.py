@@ -8,9 +8,8 @@ name carries a digest of the source and the flags, so an edited source is
 rebuilt and a stale build is never loaded.
 
 Nothing here runs when the package is imported: a kernel wrapper calls
-``load_library`` on its first launch.  ``build_all`` compiles every source
-in parallel (one ``nvcc`` per source, all started together); it is what
-``chip_smoke.py`` calls to time the build.
+``load_library`` on its first launch.  ``nvcc``'s output (with ptxas's
+register and shared-memory report) is kept in ``build/kernels/<name>.log``.
 """
 from __future__ import annotations
 
@@ -20,9 +19,8 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -54,50 +52,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start_build(name: str) -> Optional[tuple]:
+def _build(name: str) -> None:
     out = library_path(name)
-    if out.exists():
-        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def _finish_build(name: str, job) -> str:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(log)
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    (BUILD_DIR / f"{name}.log").write_text(proc.stdout)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return log
-
-
-def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile the given sources (default: every ``csrc/*.cu``) in parallel.
-    Returns {name: {"seconds": wall time, "log": nvcc output}}; a source
-    already built reports 0 seconds and no log."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else list(names)
-    t0 = time.perf_counter()
-    jobs = {n: _start_build(n) for n in names}
-    out = {}
-    for n, job in jobs.items():
-        log = "" if job is None else _finish_build(n, job)
-        out[n] = {"seconds": 0.0 if job is None else time.perf_counter() - t0, "log": log}
-    return out
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        job = _start_build(name)
-        if job is not None:
-            _finish_build(name, job)
+        if not library_path(name).exists():
+            _build(name)
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

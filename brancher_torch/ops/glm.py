@@ -297,6 +297,19 @@ def build_glm_vg(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=0.0,
 # Numeric recognizer
 # ======================================================================
 
+class _NotAGlm(Exception):
+    """Raised inside a probe when the model's structure is not a GLM's."""
+
+
+def _per_row(t: Tensor, n: int) -> Tensor:
+    """``t`` broadcast over the ``n`` observed rows; a parameter of another
+    shape is not a GLM's (checked here, as broadcast_to would raise a
+    RuntimeError)."""
+    if t.numel() not in (1, n):
+        raise _NotAGlm(f"parameter of shape {tuple(t.shape)} over {n} rows")
+    return torch.broadcast_to(t.reshape(-1), (n,))
+
+
 def _affine_probe(f: Callable[[Tensor], Tensor], dim: int, device,
                   rtol: float = 3e-3) -> Optional[Tuple[Tensor, Tensor]]:
     """Extract (X, b) with f(z) = X@z + b, verified at a random point.
@@ -368,14 +381,17 @@ def recognize_fused_family(comp, params, given=None) -> Optional[FusedFamily]:
 
     Returns a FusedFamily that matches ``comp.log_density_z`` up to an
     additive constant (values and gradients, at three random points), or
-    None when the model is not a recognized GLM.  Like the JAX recognizer
-    it treats a failing probe as "not a GLM"; callers that need the fused
-    path must check that the result is not None.
+    None when the model is not a recognized GLM.  Only the errors that say
+    "not a GLM" are read as such: a missing parameter, a shape that does
+    not broadcast over the rows, a distribution the walk does not support.
+    The probes run on the model's device, so a RuntimeError (out of
+    memory, a CUDA fault, a vmap failure the autodiff path would hit too)
+    reaches the caller instead of quietly leaving the kernel path.
     """
     given = given or {}
     try:
         return _recognize(comp, params, given)
-    except (RuntimeError, ValueError, TypeError, KeyError, IndexError, NotImplementedError):
+    except (_NotAGlm, ValueError, KeyError, IndexError, NotImplementedError):
         return None
 
 
@@ -417,7 +433,7 @@ def _recognize(comp, params, given) -> Optional[FusedFamily]:
             return None
 
         def f_logits(zf):
-            return torch.broadcast_to(obs_params_f(zf)["logits"], (n,)).reshape(-1)
+            return _per_row(obs_params_f(zf)["logits"], n)
 
         ab = _affine_probe(f_logits, dim, dev)
         if ab is None:
@@ -429,7 +445,7 @@ def _recognize(comp, params, given) -> Optional[FusedFamily]:
             return None
 
         def f_loc(zf):
-            return torch.broadcast_to(obs_params_f(zf)["loc"], (n,)).reshape(-1)
+            return _per_row(obs_params_f(zf)["loc"], n)
 
         def f_logscale(zf):
             return torch.log(torch.atleast_1d(obs_params_f(zf)["scale"]).reshape(-1)[0:1])

@@ -5,7 +5,7 @@
 
 Phases (each prints one or more JSON lines tagged "phase"):
   1. environment: the card's name and power limit (nvidia-smi), torch and
-     CUDA versions, and the build of every kernel in brancher_torch/csrc;
+     CUDA versions, and the build of brancher_torch/csrc/glm_vg.cu;
   2. kernels K1-K4 against their plain PyTorch versions at the floor shape
      (C=1024, N=1000, D=32), the conjugate shape (C=64, N=20, D=1) and the
      MXU-scale GLM shape (C=256, N=131072, D=1024): errors, the kernel's
@@ -51,10 +51,15 @@ SHAPES = {
 }
 # each kernel's shape on the main path (phase 3 for K1/K2, phase 4 for K3/K4)
 MAIN_SHAPE = {"bernoulli_logit": "floor", "normal_learned": "conjugate"}
-# f32: the kernel and the plain version differ only in summation order.
-# bf16: a one-ulp difference of sigmoid/loc in f32 can flip the bf16
-# rounding of one residual (2^-8 relative).
-TOL = {"f32": 1e-4, "bf16": 2e-3}
+# Limit on max|kernel - plain| / max(max|plain|, 1), for val and grad.  The
+# kernel and its plain version differ only in summation order: the worst
+# reading on an H100 was 9.4e-7 (PERF.md).  For bf16 the product of two
+# bf16 values is exact in f32, so the sums that feed the bf16 rounding of
+# the residual agree as closely.  The limit sits above that reading and
+# below the controls that each row also measures: the f32 plain version
+# with TF32 products, and for bf16 the plain version without the bf16
+# rounding of z and the residual.  A kernel that did either would fail.
+TOL = 1e-5
 
 RESULTS: dict = {}
 
@@ -102,8 +107,9 @@ def phase_environment():
     smi = nvidia_smi_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    builds = cuda_build.build_all()
+    cuda_build.load_library("glm_vg")  # nvcc from the checkout's source
     build_s = time.perf_counter() - t0
+    ptxas = (cuda_build.BUILD_DIR / "glm_vg.log").read_text()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     env = {
@@ -112,13 +118,15 @@ def phase_environment():
         "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         "peak_bytes_per_s": PEAK_BYTES, "peak_ops_per_s": PEAK_OPS,
         "build_seconds": round(build_s, 3),
-        "builds": {k: round(v["seconds"], 3) for k, v in builds.items()},
+        "ptxas": [ln.strip() for ln in ptxas.splitlines() if "registers" in ln],
     }
-    for name, b in builds.items():
-        regs = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln]
-        env.setdefault("ptxas", {})[name] = regs
     RESULTS["environment"] = env
     emit(env)
+
+
+def _rel(got, ref) -> float:
+    """max|got - ref| over max(max|ref|, 1): the quantity TOL limits."""
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
 
 
 def _glm_inputs(c, n, d, family, gen):
@@ -156,17 +164,23 @@ def phase_kernels():
                 v, g = kernel(z, data)
                 v2, g2 = kernel(z, data)
                 v_ref, g_ref = data.plain(z)
+                if dtype == "f32":  # control: the products in TF32
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    v_ctl, g_ctl = data.plain(z)
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                else:  # control: z and the residual not rounded to bf16
+                    v_ctl, g_ctl = data._replace(x=data.x.float()).plain(z)
                 torch.cuda.synchronize()
-                sv = float(v_ref.abs().max())
-                sg = float(g_ref.abs().max())
                 err = {
                     "val_max_abs": float((v - v_ref).abs().max()),
                     "grad_max_abs": float((g - g_ref).abs().max()),
+                    "val_max_rel": _rel(v, v_ref), "grad_max_rel": _rel(g, g_ref),
                 }
-                err["val_max_rel"] = err["val_max_abs"] / max(sv, 1e-30)
-                err["grad_max_rel"] = err["grad_max_abs"] / max(sg, 1e-30)
-                ok = (err["val_max_abs"] <= TOL[dtype] * max(sv, 1.0)
-                      and err["grad_max_abs"] <= TOL[dtype] * max(sg, 1.0)
+                control = {
+                    "control": "tf32" if dtype == "f32" else "unrounded_bf16",
+                    "control_val_rel": _rel(v_ctl, v_ref), "control_grad_rel": _rel(g_ctl, g_ref),
+                }
+                ok = (err["val_max_rel"] <= TOL and err["grad_max_rel"] <= TOL
                       and bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all()))
                 deterministic = bool(torch.equal(v, v2) and torch.equal(g, g2))
                 ms = time_ms(lambda: kernel(z, data))
@@ -184,7 +198,7 @@ def phase_kernels():
                 t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_OPS[dtype] * 1e3
                 row = {
                     "phase": 2, "kernel": kernel.name, "shape": shape_name, "C": c, "N": n, "D": d,
-                    **err, "tolerance_rel": TOL[dtype], "ok": ok, "deterministic": deterministic,
+                    **err, **control, "tolerance_rel": TOL, "ok": ok, "deterministic": deterministic,
                     "ms": ms, "plain_ms": plain_ms, "matmul_pair_ms": matmul_ms,
                     "flops": flops, "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -358,7 +372,8 @@ def summary_line():
             "bound_by": main["bound_by"], "library_ms": None,
             "shape": [main["C"], main["N"], main["D"]], "ok": all(r["ok"] for r in rows),
             "at_shapes": {r["shape"]: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                         "matmul_pair_ms", "val_max_rel", "grad_max_rel")}
+                                                         "matmul_pair_ms", "val_max_rel", "grad_max_rel",
+                                                         "control_val_rel", "control_grad_rel")}
                           for r in rows},
         })
     return {"kernels": out}

@@ -13,6 +13,7 @@ import brancher_tpu as BJ
 import brancher_tpu.functions as BFJ
 import brancher_torch as BT
 import brancher_torch.functions as BFT
+from brancher_torch.compiler import CompiledModel
 from brancher_tpu.models import conjugate_normal_model as j_conj
 from brancher_tpu.models import logistic_regression_model as j_logreg
 from brancher_tpu.models import make_logreg_data
@@ -132,7 +133,10 @@ def test_compiled_default_device_raises_without_cuda(monkeypatch):
     model = t_conj()[0]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         model.compiled()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CompiledModel(model)  # the class itself defaults to config.device too
     assert model.compiled(device="cpu").device.type == "cpu"
+    assert CompiledModel(model, device="cpu").device.type == "cpu"
 
 
 def test_model_observe_by_name_matches_jax_and_recompiles():

@@ -215,3 +215,32 @@ def test_recognizer_rejects_what_jax_rejects(make_model):
     jc, tc = _both(make_model)
     assert PG.recognize_fused_family(jc, jc.initial_params) is None
     assert G.recognize_fused_family(tc, tc.initial_params) is None
+
+
+@pytest.mark.parametrize("error", [RuntimeError("CUDA error: an illegal memory access"),
+                                   torch.OutOfMemoryError("CUDA out of memory")],
+                         ids=["runtime", "out_of_memory"])
+def test_recognizer_passes_device_errors_on(monkeypatch, error):
+    """A fault inside a probe is not 'not a GLM': it reaches the caller, so
+    sample() never leaves the kernel path without saying why."""
+    _, tc = _both(_logreg)
+
+    def failing(*args, **kwargs):
+        raise error
+
+    monkeypatch.setattr(tc, "log_density_z_parts", failing)
+    with pytest.raises(type(error), match=str(error)):
+        G.recognize_fused_family(tc, tc.initial_params)
+
+
+def test_recognizer_rejects_a_parameter_not_over_rows():
+    """Two observed replicates per row: logits [6] broadcast against y
+    [2, 6] in the density, but not over the 12 flattened rows, so the
+    recognizer says 'not a GLM' (None) and the autodiff path runs."""
+    x = np.random.RandomState(0).normal(size=(6, 4)).astype(np.float32)
+    w = BT.NormalVariable(torch.zeros(4), 1.0, "w")
+    yv = BT.BernoulliVariable(logits=BFT.matmul(torch.as_tensor(x), w), name="y")
+    yv.observe((np.random.RandomState(1).uniform(size=(2, 6)) < 0.5).astype(np.float32))
+    tc = BT.ProbabilisticModel([yv]).compiled(device="cpu")
+    assert torch.isfinite(tc.log_density_z(tc.initial_params, {"w": torch.zeros(4)}))
+    assert G.recognize_fused_family(tc, tc.initial_params) is None

@@ -15,9 +15,12 @@ import brancher_torch.ops.glm as G
 pytestmark = pytest.mark.cuda
 
 FAMILY_DTYPE = [(f, d) for f in ("bernoulli_logit", "normal_learned") for d in ("f32", "bf16")]
-# f32: only the summation order differs from the plain version.  bf16: a
-# one-ulp difference of sigmoid/loc can flip one residual's bf16 rounding.
-TOL = {"f32": 1e-4, "bf16": 2e-3}
+# Limit on max|kernel - plain| / max(max|plain|, 1), as in chip_smoke.py:
+# only the summation order differs from the plain version (worst reading
+# on an H100 9.4e-7, PERF.md), and the product of two bf16 values is exact
+# in f32, so the bf16 kernels are held as tightly.  TF32 products, or a
+# bf16 kernel that skipped the rounding of z or the residual, exceed it.
+TOL = 1e-5
 
 
 @pytest.fixture
@@ -43,8 +46,8 @@ def _data(family, dtype, c, n, d, device, seed=0):
 
 
 def _close(got, ref, rel):
-    scale = max(float(ref.abs().max()), 1.0)
-    assert float((got - ref).abs().max()) <= rel * scale
+    err = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
+    assert err <= rel, f"relative error {err:.3g} over the limit {rel:.3g}"
 
 
 # ragged shapes: C not a multiple of the 64-chain block, N not a multiple
@@ -59,8 +62,8 @@ def test_kernel_matches_plain(cuda, family, dtype, c, n, d):
     v_ref, g_ref = data.plain(z)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    _close(v, v_ref, TOL[dtype])
-    _close(g, g_ref, TOL[dtype])
+    _close(v, v_ref, TOL)
+    _close(g, g_ref, TOL)
     v2, g2 = kernel(z, data)  # no atomics: two runs give identical bits
     assert torch.equal(v, v2) and torch.equal(g, g2)
 
