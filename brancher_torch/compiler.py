@@ -7,8 +7,9 @@ frozen DAG in topological order and evaluates, for ONE sample:
   * ``log_density_z(params, z, given)``      — log-joint + Jacobians in
                                                unconstrained space (the
                                                target NUTS differentiates)
-  * ``log_density_z_parts`` / ``eval_observed_params`` — the split and
-    the observed-likelihood parameters that the GLM recognizer probes
+  * ``log_density_z_parts`` / ``log_prior_z`` / ``eval_observed_params``
+    — the split, the prior half alone, and the observed-likelihood
+    parameters that the GLM recognizer probes
   * ``constrain`` / ``unconstrain``          — support bijections
 
 There is no trace step: the walks run eagerly, and a chain axis is added
@@ -155,18 +156,27 @@ class CompiledModel:
         return tr.forward(zv), torch.sum(tr.forward_log_det(zv))
 
     def _walk_z(self, store: ParamStore, z: Dict[str, Tensor], given: Dict[str, Tensor],
-                with_log_prob: bool = True):
+                with_log_prob: bool = True, with_likelihood: bool = True):
         """z -> (values, prior part, likelihood part).
 
         The prior part holds the latents' log-probs and Jacobians and the
         log-probs of ``given`` variables; the likelihood part the observed
         variables'.  ``with_log_prob=False`` computes the values alone (for
-        ``constrain``, which must not evaluate a large likelihood)."""
+        ``constrain``, which must not evaluate a large likelihood);
+        ``with_likelihood=False`` leaves the likelihood part at 0 without
+        evaluating the observed variables' parameters or log-probs (for
+        ``log_prior_z``)."""
         values: Dict[str, Tensor] = {}
         lp_prior = lp_lik = torch.zeros((), device=self.device)
         for v in self.order:
             if isinstance(v, DeterministicVariable):
                 values[v.name] = v.compute(values, store)
+                continue
+            if v.is_observed and v.name not in given:
+                values[v.name] = self._observed_value(v, values, store)
+                if with_log_prob and with_likelihood:
+                    p = self._params(v, values, store)
+                    lp_lik = lp_lik + self._rv_log_prob(v, values[v.name], p)
                 continue
             p = self._params(v, values, store) if (with_log_prob or v.name in z) else None
             if v.name in given:
@@ -174,12 +184,6 @@ class CompiledModel:
                 values[v.name] = value
                 if with_log_prob:
                     lp_prior = lp_prior + self._rv_log_prob(v, value, p)
-                continue
-            if v.is_observed:
-                value = self._observed_value(v, values, store)
-                values[v.name] = value
-                if with_log_prob:
-                    lp_lik = lp_lik + self._rv_log_prob(v, value, p)
                 continue
             x, ld = self._latent_value(v, p, z)
             values[v.name] = x
@@ -208,6 +212,13 @@ class CompiledModel:
         """(log prior incl. Jacobian, log likelihood) in unconstrained space."""
         _, lp_prior, lp_lik = self._walk_z(self._as_store(params), z, given or {})
         return lp_prior, lp_lik
+
+    def log_prior_z(self, params, z: Dict[str, Tensor],
+                    given: Optional[Dict[str, Tensor]] = None) -> Tensor:
+        """``log_density_z_parts(...)[0]`` without evaluating the
+        likelihood: the observed variables' log-probs never run (the GLM
+        recognizer's prior probe; its cost does not grow with the data)."""
+        return self._walk_z(self._as_store(params), z, given or {}, with_likelihood=False)[1]
 
     def eval_observed_params(self, params, z: Dict[str, Tensor],
                              given: Optional[Dict[str, Tensor]] = None) -> Dict[str, Dict[str, Tensor]]:

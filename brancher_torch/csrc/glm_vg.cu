@@ -5,7 +5,11 @@
 //   K2 _bern_kernel_bf16   (family bernoulli_logit, bf16 design matrix)
 //   K3 _normal_kernel      (family normal_learned,  f32 design matrix)
 //   K4 _normal_kernel_bf16 (family normal_learned,  bf16 design matrix)
-// all launched by _glm_pallas_call and built by build_glm_vg_pallas.
+// all launched by _glm_pallas_call and built by build_glm_vg_pallas, and
+//   K6 _kernel             of brancher_tpu/ops/pallas_logreg.py (family
+//                          logreg: bernoulli_logit with no offset and a
+//                          N(0, 1/piv) prior), launched by
+//                          logreg_value_and_grad_pallas.
 //
 // What it computes, for chains z [C,D], design X [N,D], y, offset b [N],
 // a diagonal Gaussian prior (m, iv) [D] and a likelihood scale s_ll:
@@ -16,6 +20,9 @@
 //                    rss = sum_n (y - loc)^2
 //     val  = -1/2 sum_d (z-m)^2 iv - s_ll N s + s_ll (-1/2) e2 rss
 //     grad = -(z-m) iv - s_ll N u + s_ll (e2 (y - loc) X + e2 rss u)
+//   logreg (K6):     l = z X^T
+//     val  = sum_n (y l - softplus l) - 1/2 piv sum_d z^2
+//     grad = (y - sigmoid l) X - piv z
 // The bf16 variants round z and the residual to bf16 at the two products
 // (the product of two bf16 values is exact in f32), accumulate in f32, and
 // keep softplus, sigmoid, exp and every accumulator in f32.
@@ -66,6 +73,7 @@ constexpr int RED_THREADS = 256;
 
 constexpr int BERNOULLI_LOGIT = 0;
 constexpr int NORMAL_LEARNED = 1;
+constexpr int LOGREG = 2;
 
 template <typename XT> __device__ __forceinline__ float load_x(const XT* p);
 template <> __device__ __forceinline__ float load_x<float>(const float* p) { return *p; }
@@ -160,8 +168,8 @@ __global__ void __launch_bounds__(THREADS) glm_pass1(
         float r = 0.f;
         if (chain_ok && gn < N) {
           const float yv = y[gn];
-          const float l = acc[i][j] + b[gn];
-          if (FAMILY == BERNOULLI_LOGIT) {
+          const float l = (FAMILY == LOGREG) ? acc[i][j] : acc[i][j] + b[gn];
+          if (FAMILY != NORMAL_LEARNED) {
             ll_acc[i] += yv * l - softplus_f(l);
             r = yv - sigmoid_f(l);
           } else {
@@ -234,7 +242,7 @@ __global__ void __launch_bounds__(RED_THREADS) glm_pass2(
     const float* __restrict__ iv, const float* __restrict__ u,
     const float* __restrict__ ll_part, const float* __restrict__ g_part,
     float* __restrict__ val, float* __restrict__ grad,
-    int C, int D, int S, float ll_scale, float c0, float n_real) {
+    int C, int D, int S, float ll_scale, float c0, float n_real, float prior_iv) {
   __shared__ float red_q[RED_THREADS];
   __shared__ float red_s[RED_THREADS];
   const int c = blockIdx.x;
@@ -243,8 +251,12 @@ __global__ void __launch_bounds__(RED_THREADS) glm_pass2(
 
   float q = 0.f, su = 0.f;
   for (int d = tid; d < D; d += RED_THREADS) {
-    const float dz = zc[d] - m[d];
-    q += dz * dz * iv[d];
+    if (FAMILY == LOGREG) {
+      q += zc[d] * zc[d];
+    } else {
+      const float dz = zc[d] - m[d];
+      q += dz * dz * iv[d];
+    }
     if (FAMILY == NORMAL_LEARNED) su += zc[d] * u[d];
   }
   red_q[tid] = q;
@@ -267,17 +279,22 @@ __global__ void __launch_bounds__(RED_THREADS) glm_pass2(
   for (int d = tid; d < D; d += RED_THREADS) {
     float gs = 0.f;
     for (int k = 0; k < S; ++k) gs += g_part[((size_t)k * C + c) * D + d];
-    const float dz = zc[d] - m[d];
     float g;
-    if (FAMILY == BERNOULLI_LOGIT) {
+    if (FAMILY == LOGREG) {
+      g = gs - prior_iv * zc[d];
+    } else if (FAMILY == BERNOULLI_LOGIT) {
+      const float dz = zc[d] - m[d];
       g = ll_scale * gs - dz * iv[d];
     } else {
+      const float dz = zc[d] - m[d];
       g = -dz * iv[d] - (ll_scale * n_real) * u[d] + ll_scale * (e2 * gs + (e2 * ll) * u[d]);
     }
     grad[(size_t)c * D + d] = g;
   }
   if (tid == 0) {
-    if (FAMILY == BERNOULLI_LOGIT) {
+    if (FAMILY == LOGREG) {
+      val[c] = ll - 0.5f * prior_iv * q;
+    } else if (FAMILY == BERNOULLI_LOGIT) {
       val[c] = ll_scale * ll - 0.5f * q;
     } else {
       val[c] = (-0.5f * q - ll_scale * n_real * s) + ll_scale * (-0.5f) * e2 * ll;
@@ -288,7 +305,7 @@ __global__ void __launch_bounds__(RED_THREADS) glm_pass2(
 template <int FAMILY, typename XT>
 int launch(const float* z, const void* x, const float* y, const float* b,
            const float* m, const float* iv, const float* u, float c0,
-           float ll_scale, float n_real, float* val, float* grad,
+           float ll_scale, float n_real, float prior_iv, float* val, float* grad,
            float* ll_part, float* g_part, int C, int N, int D, int S,
            int tiles_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -298,7 +315,7 @@ int launch(const float* z, const void* x, const float* y, const float* b,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   glm_pass2<FAMILY><<<C, RED_THREADS, 0, st>>>(
-      z, m, iv, u, ll_part, g_part, val, grad, C, D, S, ll_scale, c0, n_real);
+      z, m, iv, u, ll_part, g_part, val, grad, C, D, S, ll_scale, c0, n_real, prior_iv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,8 +328,8 @@ int launch(const float* z, const void* x, const float* y, const float* b,
                       float* val, float* grad, float* ll_part, float* g_part,    \
                       int C, int N, int D, int S, int tiles_per_split,           \
                       void* stream) {                                            \
-    return launch<FAMILY, XT>(z, x, y, b, m, iv, u, c0, ll_scale, n_real, val,   \
-                              grad, ll_part, g_part, C, N, D, S,                 \
+    return launch<FAMILY, XT>(z, x, y, b, m, iv, u, c0, ll_scale, n_real, 0.f,   \
+                              val, grad, ll_part, g_part, C, N, D, S,            \
                               tiles_per_split, stream);                          \
   }
 
@@ -320,6 +337,17 @@ GLM_ENTRY(glm_vg_bernoulli_f32, BERNOULLI_LOGIT, float)
 GLM_ENTRY(glm_vg_bernoulli_bf16, BERNOULLI_LOGIT, __nv_bfloat16)
 GLM_ENTRY(glm_vg_normal_f32, NORMAL_LEARNED, float)
 GLM_ENTRY(glm_vg_normal_bf16, NORMAL_LEARNED, __nv_bfloat16)
+
+// K6: no offset, no mask, prior N(0, 1/prior_iv); its own symbol, so that
+// its launches are counted apart from K1's
+extern "C" int logreg_vg_f32(const float* z, const float* x, const float* y,
+                             float prior_iv, float* val, float* grad,
+                             float* ll_part, float* g_part, int C, int N, int D,
+                             int S, int tiles_per_split, void* stream) {
+  return launch<LOGREG, float>(z, x, y, nullptr, nullptr, nullptr, nullptr, 0.f,
+                               1.f, static_cast<float>(N), prior_iv, val, grad,
+                               ll_part, g_part, C, N, D, S, tiles_per_split, stream);
+}
 
 // tile sizes, read by the wrapper to cut the rows into splits
 extern "C" int glm_vg_block_chains() { return BC; }

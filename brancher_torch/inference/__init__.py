@@ -1,9 +1,11 @@
-"""Inference engines ported so far: vectorized NUTS and its diagnostics.
+"""Inference engines ported so far: vectorized NUTS, chain-batched HMC
+and ChEES, and their diagnostics.
 
-Counterpart of ``brancher_tpu/inference``.  SVI, HMC/ChEES, SMC and the
-per-chain engines are still to port (ROADMAP queue 1, items 9-12).
+Counterpart of ``brancher_tpu/inference``.  SVI, SMC and the per-chain
+engines are still to port (ROADMAP queue 1, items 10-12).
 """
 
+from .chees import ChEESHMC, ChEESResult, chees_hmc
 from .diagnostics import (
     effective_sample_size,
     folded_rhat,
@@ -11,5 +13,6 @@ from .diagnostics import (
     potential_scale_reduction,
     rank_normalized_rhat,
 )
+from .hmc import HMC, hmc_sample
 from .mcmc import MCMCResult, sample
 from .nuts import NUTS

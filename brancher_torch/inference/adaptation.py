@@ -2,7 +2,9 @@
 
 Counterpart of ``brancher_tpu/inference/adaptation.py`` (lines 25-242):
 ``DualAveragingState``, ``da_init``, ``da_update``, ``da_restart``,
-``build_warmup_schedule`` and ``find_reasonable_step_size_batched``.
+``build_warmup_schedule`` and ``find_reasonable_step_size_batched``, and
+the chain-batched engines' diagonal-mass update (``diag_mass_update``,
+inline in each JAX engine).
 
 The dual-averaging state is five 0-d float32 tensors on the run's device,
 updated with the same float32 operations as the JAX package, so the step
@@ -94,6 +96,16 @@ def build_warmup_schedule(
         start = end
         size *= 2
     return in_slow, window_end
+
+
+def diag_mass_update(s1: Tensor, s2: Tensor, n_acc: float) -> Tensor:
+    """The diagonal inverse mass at a window end of the chain-batched
+    engines: the cross-chain variance of the window's ``n_acc`` draws
+    (sums ``s1``, squares ``s2``), shrunk towards 1e-3 (Stan's rule)."""
+    ng = float(n_acc)
+    mean = s1 / max(ng, 1.0)
+    var = s2 / max(ng, 1.0) - mean * mean
+    return (ng / (ng + 5.0)) * var + 1e-3 * (5.0 / (ng + 5.0))
 
 
 def find_reasonable_step_size_batched(

@@ -1,8 +1,11 @@
 """MCMC entry point: warmup + sampling, diagnostics.
 
 Counterpart of ``brancher_tpu/inference/mcmc.py``: ``MCMCResult``
-(lines 46-91), ``make_potential`` (line 94) and ``sample()`` for
-``chain_method="vectorized"`` with diagonal mass (lines 454-1069).
+(lines 46-91), ``make_potential`` (line 94), the engine dispatch of
+``_run_vectorized`` (lines 250-330) and ``sample()`` for
+``chain_method="vectorized"`` (lines 454-1069).  ``kernel`` picks the
+engine: ``ChEESHMC`` runs ``chees_hmc``, ``HMC`` runs ``hmc_batched``,
+anything else vectorized NUTS.
 
 The batched potential ``[C, d] -> ([C], [C, d])`` is, in order of
 preference: the caller's ``value_and_grad_fn``; the fused GLM potential
@@ -10,10 +13,18 @@ that ``ops.glm.recognize_fused_family`` finds in the model (on CUDA its
 hand-written kernel); else autodiff of the compiled log-density,
 ``torch.func.vmap(torch.func.grad_and_value(...))``.
 
+``fused_leapfrog=True`` gives the HMC and ChEES engines a whole-
+trajectory integrator built once from the recognized GLM family
+(``FusedFamily.leapfrog``: kernel K5 on CUDA when X passes its size
+gate).  As in the JAX package it has no effect under NUTS or when no
+family is recognized; unlike it, ``diagnostics["fused_leapfrog"]`` says
+whether K5 ran, and ``sample()`` warns when it was asked for and did not.
+
 Not ported yet, and refused with ``NotImplementedError``: the per-chain
-and sharded chain methods, ``mass="dense"``, ``resume_state``,
-``fused_leapfrog`` and ``enumerate_discrete`` (ROADMAP queue 1, items 12,
-13 and 15; queue 2, K5), and the device diagnostics (item 8).
+and sharded chain methods, ``sample(mass="dense")`` (ChEES's own
+``ChEESHMC(mass="dense")`` runs), ``resume_state`` and
+``enumerate_discrete`` (ROADMAP queue 1, items 12, 13 and 15), and the
+device diagnostics (item 8).
 """
 from __future__ import annotations
 
@@ -28,7 +39,9 @@ from ..compiler import CompiledModel
 from ..config import make_generator
 from ..variables import DeterministicVariable
 from .adaptation import find_reasonable_step_size_batched
+from .chees import ChEESHMC, chees_hmc
 from .diagnostics import effective_sample_size, potential_scale_reduction
+from .hmc import HMC
 from .nuts import NUTS
 from .vectorized_nuts import nuts_batched
 
@@ -129,7 +142,8 @@ def sample(
     given_key=None,
     device=None,
 ) -> MCMCResult:
-    """Run vectorized NUTS on a ProbabilisticModel (or a CompiledModel).
+    """Run chain-batched MCMC on a ProbabilisticModel (or a CompiledModel):
+    vectorized NUTS, or HMC / ChEES when ``kernel`` is one of those.
 
     device: where the run happens; default ``config.device`` ("cuda"),
     which raises when CUDA is absent.  A CompiledModel runs on its own
@@ -164,8 +178,6 @@ def sample(
         _not_ported("sharding chains over a mesh", "ROADMAP queue 1, item 15")
     if enumerate_discrete:
         _not_ported("enumerate_discrete", "ROADMAP queue 1, item 13")
-    if fused_leapfrog:
-        _not_ported("fused_leapfrog (kernel K5)", "ROADMAP queue 2")
     if fused_potential not in ("auto", "bf16", "off"):
         raise ValueError(f"unknown fused_potential {fused_potential!r}")
     if diagnostics_backend not in ("auto", "host", "device", "none"):
@@ -190,7 +202,7 @@ def sample(
     potential_fn, unravel, _ = make_potential(comp, params, given)
 
     # -- fused-potential upgrade (cached per compiled model) ---------------
-    fam_name, bf16_active = None, False
+    fam_name, bf16_active, leapfrog_fn = None, False, None
     if (value_and_grad_fn is None and fused_potential in ("auto", "bf16")
             and params is comp.initial_params and not given):
         if not hasattr(comp, "_fused_family_cache"):
@@ -205,6 +217,10 @@ def sample(
                 built[dtype] = fam.value_and_grad(dtype=dtype)
             value_and_grad_fn = built[dtype]
             fam_name, bf16_active = fam.family, dtype == "bf16"
+            if fused_leapfrog:
+                if not hasattr(comp, "_fused_leapfrog_built"):
+                    comp._fused_leapfrog_built = fam.leapfrog()
+                leapfrog_fn = comp._fused_leapfrog_built
     if fused_potential == "bf16" and not bf16_active:
         warnings.warn(
             "fused_potential='bf16' was requested but the bf16 fused "
@@ -212,6 +228,19 @@ def sample(
             "precondition — default params, no given, no explicit "
             "value_and_grad_fn — does not hold); sampling proceeds with "
             "the f32 path.", stacklevel=2,
+        )
+    from ..ops.leapfrog import FusedLeapfrog
+
+    k5_runs = (isinstance(leapfrog_fn, FusedLeapfrog) and dev.type == "cuda"
+               and (isinstance(kernel, HMC)
+                    or (isinstance(kernel, ChEESHMC) and kernel.mass == "diag")))
+    if fused_leapfrog and not k5_runs:
+        warnings.warn(
+            "fused_leapfrog=True was requested but the fused leapfrog kernel "
+            "will not run (the engine is not HMC/ChEES with diagonal mass, no "
+            "GLM family was recognized, X fails the kernel's size gate, or "
+            "the run is on the CPU); the engine integrates with a loop of "
+            "value+grad calls.", stacklevel=2,
         )
     if value_and_grad_fn is None:
         value_and_grad_fn = autodiff_value_and_grad(potential_fn)
@@ -244,12 +273,42 @@ def sample(
         )
     else:
         init_eps = init_step_size
-    res = nuts_batched(
-        vg, z0, num_warmup, num_samples, gen,
-        max_depth=getattr(kernel, "max_depth", 10),
-        target_accept=target_accept, init_step_size=float(init_eps),
-        max_delta_energy=getattr(kernel, "max_delta_energy", 1000.0),
-    )
+    max_delta = getattr(kernel, "max_delta_energy", 1000.0)
+    extra: Dict[str, Any] = {}
+    if isinstance(kernel, ChEESHMC):
+        res = chees_hmc(
+            vg, z0, num_warmup, num_samples, gen, target_accept=target_accept,
+            init_step_size=float(init_eps),
+            init_trajectory_length=kernel.init_trajectory_length,
+            max_leapfrog=kernel.max_leapfrog, adam_lr=kernel.adam_lr, mass=kernel.mass,
+            leapfrog_fn=leapfrog_fn, max_delta_energy=max_delta,
+        )
+        num_steps = res.num_leapfrog.to(torch.int64)[None, :].expand(num_chains, num_samples)
+        extra = {"trajectory_length": res.trajectory_length,
+                 "warmup_leapfrog": int(res.warmup_leapfrog)}
+    elif isinstance(kernel, HMC):
+        from ..ops.batched_hmc import hmc_batched
+
+        res = hmc_batched(
+            vg, z0, num_warmup, num_samples, gen,
+            num_integration_steps=kernel.num_integration_steps,
+            target_accept=target_accept, init_step_size=float(init_eps),
+            jitter_steps=kernel.jitter_steps, leapfrog_fn=leapfrog_fn,
+            max_delta_energy=max_delta,
+        )
+        length = kernel.num_integration_steps
+        num_steps = torch.full((num_chains, num_samples),
+                               (length + 1) // 2 if kernel.jitter_steps else length,
+                               dtype=torch.int64, device=dev)
+    else:
+        res = nuts_batched(
+            vg, z0, num_warmup, num_samples, gen,
+            max_depth=getattr(kernel, "max_depth", 10),
+            target_accept=target_accept, init_step_size=float(init_eps),
+            max_delta_energy=max_delta,
+        )
+        num_steps = res.num_leapfrog[None, :].expand(num_chains, num_samples)
+        extra = {"warmup_leapfrog": res.warmup_leapfrog, "chain_leapfrog": res.chain_leapfrog}
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     sampler_seconds = time.perf_counter() - t_engine
@@ -273,7 +332,7 @@ def sample(
     stats = {
         "accept_prob": res.accept_prob,
         "diverging": res.diverging,
-        "num_steps": res.num_leapfrog[None, :].expand(c, s),
+        "num_steps": num_steps,
     }
     diagnostics: Dict[str, Any] = {
         "num_divergences": int(res.diverging.sum()),
@@ -281,13 +340,13 @@ def sample(
         "step_size": res.step_size,
         "inv_mass": res.inv_mass,
         "sampler_seconds": sampler_seconds,
-        "warmup_leapfrog": res.warmup_leapfrog,
-        "chain_leapfrog": res.chain_leapfrog,
-        "total_leapfrog_steps": int(res.num_leapfrog.sum()) * c,
+        **extra,
+        "total_leapfrog_steps": int(num_steps.sum()),
         "value_and_grad_calls": vg.calls,
         "host_syncs": res.host_syncs,
         "fused_family": fam_name,
         "fused_dtype": ("bf16" if bf16_active else "f32") if fam_name else None,
+        "fused_leapfrog": k5_runs,
         "device": str(dev),
     }
     if diagnostics_backend != "none":

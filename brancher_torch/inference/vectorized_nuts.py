@@ -27,7 +27,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .adaptation import build_warmup_schedule, da_init, da_restart, da_update
+from .adaptation import build_warmup_schedule, da_init, da_restart, da_update, diag_mass_update
 
 Tensor = torch.Tensor
 VG = Callable[[Tensor], Tuple[Tensor, Tensor]]
@@ -280,10 +280,7 @@ def nuts_batched(
             s2 = s2 + torch.sum(z * z, dim=0)
             n_acc += c
         if window_end[i]:
-            ng = float(n_acc)
-            mean = s1 / max(ng, 1.0)
-            var = s2 / max(ng, 1.0) - mean * mean
-            inv_mass = (ng / (ng + 5.0)) * var + 1e-3 * (5.0 / (ng + 5.0))
+            inv_mass = diag_mass_update(s1, s2, n_acc)
             s1, s2, n_acc = torch.zeros_like(s1), torch.zeros_like(s2), 0
             da = da_restart(da)
     eps_final = (torch.exp(da.log_step_avg) if num_warmup > 0

@@ -8,7 +8,8 @@ the dense likelihoods of the model zoo:
 
 For each family and design-matrix type (f32, bf16) there is a plain
 PyTorch version (``*_vg_reference*``) and a kernel written by hand in CUDA
-(``csrc/glm_vg.cu``, one template, four instantiations K1-K4).  The
+(``csrc/glm_vg.cu``, one template, four instantiations K1-K4; a fifth,
+K6, serves ``ops/logreg.py``).  The
 wrappers (``GlmKernel``) take a tensor on the CPU to the plain version and
 a tensor on a CUDA device to the kernel; there is no fallback from the
 kernel to the plain version.
@@ -134,6 +135,24 @@ class FusedFamily(NamedTuple):
             dtype=dtype, device=self.x.device,
         )
 
+    def leapfrog(self):
+        """Multi-step integrator (z, r, grad, eps, inv_mass, n_steps) ->
+        (z1, r1, val1, grad1) on the family's device: on CUDA the fused
+        kernel K5 when X passes its size gate, else a loop of this
+        family's value+grad kernel; on the CPU the loop of the plain
+        version (``ops/leapfrog.py``)."""
+        from .leapfrog import build_fused_leapfrog, reference_leapfrog
+
+        if self.x.device.type == "cuda":
+            lf = build_fused_leapfrog(
+                self.family, self.x, self.y, self.b, self.prior_mean,
+                self.prior_inv_var, u=self.u, c0=self.c0,
+                ll_scale=self.ll_scale, device=self.x.device,
+            )
+            if lf is not None:
+                return lf
+        return reference_leapfrog(self.value_and_grad())
+
     def plain(self, z: Tensor) -> Tuple[Tensor, Tensor]:
         """The kernel's plain PyTorch version on the same data."""
         bf16 = self.x.dtype == torch.bfloat16
@@ -152,6 +171,8 @@ class GlmKernel:
     value+grad evaluation; the two passes of a call count once).
     """
 
+    source = "brancher_torch/csrc/glm_vg.cu"
+
     def __init__(self, name: str, family: str, x_dtype: torch.dtype,
                  symbol: str, replaces: str):
         self.name = name
@@ -165,20 +186,11 @@ class GlmKernel:
 
     def _c_function(self):
         if self._fn is None:
-            from .cuda_build import load_library
-
-            lib = load_library("glm_vg")
-            fn = getattr(lib, self.symbol)
             p = ctypes.c_void_p
-            fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, ctypes.c_float,
-                           ctypes.c_float, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
-            fn.restype = ctypes.c_int
-            for tile in (lib.glm_vg_block_chains, lib.glm_vg_block_rows):
-                tile.argtypes = []
-                tile.restype = ctypes.c_int
-            self._tiles = (lib.glm_vg_block_chains(), lib.glm_vg_block_rows())
-            self._fn = fn
+            self._fn, self._tiles = glm_vg_function(
+                self.symbol, [p, p, p, p, p, p, p, ctypes.c_float, ctypes.c_float,
+                              ctypes.c_float, p, p, p, p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, p])
         return self._fn
 
     def _check(self, z: Tensor, data: FusedFamily):
@@ -213,19 +225,8 @@ class GlmKernel:
         fn = self._c_function()
         c, d = z.shape
         n = data.x.shape[0]
-        block_chains, block_rows = self._tiles
-        n_tiles = -(-n // block_rows)
-        chain_blocks = -(-c // block_chains)
-        sms = torch.cuda.get_device_properties(z.device).multi_processor_count
-        # enough (chain block, row split) blocks to fill the card twice over
-        splits = max(1, min(n_tiles, -(-2 * sms // chain_blocks)))
-        tiles_per_split = -(-n_tiles // splits)
-        splits = -(-n_tiles // tiles_per_split)  # no empty split
-        f32 = dict(device=z.device, dtype=torch.float32)
-        val = torch.empty((c,), **f32)
-        grad = torch.empty((c, d), **f32)
-        ll_part = torch.empty((splits, c), **f32)
-        g_part = torch.empty((splits, c, d), **f32)
+        val, grad, ll_part, g_part, splits, tiles_per_split = _two_pass_buffers(
+            z, n, self._tiles)
         u_ptr = data.u.data_ptr() if data.u is not None else None
         with torch.cuda.device(z.device):
             stream = torch.cuda.current_stream(z.device).cuda_stream
@@ -238,6 +239,41 @@ class GlmKernel:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
         return val, grad
+
+
+def glm_vg_function(symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/glm_vg.cu`` (built and loaded at
+    first use) with its argument types set, and the library's tile sizes
+    (chains, rows) per block."""
+    from .cuda_build import load_library
+
+    lib = load_library("glm_vg")
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    for tile in (lib.glm_vg_block_chains, lib.glm_vg_block_rows):
+        tile.argtypes = []
+        tile.restype = ctypes.c_int
+    return fn, (lib.glm_vg_block_chains(), lib.glm_vg_block_rows())
+
+
+def _two_pass_buffers(z: Tensor, n: int, tiles: Tuple[int, int]):
+    """Outputs and scratch of one two-pass launch over z [C,D] and N rows:
+    (val, grad, ll_part, g_part, splits, tiles_per_split).  The rows are
+    cut into enough splits that (chain block, split) blocks fill the card
+    twice over."""
+    c, d = z.shape
+    block_chains, block_rows = tiles
+    n_tiles = -(-n // block_rows)
+    chain_blocks = -(-c // block_chains)
+    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
+    splits = max(1, min(n_tiles, -(-2 * sms // chain_blocks)))
+    tiles_per_split = -(-n_tiles // splits)
+    splits = -(-n_tiles // tiles_per_split)  # no empty split
+    f32 = dict(device=z.device, dtype=torch.float32)
+    return (torch.empty((c,), **f32), torch.empty((c, d), **f32),
+            torch.empty((splits, c), **f32), torch.empty((splits, c, d), **f32),
+            splits, tiles_per_split)
 
 
 _SRC = "brancher_tpu/ops/pallas_glm.py"
@@ -412,7 +448,7 @@ def _recognize(comp, params, given) -> Optional[FusedFamily]:
         return None
 
     def prior_f(zf):
-        return comp.log_density_z_parts(params, comp.unravel_z(zf), given)[0]
+        return comp.log_prior_z(params, comp.unravel_z(zf), given)
 
     pr = _diag_gaussian_prior(prior_f, dim, dev)
     if pr is None:

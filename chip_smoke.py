@@ -1,40 +1,55 @@
 #!/usr/bin/env python3
-"""Drive brancher_torch's main path on one CUDA card and check it.
+"""Drive brancher_torch's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py                # every phase, one card
+    python3 chip_smoke.py --phases 1,2   # a subset (no "ok" line then)
 
 Phases (each prints one or more JSON lines tagged "phase"):
   1. environment: the card's name and power limit (nvidia-smi), torch and
-     CUDA versions, and the build of brancher_torch/csrc/glm_vg.cu;
-  2. kernels K1-K4 against their plain PyTorch versions at the floor shape
-     (C=1024, N=1000, D=32), the conjugate shape (C=64, N=20, D=1) and the
-     MXU-scale GLM shape (C=256, N=131072, D=1024): errors, the kernel's
-     and the plain version's median ms, the bound's ms, and as context the
-     ms of the two torch.matmul products alone;
-  3. the main path at the floor config: make_logreg_data(1000, 32) ->
+     CUDA versions, and the builds of brancher_torch/csrc/glm_vg.cu and
+     leapfrog.cu (one nvcc each, started together) with ptxas's register
+     and shared-memory lines;
+  2. every kernel against its plain PyTorch version: K1-K4 at the floor
+     shape (C=1024, N=1000, D=32), the conjugate shape (C=64, N=20, D=1)
+     and the MXU-scale GLM shape (C=256, N=131072, D=1024); K5 (the fused
+     leapfrog) for both families at the floor and conjugate shapes with
+     1, 8 and 32 steps; K6 (logreg) at the floor and MXU shapes.  Each row
+     has errors, a control, the determinism check, the kernel's and the
+     plain version's median ms and the bound's ms;
+  3. vectorized NUTS at the floor config: make_logreg_data(1000, 32) ->
      logistic_regression_model -> sample(NUTS(max_depth=8), 500 warmup,
      1000 draws, 1024 chains) with fused_potential "auto" (K1), "bf16" (K2)
      and "off" (autodiff, the yardstick), fewer draws for the last two;
-  4. the conjugate model with "auto" (K3) and "bf16" (K4) against its
-     closed-form posterior;
+  4. NUTS on the conjugate model with "auto" (K3) and "bf16" (K4) against
+     its closed-form posterior;
   5. the MXU-scale logistic regression (N=131072, D=1024, 256 chains) with
-     "auto" and "bf16";
-  6. the {"kernels": [...]} summary, the card's name and power limit, and
+     "auto" and "bf16", and the peak card memory of the recognizer's
+     prior probe with the whole log density and with the prior alone;
+  6. ChEES at the floor config (500 warmup, 1000 draws, 1024 chains) three
+     ways: fused_leapfrog=True (K5), a loop of K1, and value_and_grad_fn=
+     K6; posterior means against phase 3's "auto" run;
+  7. HMC(num_integration_steps=16) with fused_leapfrog=True on the
+     conjugate model (K5 on normal_learned), against the closed form;
+  8. the {"kernels": [...]} summary, the card's name and power limit, and
      the last line {"ok": true, "device": {...}}.
 
 Every launch counter is set to 0 just before each sample() run and read
-just after it; a run whose kernel did not launch once per value+grad call
+just after it; a run whose kernels did not launch as expected (the
+value+grad kernel once per value+grad call, K5 once per transition)
 fails the script.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
 brancher_torch package beside it, it exits 2 at once.
 """
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -49,8 +64,15 @@ SHAPES = {
     "conjugate": (64, 20, 1),
     "mxu": (256, 131072, 1024),
 }
-# each kernel's shape on the main path (phase 3 for K1/K2, phase 4 for K3/K4)
-MAIN_SHAPE = {"bernoulli_logit": "floor", "normal_learned": "conjugate"}
+LEAPFROG_SHAPES = ("floor", "conjugate")
+LEAPFROG_STEPS = (1, 8, 32)
+LOGREG_SHAPES = ("floor", "mxu")
+SOURCES = ("glm_vg", "leapfrog")
+# each value+grad kernel's shape on its main path (phase 3 and 6 for K1,
+# K2 and K6; phase 4 for K3/K4)
+MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor",
+              "glm_normal_f32": "conjugate", "glm_normal_bf16": "conjugate",
+              "logreg_f32": "floor"}
 # Limit on max|kernel - plain| / max(max|plain|, 1), for val and grad.  The
 # kernel and its plain version differ only in summation order: the worst
 # reading on an H100 was 9.4e-7 (PERF.md).  For bf16 the product of two
@@ -60,6 +82,14 @@ MAIN_SHAPE = {"bernoulli_logit": "floor", "normal_learned": "conjugate"}
 # with TF32 products, and for bf16 the plain version without the bf16
 # rounding of z and the residual.  A kernel that did either would fail.
 TOL = 1e-5
+# The same quantity for K5's z, r, val and grad after a trajectory.  A
+# trajectory carries each step's rounding into the next, so the error
+# grows with the step count: on an H100 the worst reading was 3.1e-6
+# (normal_learned, floor shape, 32 steps; PERF.md).  The limit sits 10x
+# above it and below every floor-shape TF32 control (2.0e-4 to 9.2e-4 at
+# 1 to 32 steps); at D=1 (conjugate) the control uses no tensor cores.
+TOL_LEAPFROG = 3e-5
+LEAPFROG_EPS = 0.05
 
 RESULTS: dict = {}
 
@@ -99,6 +129,23 @@ def time_ms(fn, reps: int = 11, warmup: int = 2) -> float:
     return statistics.median(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))
 
 
+def _bound(nbytes: int, flops: int, dtype: str = "f32") -> dict:
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_OPS[dtype] * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _all_kernels():
+    from brancher_torch.ops import kernel_wrappers
+
+    return kernel_wrappers()
+
+
+def _reset_launches() -> None:
+    for k in _all_kernels().values():
+        k.launches = 0
+
+
 # ---------------------------------------------------------------------------
 def phase_environment():
     import torch
@@ -107,9 +154,9 @@ def phase_environment():
     smi = nvidia_smi_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    cuda_build.load_library("glm_vg")  # nvcc from the checkout's source
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, together
+        list(pool.map(cuda_build.load_library, SOURCES))
     build_s = time.perf_counter() - t0
-    ptxas = (cuda_build.BUILD_DIR / "glm_vg.log").read_text()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     env = {
@@ -118,14 +165,16 @@ def phase_environment():
         "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         "peak_bytes_per_s": PEAK_BYTES, "peak_ops_per_s": PEAK_OPS,
         "build_seconds": round(build_s, 3),
-        "ptxas": [ln.strip() for ln in ptxas.splitlines() if "registers" in ln],
+        "ptxas": {name: [ln.strip() for ln in (cuda_build.BUILD_DIR / f"{name}.log")
+                         .read_text().splitlines() if "registers" in ln or "Compiling" in ln]
+                  for name in SOURCES},
     }
     RESULTS["environment"] = env
     emit(env)
 
 
 def _rel(got, ref) -> float:
-    """max|got - ref| over max(max|ref|, 1): the quantity TOL limits."""
+    """max|got - ref| over max(max|ref|, 1): the quantity the limits bound."""
     return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
 
 
@@ -147,12 +196,10 @@ def _glm_inputs(c, n, d, family, gen):
     return x, y, b, z, m, iv, u
 
 
-def phase_kernels():
+def _glm_rows(gen, per_kernel):
     import torch
     from brancher_torch.ops import glm
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    per_kernel = {k: [] for k in glm.KERNELS}
     for shape_name, (c, n, d) in SHAPES.items():
         for family in ("bernoulli_logit", "normal_learned"):
             x, y, b, z, m, iv, u = _glm_inputs(c, n, d, family, gen)
@@ -193,63 +240,167 @@ def phase_kernels():
                     r32 = torch.zeros((c, n), device="cuda")
                     pair = lambda: (z @ data.x.T, r32 @ data.x)
                 matmul_ms = time_ms(pair)
-                flops = glm.glm_flops(c, n, d)
-                nbytes = glm.glm_bytes(c, n, d, 2 if dtype == "bf16" else 4, family)
-                t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_OPS[dtype] * 1e3
                 row = {
                     "phase": 2, "kernel": kernel.name, "shape": shape_name, "C": c, "N": n, "D": d,
                     **err, **control, "tolerance_rel": TOL, "ok": ok, "deterministic": deterministic,
-                    "ms": ms, "plain_ms": plain_ms, "matmul_pair_ms": matmul_ms,
-                    "flops": flops, "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "tflops": flops / (ms * 1e-3) / 1e12,
+                    "ms": ms, "plain_ms": plain_ms, "matmul_pair_ms": matmul_ms, "library_ms": None,
+                    **_bound(glm.glm_bytes(c, n, d, 2 if dtype == "bf16" else 4, family),
+                             glm.glm_flops(c, n, d), dtype),
                 }
+                row["tflops"] = row["flops"] / (ms * 1e-3) / 1e12
                 emit(row)
                 per_kernel[kernel.name].append(row)
                 check(ok, f"{kernel.name} at {shape_name} disagrees with its plain version: {err}")
                 check(deterministic, f"{kernel.name} at {shape_name} is not bit-reproducible")
             del x, y, b, z, data
             torch.cuda.empty_cache()
-    for k in glm.KERNELS.values():
-        k.launches = 0  # comparison launches do not count for the main path
+
+
+def _leapfrog_rows(gen, per_kernel):
+    import torch
+    from brancher_torch.ops import glm, leapfrog as lf
+
+    for shape_name in LEAPFROG_SHAPES:
+        c, n, d = SHAPES[shape_name]
+        for family in ("bernoulli_logit", "normal_learned"):
+            x, y, b, z, m, iv, u = _glm_inputs(c, n, d, family, gen)
+            u_fam = u if family == "normal_learned" else None
+            fused = lf.build_fused_leapfrog(family, x, y, b, m, iv, u=u_fam, c0=-0.3,
+                                            ll_scale=1.3, device="cuda")
+            check(fused is not None, f"{family} at {shape_name} fails K5's size gate")
+            data = fused.data
+            r = torch.randn((c, d), generator=gen, device="cuda")
+            _, g = data.plain(z)
+            im = torch.linspace(0.5, 1.5, d, device="cuda")
+            eps = torch.tensor(LEAPFROG_EPS, device="cuda")
+            for n_steps in LEAPFROG_STEPS:
+                steps_t = torch.tensor(n_steps, dtype=torch.int32, device="cuda")
+                out = fused(z, r, g, eps, im, steps_t)
+                out2 = fused(z, r, g, eps, im, steps_t)
+                ref = lf.plain_leapfrog(data, z, r, g, eps, im, n_steps)
+                torch.backends.cuda.matmul.allow_tf32 = True  # control: TF32 products
+                ctl = lf.plain_leapfrog(data, z, r, g, eps, im, n_steps)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.cuda.synchronize()
+                names = ("z", "r", "val", "grad")
+                err = {f"{k}_max_rel": _rel(a, bb) for k, a, bb in zip(names, out, ref)}
+                err["max_abs"] = max(float((a - bb).abs().max()) for a, bb in zip(out, ref))
+                control = {"control": "tf32",
+                           "control_max_rel": max(_rel(a, bb) for a, bb in zip(ctl, ref))}
+                worst = max(err[f"{k}_max_rel"] for k in names)
+                ok = worst <= TOL_LEAPFROG and all(bool(torch.isfinite(t).all()) for t in out)
+                deterministic = all(torch.equal(a, bb) for a, bb in zip(out, out2))
+                ms = time_ms(lambda: fused(z, r, g, eps, im, steps_t))
+                plain_ms = time_ms(lambda: lf.plain_leapfrog(data, z, r, g, eps, im, n_steps))
+                row = {
+                    "phase": 2, "kernel": lf.LEAPFROG.name, "family": family, "shape": shape_name,
+                    "C": c, "N": n, "D": d, "n_steps": n_steps, **err, "max_rel": worst,
+                    **control, "tolerance_rel": TOL_LEAPFROG, "ok": ok,
+                    "deterministic": deterministic, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None,
+                    **_bound(lf.leapfrog_bytes(c, n, d, family), lf.leapfrog_flops(c, n, d, n_steps)),
+                }
+                emit(row)
+                per_kernel[lf.LEAPFROG.name].append(row)
+                check(ok, f"K5 {family} at {shape_name}, {n_steps} steps, disagrees: {err}")
+                check(deterministic, f"K5 {family} at {shape_name} is not bit-reproducible")
+            del x, y, b, z, data, fused
+            torch.cuda.empty_cache()
+
+
+def _logreg_rows(gen, per_kernel):
+    import torch
+    from brancher_torch.ops import glm, logreg
+
+    for shape_name in LOGREG_SHAPES:
+        c, n, d = SHAPES[shape_name]
+        x = torch.randn((n, d), generator=gen, device="cuda") / d**0.5
+        y = (torch.rand((n,), generator=gen, device="cuda") < 0.5).float()
+        w = torch.randn((c, d), generator=gen, device="cuda")
+        v, g = logreg.logreg_value_and_grad(w, x, y, 1.5)
+        v2, g2 = logreg.logreg_value_and_grad(w, x, y, 1.5)
+        v_ref, g_ref = logreg.logreg_value_and_grad_reference(w, x, y, 1.5)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        v_ctl, g_ctl = logreg.logreg_value_and_grad_reference(w, x, y, 1.5)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        err = {"val_max_abs": float((v - v_ref).abs().max()),
+               "grad_max_abs": float((g - g_ref).abs().max()),
+               "val_max_rel": _rel(v, v_ref), "grad_max_rel": _rel(g, g_ref)}
+        ok = (err["val_max_rel"] <= TOL and err["grad_max_rel"] <= TOL
+              and bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all()))
+        deterministic = bool(torch.equal(v, v2) and torch.equal(g, g2))
+        row = {
+            "phase": 2, "kernel": logreg.LOGREG.name, "shape": shape_name, "C": c, "N": n, "D": d,
+            **err, "control": "tf32", "control_val_rel": _rel(v_ctl, v_ref),
+            "control_grad_rel": _rel(g_ctl, g_ref), "tolerance_rel": TOL, "ok": ok,
+            "deterministic": deterministic,
+            "ms": time_ms(lambda: logreg.logreg_value_and_grad(w, x, y, 1.5)),
+            "plain_ms": time_ms(lambda: logreg.logreg_value_and_grad_reference(w, x, y, 1.5)),
+            "library_ms": None,
+            # X, y, w read once; val and grad written once
+            **_bound(n * d * 4 + n * 4 + (2 * c * d + c) * 4, glm.glm_flops(c, n, d)),
+        }
+        emit(row)
+        per_kernel[logreg.LOGREG.name].append(row)
+        check(ok, f"K6 at {shape_name} disagrees with its plain version: {err}")
+        check(deterministic, f"K6 at {shape_name} is not bit-reproducible")
+        del x, y, w
+        torch.cuda.empty_cache()
+
+
+def phase_kernels():
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per_kernel = {k: [] for k in _all_kernels()}
+    _glm_rows(gen, per_kernel)
+    _leapfrog_rows(gen, per_kernel)
+    _logreg_rows(gen, per_kernel)
+    _reset_launches()  # comparison launches do not count for the main path
     RESULTS["kernels"] = per_kernel
 
 
-def _run_sample(model, tag, kernel_name, **kw):
+def _run_sample(model, tag, kernel_name, transition_kernel=None, **kw):
     """One sample() run with every launch counter at 0 before it; checks
-    that the expected kernel (or none) ran once per value+grad call."""
+    that the value+grad kernel ran once per value+grad call, the
+    trajectory kernel (K5) once per transition, and no other kernel."""
     import torch
     from brancher_torch.inference import sample
-    from brancher_torch.ops import glm
 
-    for k in glm.KERNELS.values():
-        k.launches = 0
+    _reset_launches()
+    gc.collect()  # an earlier phase's tensors held in reference cycles
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = sample(model, device="cuda", **kw)
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in glm.KERNELS.values()}
+    launches = {name: k.launches for name, k in _all_kernels().items()}
     d = res.diagnostics
     calls = d["value_and_grad_calls"]
+    transitions = kw.get("num_warmup", 0) + kw["num_samples"]
     for name, count in launches.items():
-        want = calls if name == kernel_name else 0
+        want = calls if name == kernel_name else transitions if name == transition_kernel else 0
         check(count == want, f"{tag}: {name} launched {count} times, expected {want}")
     check(kernel_name is None or calls > 0, f"{tag}: no value+grad call")
+    check(d["fused_leapfrog"] == (transition_kernel is not None),
+          f"{tag}: fused_leapfrog diagnostic is {d['fused_leapfrog']}")
     draws = res.stats["num_steps"].shape[1]
-    leaves = int(res.stats["num_steps"][0].sum())
+    steps = int(res.stats["num_steps"][0].sum())
     info = {
-        "run": tag, "kernel": kernel_name, "launches": launches.get(kernel_name, 0),
-        "fused_family": d["fused_family"], "fused_dtype": d["fused_dtype"],
+        "run": tag, "kernel": kernel_name, "transition_kernel": transition_kernel,
+        "launches": launches, "fused_family": d["fused_family"], "fused_dtype": d["fused_dtype"],
+        "fused_leapfrog": d["fused_leapfrog"],
         "sampler_seconds": d["sampler_seconds"], "wall_seconds": wall,
-        "value_and_grad_calls": calls, "warmup_leaf_iterations": d["warmup_leapfrog"],
-        "sampling_leaf_iterations": leaves, "leaves_per_draw": leaves / draws,
-        "host_syncs": d["host_syncs"],
-        "host_syncs_per_draw": d["host_syncs"] / (draws + kw.get("num_warmup", 0)),
+        "value_and_grad_calls": calls, "warmup_leaf_iterations": d.get("warmup_leapfrog"),
+        "sampling_leaf_iterations": steps, "leaves_per_draw": steps / draws,
+        "host_syncs": d["host_syncs"], "host_syncs_per_draw": d["host_syncs"] / transitions,
         "sampler_ms_per_vg_call": d["sampler_seconds"] * 1e3 / max(calls, 1),
         "divergences": d["num_divergences"], "mean_accept": d["mean_accept_prob"],
         "step_size": float(d["step_size"]),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
+    if "trajectory_length" in d:
+        info["trajectory_length"] = float(d["trajectory_length"])
     return res, info
 
 
@@ -263,13 +414,30 @@ def _post_stats(res, name):
     return mean, sd, ess, np.asarray(res.diagnostics["r_hat"][name], np.float64)
 
 
-def phase_floor():
+def _mcse_compare(phase, tag, ref, run, section):
     import numpy as np
-    from brancher_torch.inference import NUTS
+
+    (m0, s0, e0), (m1, s1, e1) = ref, run
+    z = np.abs(m1 - m0) / np.sqrt(s0**2 / e0 + s1**2 / e1)
+    line = {"phase": phase, "compare": tag, "max_abs_diff": float(np.abs(m1 - m0).max()),
+            "max_diff_in_mcse": float(z.max())}
+    emit(line)
+    RESULTS[section][tag] = line
+    check(float(z.max()) < 5.0, f"{tag}: posterior means differ by {z.max():.2f} MCSE")
+
+
+def _floor_model():
     from brancher_torch.models import logistic_regression_model, make_logreg_data
 
     x, y, _ = make_logreg_data(1000, 32, seed=0)
-    model = logistic_regression_model(x, y)
+    return x, y, logistic_regression_model(x, y)
+
+
+def phase_floor():
+    import numpy as np
+    from brancher_torch.inference import NUTS
+
+    _, _, model = _floor_model()
     base = dict(kernel=NUTS(max_depth=8), num_warmup=500, num_chains=1024, key=0)
     runs = {}
     for tag, fp, kname, draws in (("auto", "auto", "glm_bernoulli_f32", 1000),
@@ -290,20 +458,12 @@ def phase_floor():
         runs[tag] = (mean, sd, ess)
         emit(info)
         RESULTS.setdefault("floor", {})[tag] = info
-    m0, s0, e0 = runs["off"]
     for tag in ("auto", "bf16"):
-        m1, s1, e1 = runs[tag]
-        mcse = np.sqrt(s0**2 / e0 + s1**2 / e1)
-        z = np.abs(m1 - m0) / mcse
-        line = {"phase": 3, "compare": f"{tag} vs off", "max_abs_diff": float(np.abs(m1 - m0).max()),
-                "max_diff_in_mcse": float(z.max())}
-        emit(line)
-        RESULTS["floor"][f"{tag}_vs_off"] = line
-        check(float(z.max()) < 5.0, f"floor: {tag} posterior mean differs from off by {z.max():.2f} MCSE")
+        _mcse_compare(3, f"{tag} vs off", runs["off"], runs[tag], "floor")
+    RESULTS["floor_auto_moments"] = runs["auto"]
 
 
 def phase_conjugate():
-    import numpy as np
     from brancher_torch.inference import NUTS
     from brancher_torch.models import conjugate_normal_model
 
@@ -312,21 +472,42 @@ def phase_conjugate():
         res, run = _run_sample(model, f"conjugate/{tag}", kname, fused_potential=fp,
                                kernel=NUTS(max_depth=8), num_warmup=500, num_samples=1000,
                                num_chains=64, key=1)
-        mean, sd, ess, rhat = _post_stats(res, "mu")
-        mcse = float(sd / np.sqrt(ess))
-        var_rel = float(sd**2 / info["post_var"] - 1.0)
-        run.update({
-            "phase": 4, "post_mean": float(mean), "closed_form_mean": float(info["post_mean"]),
-            "mean_diff_in_mcse": abs(float(mean) - float(info["post_mean"])) / mcse,
-            "post_var": float(sd**2), "closed_form_var": float(info["post_var"]),
-            "var_rel_err": var_rel, "var_rel_tol": float(5 * np.sqrt(2.0 / ess)),
-            "ess": float(ess), "max_rhat": float(rhat),
-        })
-        emit(run)
+        _check_conjugate(res, run, info, 4, f"conjugate/{tag}")
         RESULTS.setdefault("conjugate", {})[tag] = run
-        check(run["fused_family"] == "normal_learned", f"conjugate/{tag}: family {run['fused_family']}")
-        check(run["mean_diff_in_mcse"] < 5.0, f"conjugate/{tag}: mean off by {run['mean_diff_in_mcse']:.2f} MCSE")
-        check(abs(var_rel) < run["var_rel_tol"], f"conjugate/{tag}: variance off by {var_rel:.4f}")
+
+
+def _check_conjugate(res, run, info, phase, tag):
+    import numpy as np
+
+    mean, sd, ess, rhat = _post_stats(res, "mu")
+    mcse = float(sd / np.sqrt(ess))
+    var_rel = float(sd**2 / info["post_var"] - 1.0)
+    run.update({
+        "phase": phase, "post_mean": float(mean), "closed_form_mean": float(info["post_mean"]),
+        "mean_diff_in_mcse": abs(float(mean) - float(info["post_mean"])) / mcse,
+        "post_var": float(sd**2), "closed_form_var": float(info["post_var"]),
+        "var_rel_err": var_rel, "var_rel_tol": float(5 * np.sqrt(2.0 / ess)),
+        "ess": float(ess), "max_rhat": float(rhat),
+    })
+    emit(run)
+    check(run["fused_family"] == "normal_learned", f"{tag}: family {run['fused_family']}")
+    check(run["mean_diff_in_mcse"] < 5.0, f"{tag}: mean off by {run['mean_diff_in_mcse']:.2f} MCSE")
+    check(abs(var_rel) < run["var_rel_tol"], f"{tag}: variance off by {var_rel:.4f}")
+
+
+def _probe_peak_gib(comp, prior_f) -> float:
+    """Peak card memory (GiB above what was allocated) of the recognizer's
+    diagonal-Gaussian probe of ``prior_f``."""
+    import torch
+    from brancher_torch.ops import glm
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    check(glm._diag_gaussian_prior(prior_f, comp.dim, comp.device) is not None,
+          "the MXU-scale prior is not a diagonal Gaussian")
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
 def phase_mxu():
@@ -338,6 +519,19 @@ def phase_mxu():
     x, y, _ = make_logreg_data(131072, 1024, seed=0)
     model = logistic_regression_model(x, y)
     setup = time.perf_counter() - t0
+    comp = model.compiled("cuda")
+    params = comp.initial_params
+    probe = {
+        "phase": 5, "run": "mxu/prior_probe",
+        # the probe as it was: the whole log density, its likelihood dropped
+        "whole_density_peak_gib": _probe_peak_gib(
+            comp, lambda zf: comp.log_density_z_parts(params, comp.unravel_z(zf))[0]),
+        # the probe as it is: the prior alone
+        "prior_only_peak_gib": _probe_peak_gib(
+            comp, lambda zf: comp.log_prior_z(params, comp.unravel_z(zf))),
+    }
+    emit(probe)
+    RESULTS.setdefault("mxu", {})["prior_probe"] = probe
     for tag, fp, kname in (("auto", "auto", "glm_bernoulli_f32"), ("bf16", "bf16", "glm_bernoulli_bf16")):
         res, run = _run_sample(model, f"mxu/{tag}", kname, fused_potential=fp,
                                kernel=NUTS(max_depth=5), num_warmup=10, num_samples=10,
@@ -348,38 +542,98 @@ def phase_mxu():
         check(run["fused_family"] == "bernoulli_logit", f"mxu/{tag}: family {run['fused_family']}")
         run.update({"phase": 5, "data_setup_seconds": setup, "N": 131072, "D": 1024})
         emit(run)
-        RESULTS.setdefault("mxu", {})[tag] = run
+        RESULTS["mxu"][tag] = run
+
+
+def phase_chees():
+    import numpy as np
+    import torch
+    from brancher_torch.inference import ChEESHMC
+    from brancher_torch.ops import logreg
+
+    x, y, model = _floor_model()
+    xd = torch.as_tensor(x, device="cuda")
+    yd = torch.as_tensor(np.asarray(y, np.float32), device="cuda")
+    base = dict(kernel=ChEESHMC(), num_warmup=500, num_samples=1000, num_chains=1024, key=3)
+    for tag, kname, trans, kw in (
+            ("fused", "glm_bernoulli_f32", "leapfrog_f32", {"fused_leapfrog": True}),
+            ("loop", "glm_bernoulli_f32", None, {}),
+            ("logreg", "logreg_f32", None,
+             {"value_and_grad_fn": lambda w: logreg.logreg_value_and_grad(w, xd, yd, 1.0)})):
+        res, info = _run_sample(model, f"chees/{tag}", kname, transition_kernel=trans, **base, **kw)
+        mean, sd, ess, rhat = _post_stats(res, "w")
+        info.update({
+            "phase": 6, "num_samples": 1000, "min_ess": float(ess.min()),
+            "ess_per_second": float(ess.min()) / info["sampler_seconds"],
+            "max_rhat": float(rhat.max()),
+        })
+        emit(info)
+        RESULTS.setdefault("chees", {})[tag] = info
+        check(info["max_rhat"] < 1.01, f"chees/{tag}: max R-hat {info['max_rhat']}")
+        check(bool(np.isfinite(mean).all()) and mean.shape == (32,), f"chees/{tag}: bad means")
+        if "floor_auto_moments" in RESULTS:  # phase 3 ran
+            _mcse_compare(6, f"chees/{tag} vs nuts/auto", RESULTS["floor_auto_moments"],
+                          (mean, sd, ess), "chees")
+
+
+def phase_hmc_conjugate():
+    from brancher_torch.inference import HMC
+    from brancher_torch.models import conjugate_normal_model
+
+    model, info = conjugate_normal_model()
+    res, run = _run_sample(model, "hmc_conjugate/fused", "glm_normal_f32",
+                           transition_kernel="leapfrog_f32", kernel=HMC(num_integration_steps=16),
+                           fused_leapfrog=True, num_warmup=500, num_samples=1000,
+                           num_chains=64, key=4)
+    _check_conjugate(res, run, info, 7, "hmc_conjugate/fused")
+    RESULTS["hmc_conjugate"] = {"fused": run}
+
+
+def _main_launches():
+    totals = {name: 0 for name in _all_kernels()}
+    for section in ("floor", "conjugate", "mxu", "chees", "hmc_conjugate"):
+        for run in RESULTS.get(section, {}).values():
+            for name, count in run.get("launches", {}).items():
+                totals[name] += count
+    return totals
 
 
 def summary_line():
-    from brancher_torch.ops import glm
-
-    main_launches = {k: 0 for k in glm.KERNELS}
-    for section in ("floor", "conjugate", "mxu"):
-        for run in RESULTS.get(section, {}).values():
-            if run.get("kernel") in main_launches:
-                main_launches[run["kernel"]] += run["launches"]
+    main_launches = _main_launches()
+    # K5's main row: the floor shape at the step count nearest the fused
+    # ChEES run's leapfrogs per draw
+    k5_steps = RESULTS["chees"]["fused"]["leaves_per_draw"]
     out = []
-    for name, k in glm.KERNELS.items():
+    for name, k in _all_kernels().items():
         rows = RESULTS["kernels"][name]
-        main = next(r for r in rows if r["shape"] == MAIN_SHAPE[k.family])
-        check(main_launches[name] > 0, f"{name} was never launched on the main path")
+        if name == "leapfrog_f32":
+            floor_rows = [r for r in rows if r["shape"] == "floor" and r["family"] == "bernoulli_logit"]
+            main = min(floor_rows, key=lambda r: abs(r["n_steps"] - k5_steps))
+            err_keys = ("max_abs",)
+        else:
+            main = next(r for r in rows if r["shape"] == MAIN_SHAPE[name])
+            err_keys = ("val_max_abs", "grad_max_abs")
+        check(main_launches[name] > 0, f"{name} was never launched on a sample() path")
         out.append({
-            "name": name, "route": "cuda", "source": "brancher_torch/csrc/glm_vg.cu",
+            "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces.split()[0], "launches": main_launches[name],
-            "max_abs_err": max(max(r["val_max_abs"], r["grad_max_abs"]) for r in rows),
+            "max_abs_err": max(r[e] for r in rows for e in err_keys),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
-            "shape": [main["C"], main["N"], main["D"]], "ok": all(r["ok"] for r in rows),
-            "at_shapes": {r["shape"]: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                         "matmul_pair_ms", "val_max_rel", "grad_max_rel",
-                                                         "control_val_rel", "control_grad_rel")}
-                          for r in rows},
+            "shape": [main["C"], main["N"], main["D"]], "n_steps": main.get("n_steps"),
+            "ok": all(r["ok"] for r in rows),
         })
     return {"kernels": out}
 
 
+STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
+         5: phase_mxu, 6: phase_chees, 7: phase_hmc_conjugate}
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default="", help="comma-separated subset of 1-7 (default: all)")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -398,14 +652,16 @@ def main() -> int:
         print("chip_smoke: brancher_torch found outside this checkout", file=sys.stderr)
         return 2
 
+    chosen = sorted(STEPS) if not args.phases else sorted({int(p) for p in args.phases.split(",")} | {1})
     t0 = time.perf_counter()
-    steps = [phase_environment, phase_kernels, phase_floor, phase_conjugate, phase_mxu]
-    for num, fn in enumerate(steps, start=1):
+    for num in chosen:
         t = time.perf_counter()
-        fn()
+        STEPS[num]()
         RESULTS.setdefault("phase_seconds", {})[num] = time.perf_counter() - t
     RESULTS["total_seconds"] = time.perf_counter() - t0
-    emit({"phase": 6, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    emit({"phase": 8, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    if chosen != sorted(STEPS):
+        return 0  # a subset: no summary, no "ok" line
     emit(summary_line())
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -174,3 +174,31 @@ def test_lifted_functions_build_expressions():
     val = link.fn({"w": torch.tensor([0.0, 1.0])}, tc._as_store(tc.initial_params))
     np.testing.assert_allclose(val.numpy(), [1.0, np.e + 1.0], rtol=1e-6)
     assert BFJ.exp is not None  # the JAX namespace exposes the same names
+
+
+@pytest.mark.parametrize("name", ["conjugate", "logreg", "lognormal_scale"])
+def test_log_prior_z_is_the_prior_part(name):
+    _, tm = _models(name)
+    tc = tm.compiled(device="cpu")
+    for zf in torch.as_tensor(np.random.RandomState(2).normal(0, 0.8, size=(3, tc.dim)).astype(np.float32)):
+        z = tc.unravel_z(zf)
+        prior, _ = tc.log_density_z_parts(tc.initial_params, z)
+        assert torch.equal(tc.log_prior_z(tc.initial_params, z), prior)
+
+
+def test_log_prior_z_never_evaluates_the_likelihood(monkeypatch):
+    """The recognizer's prior probe: an observed variable whose log_prob
+    raises does not stop it (so a large likelihood is never computed)."""
+    data = np.random.RandomState(4).normal(1.0, 0.7, size=40).astype(np.float32)
+    tc = _lognormal_scale_model(BT, data).compiled(device="cpu")
+    z = {"mu": torch.tensor(0.4), "sigma": torch.tensor(-0.3)}
+    want = tc.log_density_z_parts(tc.initial_params, z)[0]
+    obs = next(v for v in tc.order if v.name == "x")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the likelihood was evaluated")
+
+    monkeypatch.setattr(obs.distribution, "log_prob", refuse)
+    assert torch.equal(tc.log_prior_z(tc.initial_params, z), want)
+    with pytest.raises(AssertionError, match="likelihood was evaluated"):
+        tc.log_density_z_parts(tc.initial_params, z)

@@ -228,7 +228,7 @@ def test_recognizer_passes_device_errors_on(monkeypatch, error):
     def failing(*args, **kwargs):
         raise error
 
-    monkeypatch.setattr(tc, "log_density_z_parts", failing)
+    monkeypatch.setattr(tc, "log_prior_z", failing)  # the first probe
     with pytest.raises(type(error), match=str(error)):
         G.recognize_fused_family(tc, tc.initial_params)
 

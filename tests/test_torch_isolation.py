@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor brancher_tpu
-and builds nothing, and no module of it imports the JAX package."""
+and builds nothing, and no module of it (nor chip_smoke.py) imports the
+JAX package."""
 import ast
 import json
 import subprocess
@@ -13,6 +14,7 @@ PORT = ROOT / "brancher_torch"
 def test_import_loads_no_jax_and_builds_nothing():
     code = (
         "import sys, json, brancher_torch, brancher_torch.inference, brancher_torch.ops.glm, "
+        "brancher_torch.ops.leapfrog, brancher_torch.ops.logreg, brancher_torch.ops.batched_hmc, "
         "brancher_torch.models, brancher_torch.bridge, brancher_torch.ops.cuda_build;"
         "print(json.dumps({'jax': 'jax' in sys.modules, "
         "'tpu': any(m.startswith('brancher_tpu') for m in sys.modules), "
@@ -25,7 +27,7 @@ def test_import_loads_no_jax_and_builds_nothing():
 
 def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
     offenders = []
-    for path in sorted(PORT.rglob("*.py")):
+    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -37,4 +39,5 @@ def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
                 if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "brancher_tpu"):
                     offenders.append(f"{path.relative_to(ROOT)}: {name}")
     assert not offenders, offenders
-    assert (PORT / "csrc" / "glm_vg.cu").exists()
+    for source in ("glm_vg.cu", "leapfrog.cu"):
+        assert (PORT / "csrc" / source).exists()

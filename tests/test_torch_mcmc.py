@@ -12,7 +12,7 @@ import torch
 from brancher_tpu.inference import NUTS as JNUTS
 from brancher_tpu.inference import sample as jsample
 from brancher_tpu.models import logistic_regression_model as j_logreg
-from brancher_torch.inference import NUTS, sample
+from brancher_torch.inference import HMC, NUTS, ChEESHMC, sample
 from brancher_torch.models import conjugate_normal_model, logistic_regression_model, make_logreg_data
 
 torch.set_num_threads(2)
@@ -94,10 +94,42 @@ def test_sample_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("option", [
     {"chain_method": "vmap"}, {"chain_method": "shard_map"}, {"mass": "dense"},
-    {"resume_state": {"z": None}}, {"enumerate_discrete": True}, {"fused_leapfrog": True},
+    {"resume_state": {"z": None}}, {"enumerate_discrete": True},
     {"diagnostics_backend": "device"},
 ], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values())))[:8])
 def test_unported_options_raise_naming_the_roadmap(option):
     model, _ = conjugate_normal_model()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sample(model, num_samples=5, num_warmup=5, num_chains=2, device="cpu", **option)
+
+
+def test_fused_leapfrog_under_nuts_warns_and_changes_nothing():
+    """As in the JAX package the flag has no effect under NUTS; unlike it,
+    sample() says so and reports that the kernel did not run."""
+    model, _ = conjugate_normal_model()
+    kw = dict(kernel=NUTS(max_depth=4), num_samples=30, num_warmup=30, num_chains=4, key=3,
+              device="cpu")
+    plain = sample(model, **kw)
+    with pytest.warns(UserWarning, match="fused_leapfrog=True was requested"):
+        flagged = sample(model, fused_leapfrog=True, **kw)
+    assert torch.equal(plain.samples["mu"], flagged.samples["mu"])
+    assert flagged.diagnostics["fused_leapfrog"] is False
+
+
+@pytest.mark.parametrize("kernel", [HMC(num_integration_steps=5, jitter_steps=False),
+                                    ChEESHMC(max_leapfrog=6), NUTS(max_depth=3)],
+                         ids=["hmc", "chees", "nuts"])
+def test_engine_dispatch_and_step_counts(kernel):
+    x, y, _ = make_logreg_data(60, 2, seed=5)
+    res = sample(logistic_regression_model(x, y), kernel=kernel, num_samples=25, num_warmup=25,
+                 num_chains=4, key=4, device="cpu")
+    d, steps = res.diagnostics, res.stats["num_steps"]
+    assert steps.shape == (4, 25) and d["total_leapfrog_steps"] == int(steps.sum())
+    assert ("trajectory_length" in d) == isinstance(kernel, ChEESHMC)
+    if isinstance(kernel, HMC):
+        assert bool((steps == 5).all()) and d["host_syncs"] == 0
+    if isinstance(kernel, ChEESHMC):
+        assert int(steps.max()) <= 6 and d["host_syncs"] == 50  # one count read per transition
+    # value+grad calls: the initial one, the step-size search, one per leapfrog step
+    if not isinstance(kernel, NUTS):
+        assert d["value_and_grad_calls"] > int(steps[0].sum())
