@@ -37,6 +37,7 @@ class ChEESResult(NamedTuple):
     warmup_leapfrog: Tensor  # 0-d: total leapfrog steps during warmup
     diverging: Tensor  # [C, S] energy error > max_delta_energy (or non-finite)
     host_syncs: int  # device->host syncs of the whole run
+    used_leapfrog_fn: bool  # the transitions ran leapfrog_fn (not under dense mass)
 
 
 class ChEESHMC:
@@ -234,4 +235,5 @@ def chees_hmc(
         warmup_leapfrog=lf_total,
         diverging=dvgs.transpose(0, 1),
         host_syncs=syncs,
+        used_leapfrog_fn=leapfrog_fn is not None,
     )

@@ -229,19 +229,6 @@ def sample(
             "value_and_grad_fn — does not hold); sampling proceeds with "
             "the f32 path.", stacklevel=2,
         )
-    from ..ops.leapfrog import FusedLeapfrog
-
-    k5_runs = (isinstance(leapfrog_fn, FusedLeapfrog) and dev.type == "cuda"
-               and (isinstance(kernel, HMC)
-                    or (isinstance(kernel, ChEESHMC) and kernel.mass == "diag")))
-    if fused_leapfrog and not k5_runs:
-        warnings.warn(
-            "fused_leapfrog=True was requested but the fused leapfrog kernel "
-            "will not run (the engine is not HMC/ChEES with diagonal mass, no "
-            "GLM family was recognized, X fails the kernel's size gate, or "
-            "the run is on the CPU); the engine integrates with a loop of "
-            "value+grad calls.", stacklevel=2,
-        )
     if value_and_grad_fn is None:
         value_and_grad_fn = autodiff_value_and_grad(potential_fn)
     vg = _Counted(value_and_grad_fn)
@@ -312,6 +299,18 @@ def sample(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     sampler_seconds = time.perf_counter() - t_engine
+    # K5 ran when the engine integrated with leapfrog_fn (NUTS takes none;
+    # ChEES drops it under dense mass) and that is K5's wrapper on the card
+    k5_ran = (getattr(res, "used_leapfrog_fn", False)
+              and getattr(leapfrog_fn, "uses_kernel", False))
+    if fused_leapfrog and not k5_ran:
+        warnings.warn(
+            "fused_leapfrog=True was requested but the fused leapfrog kernel "
+            "did not run (the engine is not HMC/ChEES with diagonal mass, no "
+            "GLM family was recognized, X fails the kernel's size gate, or "
+            "the run is on the CPU); the engine integrated with a loop of "
+            "value+grad calls.", stacklevel=2,
+        )
 
     # -- constrain + collect -----------------------------------------------
     names_out = list(comp.continuous_latent_names)
@@ -346,7 +345,7 @@ def sample(
         "host_syncs": res.host_syncs,
         "fused_family": fam_name,
         "fused_dtype": ("bf16" if bf16_active else "f32") if fam_name else None,
-        "fused_leapfrog": k5_runs,
+        "fused_leapfrog": k5_ran,
         "device": str(dev),
     }
     if diagnostics_backend != "none":

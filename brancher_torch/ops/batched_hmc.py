@@ -45,6 +45,7 @@ class BatchedHMCResult(NamedTuple):
     inv_mass: Tensor
     diverging: Tensor  # [C, S] energy error > max_delta_energy (or non-finite)
     host_syncs: int  # device->host syncs of the whole run
+    used_leapfrog_fn: bool  # the transitions ran leapfrog_fn
 
 
 def hmc_transition(value_and_grad_fn: VG, z: Tensor, val: Tensor, grad: Tensor,
@@ -151,4 +152,5 @@ def hmc_batched(
         inv_mass=inv_mass,
         diverging=dvgs.transpose(0, 1),
         host_syncs=syncs,
+        used_leapfrog_fn=leapfrog_fn is not None,
     )

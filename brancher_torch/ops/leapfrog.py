@@ -8,8 +8,8 @@ NUTS cannot use one (it needs the tree's bookkeeping between steps).
   * ``reference_leapfrog(vg)``: a Python loop of any value+grad.  It reads
     ``n_steps`` on the host (one sync when it is a device tensor).  It is
     the CPU path, and the path on the card when the size gate refuses.
-  * ``plain_leapfrog``: K5's plain version, the loop of the family's plain
-    value+grad.
+    Over the family's plain value+grad, ``reference_leapfrog(data.plain)``
+    is K5's plain version.
   * ``build_fused_leapfrog``: the wrapper of kernel K5
     (``csrc/leapfrog.cu``), or None when the data fail the size gate.  The
     kernel reads ``eps`` and ``n_steps`` from device memory, so a
@@ -73,11 +73,6 @@ def reference_leapfrog(value_and_grad_fn):
     return leapfrog
 
 
-def plain_leapfrog(data: FusedFamily, z, r, grad, eps, inv_mass, n_steps):
-    """K5's plain version: ``n_steps`` steps of the family's plain value+grad."""
-    return reference_leapfrog(data.plain)(z, r, grad, eps, inv_mass, n_steps)
-
-
 class LeapfrogKernel:
     """Wrapper of ``csrc/leapfrog.cu`` (both GLM families, f32).
 
@@ -123,7 +118,7 @@ class LeapfrogKernel:
 
     def __call__(self, data: FusedFamily, z, r, grad, eps, inv_mass, n_steps):
         if z.device.type == "cpu":
-            return plain_leapfrog(data, z, r, grad, eps, inv_mass, n_steps)
+            return reference_leapfrog(data.plain)(z, r, grad, eps, inv_mass, n_steps)
         if z.device.type != "cuda":
             raise RuntimeError(f"{self.name} runs on CUDA tensors, got {z.device}")
         dev = z.device
@@ -175,6 +170,11 @@ class FusedLeapfrog:
     def __init__(self, data: FusedFamily):
         self.data = data
 
+    @property
+    def uses_kernel(self) -> bool:
+        """A call launches K5 (the data are on a CUDA device)."""
+        return self.data.x.device.type == "cuda"
+
     def __call__(self, z, r, grad, eps, inv_mass, n_steps):
         return LEAPFROG(self.data, z, r, grad, eps, inv_mass, n_steps)
 
@@ -205,7 +205,7 @@ def leapfrog_bytes(c: int, n: int, d: int, family: str) -> int:
 
 
 __all__ = [
-    "reference_leapfrog", "plain_leapfrog", "build_fused_leapfrog", "FusedLeapfrog",
+    "reference_leapfrog", "build_fused_leapfrog", "FusedLeapfrog",
     "LeapfrogKernel", "LEAPFROG", "leapfrog_fits", "leapfrog_smem_bytes",
     "leapfrog_flops", "leapfrog_bytes", "SMEM_PER_BLOCK_OPTIN",
 ]

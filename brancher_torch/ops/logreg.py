@@ -115,14 +115,13 @@ def make_logreg_log_posterior(x, y, prior_scale: float = 1.0, use_pallas="auto",
     cost one K6 launch (``torch.autograd.grad`` reads the gradient the
     forward saved).
 
-    use_pallas keeps the JAX package's name: "auto" takes the kernel for
-    CUDA tensors and the plain version for CPU tensors; True requires the
-    kernel (a CPU ``w`` raises); False always takes the plain version.
-    x and y move once to ``device`` (default: where they are when they
-    are tensors, else ``config.device``).
+    use_pallas keeps the JAX package's name and takes only "auto": the
+    kernel for CUDA tensors, the plain version for CPU tensors.  x and y
+    move once to ``device`` (default: where they are when they are
+    tensors, else ``config.device``).
     """
-    if use_pallas not in ("auto", True, False):
-        raise ValueError(f"use_pallas must be 'auto', True or False, got {use_pallas!r}")
+    if use_pallas != "auto":
+        raise ValueError(f"use_pallas must be 'auto', got {use_pallas!r}")
     if device is None and isinstance(x, Tensor):
         device = x.device
     dev = resolve_device(device)
@@ -130,10 +129,6 @@ def make_logreg_log_posterior(x, y, prior_scale: float = 1.0, use_pallas="auto",
     yt = torch.as_tensor(y, dtype=torch.float32).to(dev).reshape(-1).contiguous()
 
     def fused(w):
-        if use_pallas is False:
-            return logreg_value_and_grad_reference(w, xt, yt, prior_scale)
-        if use_pallas is True and w.device.type != "cuda":
-            raise RuntimeError("use_pallas=True needs w on a CUDA device")
         return LOGREG(w, xt, yt, prior_scale)
 
     def log_post(w: Tensor) -> Tensor:

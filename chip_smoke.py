@@ -30,7 +30,8 @@ Phases (each prints one or more JSON lines tagged "phase"):
      K6; posterior means against phase 3's "auto" run;
   7. HMC(num_integration_steps=16) with fused_leapfrog=True on the
      conjugate model (K5 on normal_learned), against the closed form;
-  8. the {"kernels": [...]} summary, the card's name and power limit, and
+  8. the {"kernels": [...]} summary (K5 once for each of its two paths),
+     the card's name and power limit, and
      the last line {"ok": true, "device": {...}}.
 
 Every launch counter is set to 0 just before each sample() run and read
@@ -73,6 +74,10 @@ SOURCES = ("glm_vg", "leapfrog")
 MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor",
               "glm_normal_f32": "conjugate", "glm_normal_bf16": "conjugate",
               "logreg_f32": "floor"}
+# K5 runs on two main paths, one entry each in the summary: (section and
+# run of RESULTS, phase-2 shape, family)
+LEAPFROG_PATHS = ((("chees", "fused"), "floor", "bernoulli_logit"),
+                  (("hmc_conjugate", "fused"), "conjugate", "normal_learned"))
 # Limit on max|kernel - plain| / max(max|plain|, 1), for val and grad.  The
 # kernel and its plain version differ only in summation order: the worst
 # reading on an H100 was 9.4e-7 (PERF.md).  For bf16 the product of two
@@ -273,13 +278,14 @@ def _leapfrog_rows(gen, per_kernel):
             _, g = data.plain(z)
             im = torch.linspace(0.5, 1.5, d, device="cuda")
             eps = torch.tensor(LEAPFROG_EPS, device="cuda")
+            plain = lf.reference_leapfrog(data.plain)  # K5's plain version
             for n_steps in LEAPFROG_STEPS:
                 steps_t = torch.tensor(n_steps, dtype=torch.int32, device="cuda")
                 out = fused(z, r, g, eps, im, steps_t)
                 out2 = fused(z, r, g, eps, im, steps_t)
-                ref = lf.plain_leapfrog(data, z, r, g, eps, im, n_steps)
+                ref = plain(z, r, g, eps, im, n_steps)
                 torch.backends.cuda.matmul.allow_tf32 = True  # control: TF32 products
-                ctl = lf.plain_leapfrog(data, z, r, g, eps, im, n_steps)
+                ctl = plain(z, r, g, eps, im, n_steps)
                 torch.backends.cuda.matmul.allow_tf32 = False
                 torch.cuda.synchronize()
                 names = ("z", "r", "val", "grad")
@@ -291,7 +297,7 @@ def _leapfrog_rows(gen, per_kernel):
                 ok = worst <= TOL_LEAPFROG and all(bool(torch.isfinite(t).all()) for t in out)
                 deterministic = all(torch.equal(a, bb) for a, bb in zip(out, out2))
                 ms = time_ms(lambda: fused(z, r, g, eps, im, steps_t))
-                plain_ms = time_ms(lambda: lf.plain_leapfrog(data, z, r, g, eps, im, n_steps))
+                plain_ms = time_ms(lambda: plain(z, r, g, eps, im, n_steps))
                 row = {
                     "phase": 2, "kernel": lf.LEAPFROG.name, "family": family, "shape": shape_name,
                     "C": c, "N": n, "D": d, "n_steps": n_steps, **err, "max_rel": worst,
@@ -585,6 +591,8 @@ def phase_hmc_conjugate():
                            transition_kernel="leapfrog_f32", kernel=HMC(num_integration_steps=16),
                            fused_leapfrog=True, num_warmup=500, num_samples=1000,
                            num_chains=64, key=4)
+    # HMC's num_steps stat is the JAX package's (L+1)//2, not the drawn counts
+    run["leaves_per_draw_is"] = "jax_estimate"
     _check_conjugate(res, run, info, 7, "hmc_conjugate/fused")
     RESULTS["hmc_conjugate"] = {"fused": run}
 
@@ -598,31 +606,39 @@ def _main_launches():
     return totals
 
 
+def _summary_entry(name, k, rows, main, launches, err_keys):
+    check(launches > 0, f"{name} was never launched on a sample() path")
+    return {
+        "name": name, "route": "cuda", "source": k.source,
+        "replaces": k.replaces.split()[0], "launches": launches,
+        "max_abs_err": max(r[e] for r in rows for e in err_keys),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "shape": [main["C"], main["N"], main["D"]], "n_steps": main.get("n_steps"),
+        "ok": all(r["ok"] for r in rows),
+    }
+
+
 def summary_line():
     main_launches = _main_launches()
-    # K5's main row: the floor shape at the step count nearest the fused
-    # ChEES run's leapfrogs per draw
-    k5_steps = RESULTS["chees"]["fused"]["leaves_per_draw"]
     out = []
     for name, k in _all_kernels().items():
         rows = RESULTS["kernels"][name]
-        if name == "leapfrog_f32":
-            floor_rows = [r for r in rows if r["shape"] == "floor" and r["family"] == "bernoulli_logit"]
-            main = min(floor_rows, key=lambda r: abs(r["n_steps"] - k5_steps))
-            err_keys = ("max_abs",)
-        else:
+        if name != "leapfrog_f32":
             main = next(r for r in rows if r["shape"] == MAIN_SHAPE[name])
-            err_keys = ("val_max_abs", "grad_max_abs")
-        check(main_launches[name] > 0, f"{name} was never launched on a sample() path")
-        out.append({
-            "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces.split()[0], "launches": main_launches[name],
-            "max_abs_err": max(r[e] for r in rows for e in err_keys),
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
-            "shape": [main["C"], main["N"], main["D"]], "n_steps": main.get("n_steps"),
-            "ok": all(r["ok"] for r in rows),
-        })
+            out.append(_summary_entry(name, k, rows, main, main_launches[name],
+                                      ("val_max_abs", "grad_max_abs")))
+            continue
+        # K5: one entry per path, its launches from that path's run and its
+        # row at that path's shape and family, at the step count nearest the
+        # run's leapfrogs per draw
+        for (section, tag), shape, family in LEAPFROG_PATHS:
+            run = RESULTS[section][tag]
+            check(run["fused_family"] == family, f"{section}/{tag}: family {run['fused_family']}")
+            path_rows = [r for r in rows if r["shape"] == shape and r["family"] == family]
+            main = min(path_rows, key=lambda r: abs(r["n_steps"] - run["leaves_per_draw"]))
+            out.append(_summary_entry(f"{name}/{family}", k, path_rows, main,
+                                      run["launches"][name], ("max_abs",)))
     return {"kernels": out}
 
 

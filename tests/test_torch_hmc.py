@@ -122,10 +122,12 @@ def test_hmc_replays_jax_stream(fused):
     np.testing.assert_array_equal(tres.diverging.numpy(), np.asarray(jres.diverging))
     # the jittered count is read on the host once per transition on both paths
     assert tres.host_syncs == warm + draws
+    assert tres.used_leapfrog_fn is fused
 
 
-@pytest.mark.parametrize("mass,fused", [("diag", False), ("diag", True), ("dense", False)],
-                         ids=["diag-loop", "diag-leapfrog_fn", "dense"])
+@pytest.mark.parametrize("mass,fused", [("diag", False), ("diag", True), ("dense", False),
+                                        ("dense", True)],
+                         ids=["diag-loop", "diag-leapfrog_fn", "dense", "dense-leapfrog_fn"])
 def test_chees_replays_jax_stream(mass, fused):
     jvg, tvg, d = _target(1)
     c, warm, draws = 12, 3, 2
@@ -146,6 +148,8 @@ def test_chees_replays_jax_stream(mass, fused):
     _close(tres.trajectory_length, jres.trajectory_length, rtol=1e-5)
     _close(tres.inv_mass, jres.inv_mass, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(tres.diverging.numpy(), np.asarray(jres.diverging))
+    # dense mass drops leapfrog_fn, as the JAX engine does, and says so
+    assert tres.used_leapfrog_fn is (fused and mass == "diag")
 
 
 def test_hmc_loop_path_flags_divergences_without_a_host_sync():
@@ -224,7 +228,7 @@ def test_hmc_with_fused_leapfrog_posterior():
     assert res.diagnostics["fused_leapfrog"] is False
     assert abs(float(res.samples["mu"].mean()) - truth["post_mean"]) < 0.05
     assert abs(float(res.samples["mu"].var(unbiased=False)) - truth["post_var"]) < 0.03
-    # HMC reports the mean jittered count per draw, as the JAX package
+    # HMC's num_steps is the JAX package's (L+1)//2 per draw, not the drawn count
     assert int(res.stats["num_steps"][0, 0]) == 8
 
 
