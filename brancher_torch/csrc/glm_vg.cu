@@ -10,12 +10,14 @@
 //                          logreg: bernoulli_logit with no offset and a
 //                          N(0, 1/piv) prior), launched by
 //                          logreg_value_and_grad_pallas.
+// K1 and K2 have their own design for this card, in
+// glm_bernoulli_sm90.cuh (wgmma and TMA for K2, register-tiled f32 FMA
+// with cp.async for K1); this file holds their C entries.  The template
+// below serves K3, K4 and K6.
 //
-// What it computes, for chains z [C,D], design X [N,D], y, offset b [N],
-// a diagonal Gaussian prior (m, iv) [D] and a likelihood scale s_ll:
-//   bernoulli_logit: l = z X^T + b
-//     val  = s_ll * sum_n (y l - softplus l) - 1/2 sum_d (z-m)^2 iv
-//     grad = s_ll * (y - sigmoid l) X - (z-m) iv
+// What the template computes, for chains z [C,D], design X [N,D], y,
+// offset b [N], a diagonal Gaussian prior (m, iv) [D] and a likelihood
+// scale s_ll:
 //   normal_learned:  loc = z X^T + b, s = z.u + c0, e2 = exp(-2 s),
 //                    rss = sum_n (y - loc)^2
 //     val  = -1/2 sum_d (z-m)^2 iv - s_ll N s + s_ll (-1/2) e2 rss
@@ -23,9 +25,9 @@
 //   logreg (K6):     l = z X^T
 //     val  = sum_n (y l - softplus l) - 1/2 piv sum_d z^2
 //     grad = (y - sigmoid l) X - piv z
-// The bf16 variants round z and the residual to bf16 at the two products
-// (the product of two bf16 values is exact in f32), accumulate in f32, and
-// keep softplus, sigmoid, exp and every accumulator in f32.
+// The bf16 variant rounds z and the residual to bf16 at the two products
+// (the product of two bf16 values is exact in f32), accumulates in f32, and
+// keeps softplus, sigmoid, exp and every accumulator in f32.
 //
 // Bound on this card.  Work is FLOPs = 4 C N D (two products through X);
 // bytes are at least one read of X, N D 4 (f32) or N D 2 (bf16), plus
@@ -38,9 +40,9 @@
 // the call is 131 MFLOP and 0.4 MB, under 2 us of either bound, so launch
 // latency, not the card, bounds it.
 //
-// Design.  The TPU kernel keeps val/grad resident in VMEM across a
-// SEQUENTIAL sweep of row blocks.  Here blocks run in parallel and in no
-// order, so the work is cut in two deterministic passes, with no atomics:
+// Design of the template.  The TPU kernel keeps val/grad resident in VMEM
+// across a SEQUENTIAL sweep of row blocks.  Here blocks run in parallel and
+// in no order, so the work is cut in two deterministic passes, no atomics:
 //   pass 1, grid (chain block of BC chains) x (row split):  each block walks
 //     its rows in tiles of BN.  Per tile it forms the [BC,BN] logits in
 //     registers (z and X chunks staged through shared memory), applies the
@@ -53,14 +55,19 @@
 //     applies the prior and the family epilogue.
 // Each X tile is read once per product from device memory or L2: the
 // second product re-reads the tile the first one just brought through L2.
-// FMAs run in f32 on the CUDA cores from 4x4 register micro-tiles; wgmma,
-// TMA and a persistent schedule are later work.  Ragged edges (N not a
-// multiple of BN, C not a multiple of BC, D not a multiple of BK or BD) are
-// masked with bounds checks: no padded copy of X is ever made.
+// FMAs run in f32 on the CUDA cores from 4x4 register micro-tiles.  Ragged
+// edges (N not a multiple of BN, C not a multiple of BC, D not a multiple
+// of BK or BD) are masked with bounds checks: no padded copy of X is made.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -71,7 +78,6 @@ constexpr int BD = 64;        // width of a second-product chunk (over D)
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int RED_THREADS = 256;
 
-constexpr int BERNOULLI_LOGIT = 0;
 constexpr int NORMAL_LEARNED = 1;
 constexpr int LOGREG = 2;
 
@@ -282,9 +288,6 @@ __global__ void __launch_bounds__(RED_THREADS) glm_pass2(
     float g;
     if (FAMILY == LOGREG) {
       g = gs - prior_iv * zc[d];
-    } else if (FAMILY == BERNOULLI_LOGIT) {
-      const float dz = zc[d] - m[d];
-      g = ll_scale * gs - dz * iv[d];
     } else {
       const float dz = zc[d] - m[d];
       g = -dz * iv[d] - (ll_scale * n_real) * u[d] + ll_scale * (e2 * gs + (e2 * ll) * u[d]);
@@ -294,8 +297,6 @@ __global__ void __launch_bounds__(RED_THREADS) glm_pass2(
   if (tid == 0) {
     if (FAMILY == LOGREG) {
       val[c] = ll - 0.5f * prior_iv * q;
-    } else if (FAMILY == BERNOULLI_LOGIT) {
-      val[c] = ll_scale * ll - 0.5f * q;
     } else {
       val[c] = (-0.5f * q - ll_scale * n_real * s) + ll_scale * (-0.5f) * e2 * ll;
     }
@@ -321,6 +322,8 @@ int launch(const float* z, const void* x, const float* y, const float* b,
 
 }  // namespace
 
+#include "glm_bernoulli_sm90.cuh"
+
 #define GLM_ENTRY(NAME, FAMILY, XT)                                               \
   extern "C" int NAME(const float* z, const void* x, const float* y,             \
                       const float* b, const float* m, const float* iv,           \
@@ -333,8 +336,25 @@ int launch(const float* z, const void* x, const float* y, const float* b,
                               tiles_per_split, stream);                          \
   }
 
-GLM_ENTRY(glm_vg_bernoulli_f32, BERNOULLI_LOGIT, float)
-GLM_ENTRY(glm_vg_bernoulli_bf16, BERNOULLI_LOGIT, __nv_bfloat16)
+// K1 and K2 (glm_bernoulli_sm90.cuh): z [C,D]; X [N,D] with rows ldx
+// elements apart (16-byte aligned); the scratch z_s [C,ldz] and resid
+// [C,ldr] in the operand type, ll_part [C,row_tiles] and g_part
+// [splits,C,ldg] in f32, as ops/glm.py plan_bernoulli lays them out
+#define BERN_ENTRY(NAME, BF16)                                                     \
+  extern "C" int NAME(const float* z, const void* x, const void* maps,            \
+                      const float* y, const float* b, const float* m,              \
+                      const float* iv, float ll_scale, float* val, float* grad,    \
+                      void* z_s, void* resid, float* ll_part, float* g_part,       \
+                      int C, int N, int D, int ldx, int ldz, int ldr, int ldg,     \
+                      int row_tiles, int splits, int rows_per_split,               \
+                      void* stream) {                                              \
+    return bern::launch<BF16>(z, x, maps, y, b, m, iv, ll_scale, val, grad, z_s,   \
+                              resid, ll_part, g_part, C, N, D, ldx, ldz, ldr, ldg, \
+                              row_tiles, splits, rows_per_split, stream);          \
+  }
+
+BERN_ENTRY(glm_vg_bernoulli_f32, false)
+BERN_ENTRY(glm_vg_bernoulli_bf16, true)
 GLM_ENTRY(glm_vg_normal_f32, NORMAL_LEARNED, float)
 GLM_ENTRY(glm_vg_normal_bf16, NORMAL_LEARNED, __nv_bfloat16)
 
@@ -352,3 +372,31 @@ extern "C" int logreg_vg_f32(const float* z, const float* x, const float* y,
 // tile sizes, read by the wrapper to cut the rows into splits
 extern "C" int glm_vg_block_chains() { return BC; }
 extern "C" int glm_vg_block_rows() { return BN; }
+
+// K1/K2 tiles (chains and rows of pass A, chains, columns and depth of
+// pass B, the row alignment in elements, and the blocks one SM holds),
+// which the wrapper's planner must match: out[7]
+extern "C" int glm_bern_tiles(int bf16, int* out) {
+  const int t[2][7] = {
+      {bern::F_BM, bern::F_BN, bern::F_BM, bern::F_BN, bern::F_BK, bern::F_ALIGN,
+       bern::F_BLOCKS_PER_SM},
+      {bern::T_BM, bern::T_ROWS_A, bern::T_BM, bern::T_COLS_B, bern::T_BK, bern::T_ALIGN,
+       bern::T_BLOCKS_PER_SM}};
+  for (int i = 0; i < 7; ++i) out[i] = t[bf16 ? 1 : 0][i];
+  return 0;
+}
+
+// K2's four tensor maps (bern::encode_maps) of a bf16 X [N,D] with rows
+// ldx elements apart and of the scratch z_s [C,ldz] and resid [C,ldr]:
+// 4 x 128 bytes to out.
+extern "C" int glm_bern_encode_maps(const void* x, int ldx, const void* z_s, int ldz,
+                                    const void* resid, int ldr, int C, int N, int D, void* out) {
+  if (!bern::aligned16(x) || !bern::aligned16(z_s) || !bern::aligned16(resid) || C <= 0 ||
+      N <= 0 || D <= 0 || ldx < D || ldz < D || ldr < N || ldx % bern::T_ALIGN ||
+      ldz % bern::T_ALIGN || ldr % bern::T_ALIGN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[4];
+  const int err = bern::encode_maps(x, ldx, z_s, ldz, resid, ldr, C, N, D, maps);
+  if (err == 0) memcpy(out, maps, sizeof(maps));
+  return err;
+}

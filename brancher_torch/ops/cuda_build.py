@@ -4,8 +4,15 @@ Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a
 shared library under ``build/kernels/`` at the root of the checkout (a
 directory git ignores) and loaded with ``ctypes``.  The library's file
-name carries a digest of the source and the flags, so an edited source is
-rebuilt and a stale build is never loaded.
+name carries a digest of the source, of every ``csrc/`` header it
+includes (``#include "..."``, followed through headers), and of the
+compile and link flags, so an edited source or header is rebuilt and a
+stale build is never loaded.
+
+K2's TMA tensor maps are encoded by the driver-API call
+``cuTensorMapEncodeTiled``.  The library reaches it through the runtime's
+``cudaGetDriverEntryPoint`` (``csrc/glm_bernoulli_sm90.cuh``), so it links
+against nothing beyond the CUDA runtime: ``LINK_FLAGS`` is empty.
 
 Nothing here runs when the package is imported: a kernel wrapper calls
 ``load_library`` on its first launch.  ``nvcc``'s output (with ptxas's
@@ -18,9 +25,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import re
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -28,6 +36,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS: List[str] = []
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -46,10 +57,26 @@ def _nvcc() -> str:
     return found
 
 
+def included_headers(name: str) -> List[Path]:
+    """The ``csrc/`` files that ``csrc/<name>.cu`` includes with quotes,
+    directly or through another such header, in the order first met."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            path = CSRC / inc.decode()
+            if path.exists() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for path in included_headers(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode() + b"\0" + " ".join(LINK_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _build(name: str) -> None:
@@ -57,7 +84,7 @@ def _build(name: str) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu"), *LINK_FLAGS]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     (BUILD_DIR / f"{name}.log").write_text(proc.stdout)
     if proc.returncode != 0:

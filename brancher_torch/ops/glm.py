@@ -7,12 +7,14 @@ the dense likelihoods of the model zoo:
   * ``normal_learned``   y_n ~ N(x_n.z + b_n, exp(u.z + c0))
 
 For each family and design-matrix type (f32, bf16) there is a plain
-PyTorch version (``*_vg_reference*``) and a kernel written by hand in CUDA
-(``csrc/glm_vg.cu``, one template, four instantiations K1-K4; a fifth,
-K6, serves ``ops/logreg.py``).  The
-wrappers (``GlmKernel``) take a tensor on the CPU to the plain version and
-a tensor on a CUDA device to the kernel; there is no fallback from the
-kernel to the plain version.
+PyTorch version (``*_vg_reference*``) and a kernel written by hand in CUDA.
+The Bernoulli pair K1 (f32) and K2 (bf16) has its own design for Hopper
+(``csrc/glm_bernoulli_sm90.cuh``: passes planned by ``plan_bernoulli``,
+K2 on the tensor cores through ``wgmma`` fed by TMA); the Normal pair K3/K4
+and K6 (``ops/logreg.py``) share the template of ``csrc/glm_vg.cu``.  The
+wrappers (``GlmKernel``, ``BernoulliKernel``) take a tensor on the CPU to
+the plain version and a tensor on a CUDA device to the kernel; there is no
+fallback from the kernel to the plain version.
 
 ``recognize_fused_family`` numerically probes a compiled model: it checks
 that the z-space prior is a diagonal Gaussian, extracts the affine design
@@ -105,6 +107,38 @@ def normal_vg_reference_bf16(z, x16, y, b, u, c0, prior_mean, prior_inv_var, ll_
     return val, grad
 
 
+def bernoulli_residual_reference(z, data):
+    """The plain version's f32 residual y - sigmoid(l) [C, N] before any
+    bf16 rounding, for a Bernoulli FusedFamily (bf16 multiplies when X is
+    bf16)."""
+    x = data.x
+    logits = (_bf16_matmul(z, x.T) if x.dtype == torch.bfloat16 else z @ x.T) + data.b[None, :]
+    return data.y[None, :] - torch.sigmoid(logits)
+
+
+def bernoulli_grad_given_residual(resid, z, data):
+    """The plain version's gradient with the residual [C, N] given, its
+    rounding included: ll_scale * resid @ X - (z - m) iv, in f32."""
+    dz = z - data.prior_mean[None, :]
+    return data.ll_scale * (resid.float() @ data.x.float()) - dz * data.prior_inv_var[None, :]
+
+
+def bf16_rounding_flips(resid16, resid32):
+    """Where a bf16 residual is not the round-to-nearest-even of the f32
+    one: (flips, legal, tie_units).  ``legal`` marks the flips that are
+    the other bf16 neighbour of the f32 value, one bf16 unit away;
+    ``tie_units`` is each f32 value's distance from the midpoint between
+    its two bf16 neighbours, in f32 units in the last place (the 16 bits
+    that bf16 drops)."""
+    r32 = resid32.float().contiguous()
+    bits32 = r32.view(torch.int32)
+    bits16 = resid16.float().contiguous().view(torch.int32)
+    flips = resid16.float() != r32.to(torch.bfloat16).float()
+    toward_zero = bits32 & ~0xFFFF
+    legal = flips & ((bits16 == toward_zero) | (bits16 == toward_zero + 0x10000))
+    return flips, legal, ((bits32 & 0xFFFF) - 0x8000).abs()
+
+
 # ======================================================================
 # Build-once data and the kernel wrappers
 # ======================================================================
@@ -193,6 +227,10 @@ class GlmKernel:
                               ctypes.c_int, ctypes.c_int, ctypes.c_int, p])
         return self._fn
 
+    @staticmethod
+    def _x_layout_ok(x: Tensor) -> bool:
+        return x.is_contiguous()
+
     def _check(self, z: Tensor, data: FusedFamily):
         if data.family != self.family:
             raise ValueError(f"{self.name} computes {self.family}, got {data.family}")
@@ -207,10 +245,11 @@ class GlmKernel:
             want["u"] = (d,)
         for field, shape in want.items():
             t = getattr(data, field)
-            if tuple(t.shape) != shape or t.device != z.device or not t.is_contiguous():
+            layout_ok = self._x_layout_ok(t) if field == "x" else t.is_contiguous()
+            if tuple(t.shape) != shape or t.device != z.device or not layout_ok:
                 raise ValueError(
-                    f"{self.name}: {field} must be a contiguous {shape} tensor on "
-                    f"{z.device}, got {tuple(t.shape)} on {t.device}")
+                    f"{self.name}: {field} must be a {shape} tensor on {z.device} "
+                    f"laid out as build_glm_data makes it, got {tuple(t.shape)} on {t.device}")
             if field != "x" and t.dtype != torch.float32:
                 raise TypeError(f"{self.name}: {field} must be float32")
         if c == 0 or n == 0 or d == 0:
@@ -276,13 +315,214 @@ def _two_pass_buffers(z: Tensor, n: int, tiles: Tuple[int, int]):
             splits, tiles_per_split)
 
 
+class BernoulliTiles(NamedTuple):
+    """Tiles of K1/K2 (``csrc/glm_bernoulli_sm90.cuh``), in the order
+    ``glm_bern_tiles`` reports them."""
+
+    chains_a: int  # pass A: chains per block
+    rows_a: int  # pass A: X rows per tile (one log-lik partial each)
+    chains_b: int  # pass B: chains per block
+    cols_b: int  # pass B: D columns per block
+    rows_b: int  # pass B: rows per depth step (a split is a multiple)
+    align: int  # elements in 16 bytes: every row stride is a multiple
+    blocks_per_sm: int  # blocks one multiprocessor holds (registers, shared memory)
+
+
+BERNOULLI_TILES = {
+    "f32": BernoulliTiles(128, 128, 128, 128, 16, 4, 2),
+    "bf16": BernoulliTiles(64, 128, 64, 128, 64, 8, 3),
+}
+
+
+class BernoulliPlan(NamedTuple):
+    """How one K1/K2 call is cut: the scratch strides (elements), the row
+    tiles of pass A and the row splits of pass B."""
+
+    ldz: int  # z scratch [C, ldz], operand type
+    ldr: int  # residual scratch [C, ldr], operand type
+    ldg: int  # gradient partials [splits, C, ldg], f32
+    row_tiles: int  # log-lik partials [C, row_tiles], f32
+    splits: int
+    rows_per_split: int
+
+    def scratch_shapes(self, c: int) -> Dict[str, Tuple[int, ...]]:
+        return {"z": (c, self.ldz), "resid": (c, self.ldr),
+                "ll_part": (c, self.row_tiles), "g_part": (self.splits, c, self.ldg)}
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def plan_bernoulli(c: int, n: int, d: int, dtype: str, sms: int) -> BernoulliPlan:
+    """The passes of one K1 (dtype 'f32') or K2 ('bf16') call over z [C,D]
+    and N rows on a card with ``sms`` multiprocessors.  Every scratch row
+    stride is a multiple of 16 bytes (TMA and 16-byte copies need it; f32
+    partials a multiple of 4 elements).  Pass A has one tile per
+    ``rows_a`` rows.  Pass B cuts the rows into splits of whole depth steps:
+    as many as let every (chain block, column block, split) run in one wave
+    of ``blocks_per_sm`` blocks per multiprocessor (a second, nearly empty
+    wave would double the pass), and none empty."""
+    t = BERNOULLI_TILES[dtype]
+    steps = -(-n // t.rows_b)
+    blocks = -(-c // t.chains_b) * -(-d // t.cols_b)
+    splits = max(1, min(steps, t.blocks_per_sm * sms // blocks))
+    steps_per_split = -(-steps // splits)
+    splits = -(-steps // steps_per_split)
+    return BernoulliPlan(ldz=_round_up(d, t.align), ldr=_round_up(n, t.align),
+                         ldg=_round_up(d, 4), row_tiles=-(-n // t.rows_a), splits=splits,
+                         rows_per_split=steps_per_split * t.rows_b)
+
+
+def x_row_aligned(x: Tensor) -> bool:
+    """X [N, D] as K1/K2 read it: unit column stride, rows 16-byte aligned."""
+    row_bytes = x.stride(0) * x.element_size()
+    return (x.dim() == 2 and x.stride(1) == 1 and x.stride(0) >= x.shape[1]
+            and row_bytes % 16 == 0 and x.data_ptr() % 16 == 0)
+
+
+def align_rows(x: Tensor) -> Tensor:
+    """X [N, D] with its rows 16 bytes aligned: X itself when they are, else
+    a view of the first D columns of a zero-padded [N, D'] buffer."""
+    if x.is_contiguous() and x_row_aligned(x):
+        return x
+    n, d = x.shape
+    buf = torch.zeros((n, _round_up(d, 16 // x.element_size())), dtype=x.dtype, device=x.device)
+    buf[:, :d] = x
+    return buf[:, :d]
+
+
+class BernoulliKernel(GlmKernel):
+    """Wrapper of K1/K2 (``csrc/glm_bernoulli_sm90.cuh``, entries in
+    ``glm_vg.cu``).  One call launches the passes ``plan_bernoulli`` lays
+    out and counts one launch.
+
+    The scratch of a call (z staged, the residual, the partials) is kept
+    per (device, stream, C, N, D) and reused by the next call of that
+    shape on that stream, which runs after it in stream order; K2's TMA
+    tensor maps of X and of that scratch are encoded once and kept too.
+    The host's work per call is then two output allocations and the
+    launches, which is what a launch-bound call at the floor shape pays."""
+
+    source = "brancher_torch/csrc/glm_bernoulli_sm90.cuh"
+    KEPT = 8  # workspaces and map sets kept, the oldest dropped first
+
+    def __init__(self, name: str, x_dtype: torch.dtype, symbol: str, replaces: str):
+        super().__init__(name, "bernoulli_logit", x_dtype, symbol, replaces)
+        self.dtype = "bf16" if x_dtype == torch.bfloat16 else "f32"
+        self._encode = None
+        self._workspaces: Dict[tuple, tuple] = {}
+        self._maps: Dict[tuple, ctypes.Array] = {}
+
+    _x_layout_ok = staticmethod(x_row_aligned)
+
+    def _c_function(self):
+        if self._fn is None:
+            from .cuda_build import load_library
+
+            lib = load_library("glm_vg")
+            lib.glm_bern_tiles.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            lib.glm_bern_tiles.restype = ctypes.c_int
+            got = (ctypes.c_int * len(BernoulliTiles._fields))()
+            lib.glm_bern_tiles(int(self.dtype == "bf16"), ctypes.addressof(got))
+            if tuple(got) != tuple(BERNOULLI_TILES[self.dtype]):
+                raise RuntimeError(f"{self.name}: the library's tiles {tuple(got)} are not "
+                                   f"the planner's {tuple(BERNOULLI_TILES[self.dtype])}")
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = [p] * 7 + [ctypes.c_float] + [p] * 6 + [i] * 10 + [p]
+            fn.restype = ctypes.c_int
+            lib.glm_bern_encode_maps.argtypes = [p, i, p, i, p, i, i, i, i, p]
+            lib.glm_bern_encode_maps.restype = ctypes.c_int
+            self._fn, self._encode = fn, lib.glm_bern_encode_maps
+        return self._fn
+
+    @staticmethod
+    def _keep(cache: dict, key, value, kept: int):
+        if len(cache) >= kept:
+            cache.pop(next(iter(cache)))
+        cache[key] = value
+        return value
+
+    def _workspace(self, device: torch.device, stream: int, c: int, n: int, d: int):
+        """(plan, z scratch, residual, ll_part, g_part) for this shape on
+        this stream."""
+        key = (device, stream, c, n, d)
+        ws = self._workspaces.get(key)
+        if ws is None:
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            plan = plan_bernoulli(c, n, d, self.dtype, sms)
+            shapes = plan.scratch_shapes(c)
+            ws = self._keep(self._workspaces, key, (
+                plan,
+                torch.empty(shapes["z"], device=device, dtype=self.x_dtype),
+                torch.empty(shapes["resid"], device=device, dtype=self.x_dtype),
+                torch.empty(shapes["ll_part"], device=device, dtype=torch.float32),
+                torch.empty(shapes["g_part"], device=device, dtype=torch.float32),
+            ), self.KEPT)
+        return ws
+
+    def _tensor_maps(self, x: Tensor, plan: BernoulliPlan, zs: Tensor, resid: Tensor) -> Optional[int]:
+        """Address of K2's four tensor maps of ``x`` and this scratch (None
+        for K1).  A map holds the pointer, shape and strides it was encoded
+        for, so the key is exactly those."""
+        if self.dtype != "bf16":
+            return None
+        c, n, d = zs.shape[0], x.shape[0], x.shape[1]
+        key = (x.data_ptr(), x.stride(0), zs.data_ptr(), resid.data_ptr(), c, n, d)
+        buf = self._maps.get(key)
+        if buf is None:
+            buf = ctypes.create_string_buffer(4 * 128)
+            err = self._encode(x.data_ptr(), x.stride(0), zs.data_ptr(), plan.ldz,
+                               resid.data_ptr(), plan.ldr, c, n, d, ctypes.addressof(buf))
+            if err != 0:
+                raise RuntimeError(f"{self.name}: encoding the tensor maps failed: CUDA error {err}")
+            self._keep(self._maps, key, buf, self.KEPT)
+        return ctypes.addressof(buf)
+
+    def __call__(self, z: Tensor, data: FusedFamily) -> Tuple[Tensor, Tensor]:
+        if z.device.type == "cpu":
+            return data.plain(z)
+        return self._launch(z, data)[:2]
+
+    def residual(self, z: Tensor, data: FusedFamily) -> Tensor:
+        """The residual [C, N] of one launch, in the operand type (for K2
+        with its bf16 rounding): what the second product read."""
+        return self._launch(z, data)[2].clone()
+
+    def _launch(self, z: Tensor, data: FusedFamily) -> Tuple[Tensor, Tensor, Tensor]:
+        if z.device.type != "cuda":
+            raise RuntimeError(f"{self.name} runs on CUDA tensors, got {z.device}")
+        self._check(z, data)
+        fn = self._c_function()
+        c, d = z.shape
+        x = data.x
+        n = x.shape[0]
+        f32 = dict(device=z.device, dtype=torch.float32)
+        val, grad = torch.empty((c,), **f32), torch.empty((c, d), **f32)
+        with torch.cuda.device(z.device):
+            stream = torch.cuda.current_stream(z.device).cuda_stream
+            plan, zs, resid, ll_part, g_part = self._workspace(z.device, stream, c, n, d)
+            maps = self._tensor_maps(x, plan, zs, resid)
+            err = fn(z.data_ptr(), x.data_ptr(), maps, data.y.data_ptr(), data.b.data_ptr(),
+                     data.prior_mean.data_ptr(), data.prior_inv_var.data_ptr(),
+                     float(data.ll_scale), val.data_ptr(), grad.data_ptr(), zs.data_ptr(),
+                     resid.data_ptr(), ll_part.data_ptr(), g_part.data_ptr(), c, n, d,
+                     x.stride(0), plan.ldz, plan.ldr, plan.ldg, plan.row_tiles, plan.splits,
+                     plan.rows_per_split, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
+        self.launches += 1
+        return val, grad, resid[:, :n]
+
+
 _SRC = "brancher_tpu/ops/pallas_glm.py"
 KERNELS: Dict[str, GlmKernel] = {
     k.name: k for k in (
-        GlmKernel("glm_bernoulli_f32", "bernoulli_logit", torch.float32,
-                  "glm_vg_bernoulli_f32", f"{_SRC}:179 _bern_kernel"),
-        GlmKernel("glm_bernoulli_bf16", "bernoulli_logit", torch.bfloat16,
-                  "glm_vg_bernoulli_bf16", f"{_SRC}:240 _bern_kernel_bf16"),
+        BernoulliKernel("glm_bernoulli_f32", torch.float32,
+                        "glm_vg_bernoulli_f32", f"{_SRC}:179 _bern_kernel"),
+        BernoulliKernel("glm_bernoulli_bf16", torch.bfloat16,
+                        "glm_vg_bernoulli_bf16", f"{_SRC}:240 _bern_kernel_bf16"),
         GlmKernel("glm_normal_f32", "normal_learned", torch.float32,
                   "glm_vg_normal_f32", f"{_SRC}:207 _normal_kernel"),
         GlmKernel("glm_normal_bf16", "normal_learned", torch.bfloat16,
@@ -297,10 +537,13 @@ def kernel_for(family: str, dtype: str) -> GlmKernel:
 
 
 def build_glm_data(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=0.0,
-                   ll_scale=1.0, dtype="f32", device=None) -> FusedFamily:
+                   ll_scale=1.0, dtype="f32", device=None, align_x=True) -> FusedFamily:
     """Prepare the data of a fused potential once: move it to ``device``
     (default ``config.device``), make it contiguous, and for dtype='bf16'
-    cast the design matrix to bf16 — the only copy of X the build makes."""
+    cast the design matrix to bf16.  For bernoulli_logit (K1/K2) X's rows
+    start 16 bytes apart (``align_rows``: a padded buffer when D is not a
+    multiple of 16 bytes) unless ``align_x`` is False, for a reader that
+    takes X contiguous (K5)."""
     if family not in ("bernoulli_logit", "normal_learned"):
         raise ValueError(f"unknown GLM family {family!r}")
     if dtype not in ("f32", "bf16"):
@@ -313,6 +556,8 @@ def build_glm_data(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=0.0,
     xd = torch.as_tensor(x, dtype=torch.float32).to(dev).contiguous()
     if dtype == "bf16":
         xd = xd.to(torch.bfloat16)
+    if family == "bernoulli_logit" and align_x:
+        xd = align_rows(xd)
     return FusedFamily(
         family, xd, vec(y), vec(b), None if u is None else vec(u), float(c0),
         vec(prior_mean), vec(prior_inv_var), float(ll_scale),
@@ -527,8 +772,11 @@ def glm_bytes(c: int, n: int, d: int, x_bytes: int, family: str) -> int:
 
 __all__ = [
     "bernoulli_vg_reference", "bernoulli_vg_reference_bf16",
+    "bernoulli_residual_reference", "bernoulli_grad_given_residual", "bf16_rounding_flips",
     "normal_vg_reference", "normal_vg_reference_bf16",
-    "GlmKernel", "KERNELS", "kernel_for", "build_glm_data",
+    "GlmKernel", "BernoulliKernel", "KERNELS", "kernel_for", "build_glm_data",
+    "BernoulliTiles", "BERNOULLI_TILES", "BernoulliPlan", "plan_bernoulli",
+    "align_rows", "x_row_aligned",
     "build_glm_vg", "FusedFamily", "recognize_fused_family",
     "glm_flops", "glm_bytes",
 ]

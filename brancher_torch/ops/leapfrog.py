@@ -103,8 +103,8 @@ class LeapfrogKernel:
 
     @staticmethod
     def _check(data: FusedFamily, z, r, grad, inv_mass):
-        if data.x.dtype != torch.float32:
-            raise TypeError("the fused leapfrog takes an f32 design matrix")
+        if data.x.dtype != torch.float32 or not data.x.is_contiguous():
+            raise TypeError("the fused leapfrog takes a contiguous f32 design matrix")
         c, d = z.shape
         for nm, t in (("z", z), ("r", r), ("grad", grad)):
             if (t.dtype != torch.float32 or tuple(t.shape) != (c, d)
@@ -185,7 +185,7 @@ def build_fused_leapfrog(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=
     ``config.device``), or None when X fails the size gate (module
     docstring)."""
     data = build_glm_data(family, x, y, b, prior_mean, prior_inv_var, u=u, c0=c0,
-                          ll_scale=ll_scale, dtype="f32", device=device)
+                          ll_scale=ll_scale, dtype="f32", device=device, align_x=False)
     n, d = data.x.shape
     if not leapfrog_fits(n, d, _smem_limit(data.x.device)):
         return None

@@ -6,16 +6,20 @@
 
 Phases (each prints one or more JSON lines tagged "phase"):
   1. environment: the card's name and power limit (nvidia-smi), torch and
-     CUDA versions, and the builds of brancher_torch/csrc/glm_vg.cu and
-     leapfrog.cu (one nvcc each, started together) with ptxas's register
-     and shared-memory lines;
+     CUDA versions, and the builds of brancher_torch/csrc/glm_vg.cu (with
+     the header glm_bernoulli_sm90.cuh it includes) and leapfrog.cu (one
+     nvcc each, started together) with ptxas's register, spill and
+     shared-memory lines;
   2. every kernel against its plain PyTorch version: K1-K4 at the floor
      shape (C=1024, N=1000, D=32), the conjugate shape (C=64, N=20, D=1)
-     and the MXU-scale GLM shape (C=256, N=131072, D=1024); K5 (the fused
-     leapfrog) for both families at the floor and conjugate shapes with
-     1, 8 and 32 steps; K6 (logreg) at the floor and MXU shapes.  Each row
-     has errors, a control, the determinism check, the kernel's and the
-     plain version's median ms and the bound's ms;
+     and the MXU-scale GLM shape (C=256, N=131072, D=1024), K1/K2 also at
+     a ragged shape (C=100, N=1037, D=33: no axis a multiple of 8); K5 (the
+     fused leapfrog) for both families at the floor and conjugate shapes
+     with 1, 8 and 32 steps; K6 (logreg) at the floor and MXU shapes.  Each
+     row has errors, a control, the determinism check, the kernel's and
+     the plain version's median ms, the bound's ms and TFLOP/s; the
+     value+grad rows also the median ms of the two products alone through
+     cuBLAS (matmul_pair_ms);
   3. vectorized NUTS at the floor config: make_logreg_data(1000, 32) ->
      logistic_regression_model -> sample(NUTS(max_depth=8), 500 warmup,
      1000 draws, 1024 chains) with fused_potential "auto" (K1), "bf16" (K2)
@@ -64,7 +68,10 @@ SHAPES = {
     "floor": (1024, 1000, 32),
     "conjugate": (64, 20, 1),
     "mxu": (256, 131072, 1024),
+    "ragged": (100, 1037, 33),
 }
+# shapes of the Bernoulli kernels K1/K2 only (K3/K4 keep their rows)
+BERNOULLI_ONLY_SHAPES = ("ragged",)
 LEAPFROG_SHAPES = ("floor", "conjugate")
 LEAPFROG_STEPS = (1, 8, 32)
 LOGREG_SHAPES = ("floor", "mxu")
@@ -87,6 +94,22 @@ LEAPFROG_PATHS = ((("chees", "fused"), "floor", "bernoulli_logit"),
 # with TF32 products, and for bf16 the plain version without the bf16
 # rounding of z and the residual.  A kernel that did either would fail.
 TOL = 1e-5
+# K2 (bf16 Bernoulli) sums its logits on the tensor cores, in another order
+# than cuBLAS's f32 product in the plain version, and cuBLAS's own order
+# changes with the shape.  Where the last bits of a logit move the f32
+# residual across a bf16 rounding midpoint, K2's bf16 residual is the other
+# neighbour, one bf16 unit away, and its gradient moves by up to 2e-5 of
+# the gradient's scale for one such residual.  So a K2 row holds its value
+# to TOL, counts these ties, and holds its gradient to TOL against the plain
+# version's gradient formula applied to the kernel's own bf16 residual.
+# Every differing residual must be the other bf16 neighbour of the plain
+# version's f32 residual, which must lie within TIE_UNITS f32 units in the
+# last place of the midpoint (on an H100 the farthest lay 64 units away, of
+# the 32,768 a residual can lie from it), and they may be at most FLIP_SHARE
+# of the residuals (an H100 read 1.7e-5 at the MXU shape).  A kernel that did not round, or rounded another way,
+# differs at most residuals, far from the midpoints.
+TIE_UNITS = 1024
+FLIP_SHARE = 1e-4
 # The same quantity for K5's z, r, val and grad after a trajectory.  A
 # trajectory carries each step's rounding into the next, so the error
 # grows with the step count: on an H100 the worst reading was 3.1e-6
@@ -116,15 +139,19 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 11, warmup: int = 2) -> float:
+def time_ms(fn, reps: int = 11, warm_ms: float = 50.0) -> float:
     """Median ms of ``reps`` launches enqueued back to back, each between
     two CUDA events (so host time between launches hides behind the card
-    unless the host is the slower one)."""
+    unless the host is the slower one), after at least ``warm_ms`` of
+    calls so that the card's clocks have settled under the load."""
     import torch
 
-    for _ in range(warmup):
+    t0 = time.perf_counter()
+    for i in range(10**6):
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        if i >= 1 and (time.perf_counter() - t0) * 1e3 >= warm_ms:
+            break
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
     ev[0].record()
     for i in range(reps):
@@ -138,6 +165,10 @@ def _bound(nbytes: int, flops: int, dtype: str = "f32") -> dict:
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_OPS[dtype] * 1e3
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _tflops(row: dict) -> float:
+    return row["flops"] / (row["ms"] * 1e-3) / 1e12
 
 
 def _all_kernels():
@@ -170,8 +201,10 @@ def phase_environment():
         "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         "peak_bytes_per_s": PEAK_BYTES, "peak_ops_per_s": PEAK_OPS,
         "build_seconds": round(build_s, 3),
+        "headers": {name: [p.name for p in cuda_build.included_headers(name)] for name in SOURCES},
         "ptxas": {name: [ln.strip() for ln in (cuda_build.BUILD_DIR / f"{name}.log")
-                         .read_text().splitlines() if "registers" in ln or "Compiling" in ln]
+                         .read_text().splitlines()
+                         if "registers" in ln or "Compiling" in ln or "spill" in ln]
                   for name in SOURCES},
     }
     RESULTS["environment"] = env
@@ -207,6 +240,8 @@ def _glm_rows(gen, per_kernel):
 
     for shape_name, (c, n, d) in SHAPES.items():
         for family in ("bernoulli_logit", "normal_learned"):
+            if family != "bernoulli_logit" and shape_name in BERNOULLI_ONLY_SHAPES:
+                continue
             x, y, b, z, m, iv, u = _glm_inputs(c, n, d, family, gen)
             for dtype in ("f32", "bf16"):
                 data = glm.build_glm_data(
@@ -228,12 +263,19 @@ def _glm_rows(gen, per_kernel):
                     "grad_max_abs": float((g - g_ref).abs().max()),
                     "val_max_rel": _rel(v, v_ref), "grad_max_rel": _rel(g, g_ref),
                 }
+                ties = family == "bernoulli_logit" and dtype == "bf16"
+                if ties:
+                    err.update(_bf16_ties(kernel, z, data, g))
                 control = {
                     "control": "tf32" if dtype == "f32" else "unrounded_bf16",
                     "control_val_rel": _rel(v_ctl, v_ref), "control_grad_rel": _rel(g_ctl, g_ref),
                 }
-                ok = (err["val_max_rel"] <= TOL and err["grad_max_rel"] <= TOL
+                grad_rel = err["grad_given_resid_rel"] if ties else err["grad_max_rel"]
+                ok = (err["val_max_rel"] <= TOL and grad_rel <= TOL
                       and bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all()))
+                if ties:
+                    ok = ok and (err["flips_legal"] and err["flip_tie_units_max"] <= TIE_UNITS
+                                 and err["flip_share"] <= FLIP_SHARE)
                 deterministic = bool(torch.equal(v, v2) and torch.equal(g, g2))
                 ms = time_ms(lambda: kernel(z, data))
                 plain_ms = time_ms(lambda: data.plain(z))
@@ -248,17 +290,34 @@ def _glm_rows(gen, per_kernel):
                 row = {
                     "phase": 2, "kernel": kernel.name, "shape": shape_name, "C": c, "N": n, "D": d,
                     **err, **control, "tolerance_rel": TOL, "ok": ok, "deterministic": deterministic,
+                    **({"tie_units_limit": TIE_UNITS, "flip_share_limit": FLIP_SHARE} if ties else {}),
                     "ms": ms, "plain_ms": plain_ms, "matmul_pair_ms": matmul_ms, "library_ms": None,
                     **_bound(glm.glm_bytes(c, n, d, 2 if dtype == "bf16" else 4, family),
                              glm.glm_flops(c, n, d), dtype),
                 }
-                row["tflops"] = row["flops"] / (ms * 1e-3) / 1e12
+                row["tflops"] = _tflops(row)
                 emit(row)
                 per_kernel[kernel.name].append(row)
                 check(ok, f"{kernel.name} at {shape_name} disagrees with its plain version: {err}")
                 check(deterministic, f"{kernel.name} at {shape_name} is not bit-reproducible")
             del x, y, b, z, data
             torch.cuda.empty_cache()
+
+
+def _bf16_ties(kernel, z, data, g):
+    """K2's bf16 residual against the plain version's f32 one (see TOL)."""
+    import torch
+    from brancher_torch.ops import glm
+
+    r16 = kernel.residual(z, data)
+    flips, legal, units = glm.bf16_rounding_flips(r16, glm.bernoulli_residual_reference(z, data))
+    n_flips = int(flips.sum())
+    return {
+        "resid_flips": n_flips, "flip_share": n_flips / r16.numel(),
+        "flips_legal": bool(torch.equal(flips, legal)),
+        "flip_tie_units_max": int(units[flips].max()) if n_flips else 0,
+        "grad_given_resid_rel": _rel(g, glm.bernoulli_grad_given_residual(r16, z, data)),
+    }
 
 
 def _leapfrog_rows(gen, per_kernel):
@@ -306,6 +365,7 @@ def _leapfrog_rows(gen, per_kernel):
                     "library_ms": None,
                     **_bound(lf.leapfrog_bytes(c, n, d, family), lf.leapfrog_flops(c, n, d, n_steps)),
                 }
+                row["tflops"] = _tflops(row)
                 emit(row)
                 per_kernel[lf.LEAPFROG.name].append(row)
                 check(ok, f"K5 {family} at {shape_name}, {n_steps} steps, disagrees: {err}")
@@ -323,6 +383,7 @@ def _logreg_rows(gen, per_kernel):
         x = torch.randn((n, d), generator=gen, device="cuda") / d**0.5
         y = (torch.rand((n,), generator=gen, device="cuda") < 0.5).float()
         w = torch.randn((c, d), generator=gen, device="cuda")
+        r32 = torch.zeros((c, n), device="cuda")
         v, g = logreg.logreg_value_and_grad(w, x, y, 1.5)
         v2, g2 = logreg.logreg_value_and_grad(w, x, y, 1.5)
         v_ref, g_ref = logreg.logreg_value_and_grad_reference(w, x, y, 1.5)
@@ -343,15 +404,16 @@ def _logreg_rows(gen, per_kernel):
             "deterministic": deterministic,
             "ms": time_ms(lambda: logreg.logreg_value_and_grad(w, x, y, 1.5)),
             "plain_ms": time_ms(lambda: logreg.logreg_value_and_grad_reference(w, x, y, 1.5)),
-            "library_ms": None,
+            "matmul_pair_ms": time_ms(lambda: (w @ x.T, r32 @ x)), "library_ms": None,
             # X, y, w read once; val and grad written once
             **_bound(n * d * 4 + n * 4 + (2 * c * d + c) * 4, glm.glm_flops(c, n, d)),
         }
+        row["tflops"] = _tflops(row)
         emit(row)
         per_kernel[logreg.LOGREG.name].append(row)
         check(ok, f"K6 at {shape_name} disagrees with its plain version: {err}")
         check(deterministic, f"K6 at {shape_name} is not bit-reproducible")
-        del x, y, w
+        del x, y, w, r32
         torch.cuda.empty_cache()
 
 
@@ -614,6 +676,7 @@ def _summary_entry(name, k, rows, main, launches, err_keys):
         "max_abs_err": max(r[e] for r in rows for e in err_keys),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
+        "matmul_pair_ms": main.get("matmul_pair_ms"), "tflops": main["tflops"],
         "shape": [main["C"], main["N"], main["D"]], "n_steps": main.get("n_steps"),
         "ok": all(r["ok"] for r in rows),
     }
