@@ -139,6 +139,41 @@ def bf16_rounding_flips(resid16, resid32):
     return flips, legal, ((bits32 & 0xFFFF) - 0x8000).abs()
 
 
+def _rel(got: Tensor, ref: Tensor) -> float:
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
+
+
+def bf16_residual_readings(g, resid, z, data, g_ref) -> Dict[str, float]:
+    """What the checks of K2 (bf16 Bernoulli) read for a gradient ``g``
+    that was computed from the residual ``resid`` [C, N], against the
+    plain version's gradient ``g_ref`` on the bf16 ``data``.
+
+    ``resid_flips`` counts the residuals that are not the bf16 rounding of
+    the plain version's f32 residual; ``flips_legal`` says whether each is
+    the other bf16 neighbour (a tie), and ``flip_tie_units_max`` how far the
+    farthest lay from the rounding midpoint (``bf16_rounding_flips``).  A
+    tie moves its chain's gradient by its bf16 unit times ll_scale times
+    its row of X, so ``flip_allowance_rel`` is ll_scale times the largest
+    sum over one chain's ties of that unit times the row's max|X|, over
+    max(max|g_ref|, 1): 0 where no residual differs.  ``grad_max_rel`` is
+    the raw error against ``g_ref`` and ``grad_given_resid_rel`` the error
+    against the plain formula on ``resid``, both in that scale."""
+    r32 = bernoulli_residual_reference(z, data)
+    flips, legal, units = bf16_rounding_flips(resid, r32)
+    n_flips = int(flips.sum())
+    step = torch.where(legal, (resid.float() - r32.to(torch.bfloat16).float()).abs(), 0.0)
+    x_row_max = data.x.float().abs().amax(1)
+    scale = max(float(g_ref.abs().max()), 1.0)
+    return {
+        "resid_flips": n_flips, "flip_share": n_flips / resid.numel(),
+        "flips_legal": bool(torch.equal(flips, legal)),
+        "flip_tie_units_max": int(units[flips].max()) if n_flips else 0,
+        "grad_max_rel": _rel(g, g_ref),
+        "flip_allowance_rel": abs(data.ll_scale) * float((step @ x_row_max).max()) / scale,
+        "grad_given_resid_rel": _rel(g, bernoulli_grad_given_residual(resid, z, data)),
+    }
+
+
 # ======================================================================
 # Build-once data and the kernel wrappers
 # ======================================================================
@@ -157,6 +192,7 @@ class FusedFamily(NamedTuple):
     prior_mean: Tensor  # [D]
     prior_inv_var: Tensor  # [D]
     ll_scale: float
+    scratch: Optional["BernoulliScratch"] = None  # K1/K2's, as long as the data lives
 
     def value_and_grad(self, dtype: str = "f32") -> Callable[[Tensor], Tuple[Tensor, Tensor]]:
         """Batched fused potential fn(z [C,D]) -> (val [C], grad [C,D]) on
@@ -392,27 +428,37 @@ def align_rows(x: Tensor) -> Tensor:
     return buf[:, :d]
 
 
+class BernoulliScratch:
+    """K1/K2's workspace for one FusedFamily (``build_glm_data`` makes it
+    with the data, so it is freed with the data): the plan and the scratch
+    tensors of the last (device, stream, C, X) it served, and K2's four TMA
+    tensor maps of that X and scratch.  The next call with the same key
+    runs after the last in stream order and reuses them; a call with
+    another key replaces them."""
+
+    __slots__ = ("key", "plan", "tensors", "maps")
+
+    def __init__(self):
+        self.key = self.plan = self.tensors = self.maps = None
+
+
 class BernoulliKernel(GlmKernel):
     """Wrapper of K1/K2 (``csrc/glm_bernoulli_sm90.cuh``, entries in
     ``glm_vg.cu``).  One call launches the passes ``plan_bernoulli`` lays
     out and counts one launch.
 
-    The scratch of a call (z staged, the residual, the partials) is kept
-    per (device, stream, C, N, D) and reused by the next call of that
-    shape on that stream, which runs after it in stream order; K2's TMA
-    tensor maps of X and of that scratch are encoded once and kept too.
-    The host's work per call is then two output allocations and the
-    launches, which is what a launch-bound call at the floor shape pays."""
+    The scratch of a call (z staged, the residual, the partials) and K2's
+    tensor maps live in the data's ``BernoulliScratch``, so the host's
+    work per call is two output allocations and the launches, which is
+    what a launch-bound call at the floor shape pays.  Data without one
+    (a FusedFamily built by hand) gets fresh scratch on every call."""
 
     source = "brancher_torch/csrc/glm_bernoulli_sm90.cuh"
-    KEPT = 8  # workspaces and map sets kept, the oldest dropped first
 
     def __init__(self, name: str, x_dtype: torch.dtype, symbol: str, replaces: str):
         super().__init__(name, "bernoulli_logit", x_dtype, symbol, replaces)
         self.dtype = "bf16" if x_dtype == torch.bfloat16 else "f32"
         self._encode = None
-        self._workspaces: Dict[tuple, tuple] = {}
-        self._maps: Dict[tuple, ctypes.Array] = {}
 
     _x_layout_ok = staticmethod(x_row_aligned)
 
@@ -437,48 +483,26 @@ class BernoulliKernel(GlmKernel):
             self._fn, self._encode = fn, lib.glm_bern_encode_maps
         return self._fn
 
-    @staticmethod
-    def _keep(cache: dict, key, value, kept: int):
-        if len(cache) >= kept:
-            cache.pop(next(iter(cache)))
-        cache[key] = value
-        return value
-
-    def _workspace(self, device: torch.device, stream: int, c: int, n: int, d: int):
-        """(plan, z scratch, residual, ll_part, g_part) for this shape on
-        this stream."""
-        key = (device, stream, c, n, d)
-        ws = self._workspaces.get(key)
-        if ws is None:
-            sms = torch.cuda.get_device_properties(device).multi_processor_count
-            plan = plan_bernoulli(c, n, d, self.dtype, sms)
-            shapes = plan.scratch_shapes(c)
-            ws = self._keep(self._workspaces, key, (
-                plan,
-                torch.empty(shapes["z"], device=device, dtype=self.x_dtype),
-                torch.empty(shapes["resid"], device=device, dtype=self.x_dtype),
-                torch.empty(shapes["ll_part"], device=device, dtype=torch.float32),
-                torch.empty(shapes["g_part"], device=device, dtype=torch.float32),
-            ), self.KEPT)
-        return ws
-
-    def _tensor_maps(self, x: Tensor, plan: BernoulliPlan, zs: Tensor, resid: Tensor) -> Optional[int]:
-        """Address of K2's four tensor maps of ``x`` and this scratch (None
-        for K1).  A map holds the pointer, shape and strides it was encoded
-        for, so the key is exactly those."""
-        if self.dtype != "bf16":
-            return None
-        c, n, d = zs.shape[0], x.shape[0], x.shape[1]
-        key = (x.data_ptr(), x.stride(0), zs.data_ptr(), resid.data_ptr(), c, n, d)
-        buf = self._maps.get(key)
-        if buf is None:
-            buf = ctypes.create_string_buffer(4 * 128)
+    def _fill(self, scratch: BernoulliScratch, key: tuple, x: Tensor, c: int):
+        """Plan, allocate and (K2) encode ``scratch`` for ``key``.  A tensor
+        map holds the pointer, shape and strides it was encoded for, so the
+        key holds X's pointer and stride, and the scratch is new with it."""
+        device, n, d = x.device, x.shape[0], x.shape[1]
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = plan_bernoulli(c, n, d, self.dtype, sms)
+        shapes = plan.scratch_shapes(c)
+        zs = torch.empty(shapes["z"], device=device, dtype=self.x_dtype)
+        resid = torch.empty(shapes["resid"], device=device, dtype=self.x_dtype)
+        tensors = (zs, resid, torch.empty(shapes["ll_part"], device=device, dtype=torch.float32),
+                   torch.empty(shapes["g_part"], device=device, dtype=torch.float32))
+        maps = None
+        if self.dtype == "bf16":
+            maps = ctypes.create_string_buffer(4 * 128)
             err = self._encode(x.data_ptr(), x.stride(0), zs.data_ptr(), plan.ldz,
-                               resid.data_ptr(), plan.ldr, c, n, d, ctypes.addressof(buf))
+                               resid.data_ptr(), plan.ldr, c, n, d, ctypes.addressof(maps))
             if err != 0:
                 raise RuntimeError(f"{self.name}: encoding the tensor maps failed: CUDA error {err}")
-            self._keep(self._maps, key, buf, self.KEPT)
-        return ctypes.addressof(buf)
+        scratch.key, scratch.plan, scratch.tensors, scratch.maps = key, plan, tensors, maps
 
     def __call__(self, z: Tensor, data: FusedFamily) -> Tuple[Tensor, Tensor]:
         if z.device.type == "cpu":
@@ -500,10 +524,14 @@ class BernoulliKernel(GlmKernel):
         n = x.shape[0]
         f32 = dict(device=z.device, dtype=torch.float32)
         val, grad = torch.empty((c,), **f32), torch.empty((c, d), **f32)
+        scratch = data.scratch if data.scratch is not None else BernoulliScratch()
         with torch.cuda.device(z.device):
             stream = torch.cuda.current_stream(z.device).cuda_stream
-            plan, zs, resid, ll_part, g_part = self._workspace(z.device, stream, c, n, d)
-            maps = self._tensor_maps(x, plan, zs, resid)
+            key = (z.device, stream, c, x.data_ptr(), x.stride(0), n, d)
+            if scratch.key != key:
+                self._fill(scratch, key, x, c)
+            plan, (zs, resid, ll_part, g_part) = scratch.plan, scratch.tensors
+            maps = None if scratch.maps is None else ctypes.addressof(scratch.maps)
             err = fn(z.data_ptr(), x.data_ptr(), maps, data.y.data_ptr(), data.b.data_ptr(),
                      data.prior_mean.data_ptr(), data.prior_inv_var.data_ptr(),
                      float(data.ll_scale), val.data_ptr(), grad.data_ptr(), zs.data_ptr(),
@@ -543,7 +571,7 @@ def build_glm_data(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=0.0,
     cast the design matrix to bf16.  For bernoulli_logit (K1/K2) X's rows
     start 16 bytes apart (``align_rows``: a padded buffer when D is not a
     multiple of 16 bytes) unless ``align_x`` is False, for a reader that
-    takes X contiguous (K5)."""
+    takes X contiguous (K5), and the data carries K1/K2's scratch."""
     if family not in ("bernoulli_logit", "normal_learned"):
         raise ValueError(f"unknown GLM family {family!r}")
     if dtype not in ("f32", "bf16"):
@@ -556,11 +584,13 @@ def build_glm_data(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=0.0,
     xd = torch.as_tensor(x, dtype=torch.float32).to(dev).contiguous()
     if dtype == "bf16":
         xd = xd.to(torch.bfloat16)
-    if family == "bernoulli_logit" and align_x:
+    bernoulli = family == "bernoulli_logit"
+    if bernoulli and align_x:
         xd = align_rows(xd)
     return FusedFamily(
         family, xd, vec(y), vec(b), None if u is None else vec(u), float(c0),
         vec(prior_mean), vec(prior_inv_var), float(ll_scale),
+        BernoulliScratch() if bernoulli else None,
     )
 
 
@@ -773,8 +803,9 @@ def glm_bytes(c: int, n: int, d: int, x_bytes: int, family: str) -> int:
 __all__ = [
     "bernoulli_vg_reference", "bernoulli_vg_reference_bf16",
     "bernoulli_residual_reference", "bernoulli_grad_given_residual", "bf16_rounding_flips",
+    "bf16_residual_readings",
     "normal_vg_reference", "normal_vg_reference_bf16",
-    "GlmKernel", "BernoulliKernel", "KERNELS", "kernel_for", "build_glm_data",
+    "GlmKernel", "BernoulliKernel", "BernoulliScratch", "KERNELS", "kernel_for", "build_glm_data",
     "BernoulliTiles", "BERNOULLI_TILES", "BernoulliPlan", "plan_bernoulli",
     "align_rows", "x_row_aligned",
     "build_glm_vg", "FusedFamily", "recognize_fused_family",

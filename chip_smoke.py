@@ -98,16 +98,20 @@ TOL = 1e-5
 # than cuBLAS's f32 product in the plain version, and cuBLAS's own order
 # changes with the shape.  Where the last bits of a logit move the f32
 # residual across a bf16 rounding midpoint, K2's bf16 residual is the other
-# neighbour, one bf16 unit away, and its gradient moves by up to 2e-5 of
-# the gradient's scale for one such residual.  So a K2 row holds its value
-# to TOL, counts these ties, and holds its gradient to TOL against the plain
-# version's gradient formula applied to the kernel's own bf16 residual.
-# Every differing residual must be the other bf16 neighbour of the plain
-# version's f32 residual, which must lie within TIE_UNITS f32 units in the
-# last place of the midpoint (on an H100 the farthest lay 64 units away, of
-# the 32,768 a residual can lie from it), and they may be at most FLIP_SHARE
-# of the residuals (an H100 read 1.7e-5 at the MXU shape).  A kernel that did not round, or rounded another way,
-# differs at most residuals, far from the midpoints.
+# neighbour, one bf16 unit away (a tie), and the gradient of its chain moves
+# by that unit times ll_scale times the row of X: up to 2e-5 of the
+# gradient's scale for one tie at the floor.  So a K2 row (_k2_ok) holds:
+#   - its value to TOL;
+#   - its gradient to TOL plus the bound of its ties' move
+#     (glm.bf16_residual_readings' flip_allowance_rel, 0 without ties);
+#   - its gradient to TOL against the plain formula applied to the kernel's
+#     own bf16 residual;
+#   - every differing residual to a tie whose plain f32 residual lies within
+#     TIE_UNITS f32 units in the last place of the midpoint (on an H100 the
+#     farthest lay 64 units away, of the 32,768 a residual can lie from it),
+#     at most FLIP_SHARE of the residuals (an H100 read 1.7e-5 at the MXU
+#     shape).
+# The unrounded control goes through the same gate and must fail it.
 TIE_UNITS = 1024
 FLIP_SHARE = 1e-4
 # The same quantity for K5's z, r, val and grad after a trajectory.  A
@@ -263,19 +267,22 @@ def _glm_rows(gen, per_kernel):
                     "grad_max_abs": float((g - g_ref).abs().max()),
                     "val_max_rel": _rel(v, v_ref), "grad_max_rel": _rel(g, g_ref),
                 }
-                ties = family == "bernoulli_logit" and dtype == "bf16"
-                if ties:
-                    err.update(_bf16_ties(kernel, z, data, g))
                 control = {
                     "control": "tf32" if dtype == "f32" else "unrounded_bf16",
                     "control_val_rel": _rel(v_ctl, v_ref), "control_grad_rel": _rel(g_ctl, g_ref),
                 }
-                grad_rel = err["grad_given_resid_rel"] if ties else err["grad_max_rel"]
-                ok = (err["val_max_rel"] <= TOL and grad_rel <= TOL
-                      and bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all()))
+                ties = family == "bernoulli_logit" and dtype == "bf16"
                 if ties:
-                    ok = ok and (err["flips_legal"] and err["flip_tie_units_max"] <= TIE_UNITS
-                                 and err["flip_share"] <= FLIP_SHARE)
+                    err.update(glm.bf16_residual_readings(g, kernel.residual(z, data), z, data, g_ref))
+                    err["grad_limit_rel"] = TOL + err["flip_allowance_rel"]
+                    r_ctl = glm.bernoulli_residual_reference(z, data._replace(x=data.x.float()))
+                    ctl = glm.bf16_residual_readings(g_ctl, r_ctl, z, data, g_ref)
+                    ctl["val_max_rel"] = control["control_val_rel"]
+                    control.update({f"control_{k}": ctl[k] for k in (
+                        "resid_flips", "flips_legal", "flip_allowance_rel")})
+                    control["control_passes_gate"] = _k2_ok(ctl)
+                ok = ((_k2_ok(err) if ties else err["val_max_rel"] <= TOL and err["grad_max_rel"] <= TOL)
+                      and bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all()))
                 deterministic = bool(torch.equal(v, v2) and torch.equal(g, g2))
                 ms = time_ms(lambda: kernel(z, data))
                 plain_ms = time_ms(lambda: data.plain(z))
@@ -299,25 +306,18 @@ def _glm_rows(gen, per_kernel):
                 emit(row)
                 per_kernel[kernel.name].append(row)
                 check(ok, f"{kernel.name} at {shape_name} disagrees with its plain version: {err}")
+                check(not (ties and control["control_passes_gate"]),
+                      f"{kernel.name} at {shape_name}: the unrounded control passes K2's gate")
                 check(deterministic, f"{kernel.name} at {shape_name} is not bit-reproducible")
             del x, y, b, z, data
             torch.cuda.empty_cache()
 
 
-def _bf16_ties(kernel, z, data, g):
-    """K2's bf16 residual against the plain version's f32 one (see TOL)."""
-    import torch
-    from brancher_torch.ops import glm
-
-    r16 = kernel.residual(z, data)
-    flips, legal, units = glm.bf16_rounding_flips(r16, glm.bernoulli_residual_reference(z, data))
-    n_flips = int(flips.sum())
-    return {
-        "resid_flips": n_flips, "flip_share": n_flips / r16.numel(),
-        "flips_legal": bool(torch.equal(flips, legal)),
-        "flip_tie_units_max": int(units[flips].max()) if n_flips else 0,
-        "grad_given_resid_rel": _rel(g, glm.bernoulli_grad_given_residual(r16, z, data)),
-    }
+def _k2_ok(r: dict) -> bool:
+    """K2's gate on glm.bf16_residual_readings and the value's error (see TOL)."""
+    return (r["val_max_rel"] <= TOL and r["grad_max_rel"] <= TOL + r["flip_allowance_rel"]
+            and r["grad_given_resid_rel"] <= TOL and r["flips_legal"]
+            and r["flip_tie_units_max"] <= TIE_UNITS and r["flip_share"] <= FLIP_SHARE)
 
 
 def _leapfrog_rows(gen, per_kernel):

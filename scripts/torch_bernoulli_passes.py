@@ -1,50 +1,39 @@
 #!/usr/bin/env python3
 """K1/K2 (the Bernoulli GLM kernels of brancher_torch) pass by pass, on one card.
 
-    python3 scripts/torch_bernoulli_passes.py            # from the repo root
+    python3 scripts/torch_bernoulli_passes.py              # from the repo root
+    python3 scripts/torch_bernoulli_passes.py --tree DIR   # K1/K2 of another checkout
 
 For the floor (C=1024, N=1000, D=32), ragged (100, 1037, 33), MXU-width
 (256, 8192, 1024) and MXU (256, 131072, 1024) shapes, prints one JSON line
-per kernel: the errors against the plain version, for K2 the bf16 residual
-ties (residuals whose bf16 rounding differs from the plain version's, and
-how far the plain f32 residual lay from the rounding midpoint, in f32 units
-in the last place) and the gradient against the plain formula on K2's own
-residual, bit-reproducibility, and the median ms of the kernel and of the
-plain version.  Then, at the floor and MXU shapes, the host's time to
-enqueue one call and each pass's device time from torch.profiler.  Needs
-CUDA; imports no JAX.
+per kernel: the errors against the plain version, for K2 the readings of
+its gate (``ops/glm.py::bf16_residual_readings``: the bf16 residual ties,
+the raw gradient error beside the allowance for those ties, and the
+gradient against the plain formula on K2's own residual),
+bit-reproducibility, and the median ms of the kernel and of the plain
+version, timed by ``chip_smoke.time_ms``.  Then, at the floor and MXU
+shapes, the host's time to enqueue one call and each pass's device time
+from torch.profiler.
+
+``--tree DIR`` takes brancher_torch from DIR instead (another commit's
+tree, unpacked with ``git archive``) and times its K1/K2 with this
+checkout's ``time_ms``, so that two designs are timed alike; it prints the
+errors and times only.  Needs CUDA; imports no JAX.
 """
+import argparse
 import json
-import statistics
 import sys
 import time
 from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import brancher_torch.ops.glm as G  # noqa: E402
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import time_ms  # noqa: E402  (chip_smoke imports brancher_torch lazily)
 
 SHAPES = {"floor": (1024, 1000, 32), "ragged": (100, 1037, 33),
           "mxu_width": (256, 8192, 1024), "mxu": (256, 131072, 1024)}
-
-
-def time_ms(fn, reps=11, warm_ms=50.0):
-    """Median ms over CUDA events of ``reps`` calls enqueued back to back,
-    after at least ``warm_ms`` of calls (as chip_smoke.py)."""
-    t0 = time.perf_counter()
-    for i in range(10**6):
-        fn()
-        torch.cuda.synchronize()
-        if i >= 1 and (time.perf_counter() - t0) * 1e3 >= warm_ms:
-            break
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    ev[0].record()
-    for i in range(reps):
-        fn()
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    return statistics.median(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))
 
 
 def rel(a, b):
@@ -59,11 +48,7 @@ def inputs(c, n, d, gen):
     return x, y, b, z
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+def errors_and_times(G, tree):
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape, (c, n, d) in SHAPES.items():
         x, y, b, z = inputs(c, n, d, gen)
@@ -75,24 +60,21 @@ def main():
             v, g = k(z, data)
             v2, g2 = k(z, data)
             v_ref, g_ref = data.plain(z)
-            row = {"shape": shape, "C": c, "N": n, "D": d, "kernel": k.name,
-                   "val_rel": rel(v, v_ref), "grad_rel": rel(g, g_ref),
+            row = {"tree": tree, "shape": shape, "C": c, "N": n, "D": d, "kernel": k.name,
+                   "val_max_rel": rel(v, v_ref), "grad_max_rel": rel(g, g_ref),
                    "deterministic": bool(torch.equal(v, v2) and torch.equal(g, g2)),
                    "ms": time_ms(lambda: k(z, data)), "plain_ms": time_ms(lambda: data.plain(z))}
-            if dtype == "bf16":
-                r16 = k.residual(z, data)
-                flips, legal, units = G.bf16_rounding_flips(
-                    r16, G.bernoulli_residual_reference(z, data))
-                row.update({"ties": int(flips.sum()), "residuals": r16.numel(),
-                            "ties_legal": bool(torch.equal(flips, legal)),
-                            "tie_units_max": int(units[flips].max()) if bool(flips.any()) else 0,
-                            "grad_given_resid_rel": rel(g, G.bernoulli_grad_given_residual(r16, z, data))})
+            if dtype == "bf16" and hasattr(k, "residual"):
+                row.update(G.bf16_residual_readings(g, k.residual(z, data), z, data, g_ref))
             print(json.dumps(row), flush=True)
         del x, y, b, z, data
         torch.cuda.empty_cache()
 
+
+def passes(G):
     from torch.profiler import ProfilerActivity, profile
 
+    gen = torch.Generator(device="cuda").manual_seed(1)
     for shape in ("floor", "mxu"):
         c, n, d = SHAPES[shape]
         x, y, b, z = inputs(c, n, d, gen)
@@ -119,6 +101,26 @@ def main():
                 if t and "bern::" in e.key:
                     print(json.dumps({"shape": shape, "kernel": k.name, "pass": e.key.split("(")[0],
                                       "ms_per_call": t / 5 / 1e3, "launches": e.count}), flush=True)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", type=Path, help="root of another checkout whose K1/K2 to time")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    tree = (args.tree or ROOT).resolve()
+    sys.path.insert(0, str(tree))
+    import brancher_torch.ops.glm as G
+
+    if Path(G.__file__).resolve().parents[2] != tree:
+        print(f"brancher_torch came from {G.__file__}, not {tree}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errors_and_times(G, str(args.tree or "."))
+    if args.tree is None:
+        passes(G)
     return 0
 
 

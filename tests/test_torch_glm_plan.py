@@ -158,6 +158,70 @@ def test_bf16_rounding_flips():
     assert units.max() <= 32768
 
 
+def _other_neighbour(r32):
+    """The bf16 neighbour of each f32 value that round-to-nearest does not pick."""
+    bits = r32.view(torch.int32)
+    down = (bits & ~0xFFFF).view(torch.float32)
+    up = ((bits & ~0xFFFF) + 0x10000).view(torch.float32)
+    return torch.where(down.to(torch.bfloat16) == r32.to(torch.bfloat16), up, down).to(torch.bfloat16)
+
+
+def _bf16_case(flip):
+    """bf16 data, z, and the plain residual, rounded, with the residuals
+    where ``flip`` [C, N] is true moved to their other bf16 neighbour."""
+    rng = np.random.RandomState(4)
+    c, n, d = 3, 40, 6
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    data = G.build_glm_data("bernoulli_logit", x, y, 0.1 * rng.normal(size=n), np.zeros(d),
+                            np.ones(d), ll_scale=1.7, dtype="bf16", device="cpu")
+    z = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32))
+    r32 = G.bernoulli_residual_reference(z, data)
+    r16 = torch.where(torch.as_tensor(flip), _other_neighbour(r32), r32.to(torch.bfloat16))
+    return data, z, r32, r16
+
+
+@pytest.mark.parametrize("n_ties", [0, 1, 3])
+def test_bf16_readings_bound_the_move_of_ties(n_ties):
+    flip = np.zeros((3, 40), bool)
+    flip[1, :n_ties] = True  # all in one chain
+    data, z, r32, r16 = _bf16_case(flip)
+    g_ref = data.plain(z)[1]
+    g = G.bernoulli_grad_given_residual(r16, z, data)  # a kernel with these ties
+    r = G.bf16_residual_readings(g, r16, z, data, g_ref)
+    assert r["resid_flips"] == n_ties and r["flips_legal"]
+    assert r["flip_share"] == n_ties / r16.numel()
+    assert r["grad_given_resid_rel"] == 0.0
+    if n_ties == 0:
+        assert r["flip_allowance_rel"] == 0.0 and r["grad_max_rel"] == 0.0
+        return
+    # the allowance bounds the ties' move, and is its sum of one bf16 unit
+    # times ll_scale times the row's max|X| over max(max|g_ref|, 1)
+    assert 0.0 < r["grad_max_rel"] <= r["flip_allowance_rel"]
+    units = (r16[1, :n_ties].float() - r32[1, :n_ties].to(torch.bfloat16).float()).abs()
+    want = 1.7 * float((units * data.x[:n_ties].float().abs().amax(1)).sum())
+    assert r["flip_allowance_rel"] == pytest.approx(want / max(float(g_ref.abs().max()), 1.0))
+
+
+def test_bf16_readings_refuse_the_unrounded_residual():
+    """The control (no bf16 rounding of z or the residual) is no set of ties."""
+    data, z, _, _ = _bf16_case(np.zeros((3, 40), bool))
+    ctl_data = data._replace(x=data.x.float())
+    g_ref, (_, g_ctl) = data.plain(z)[1], ctl_data.plain(z)
+    r_ctl = G.bernoulli_residual_reference(z, ctl_data)
+    r = G.bf16_residual_readings(g_ctl, r_ctl, z, data, g_ref)
+    assert r["resid_flips"] > 0.9 * r_ctl.numel() and not r["flips_legal"]
+    assert r["flip_allowance_rel"] < r["grad_max_rel"]  # only ties earn an allowance
+
+
+def test_bernoulli_data_carries_its_own_scratch():
+    a, _ = _bern_data(7, "bf16")
+    b, _ = _bern_data(7, "bf16")
+    assert isinstance(a.scratch, G.BernoulliScratch) and a.scratch is not b.scratch
+    assert a.scratch.key is None  # filled at the first launch on a card
+    assert _bern_data(7, "f32", family="normal_learned")[0].scratch is None
+
+
 def _csrc(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <stdio.h>\nint k;\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\nint a;\n')

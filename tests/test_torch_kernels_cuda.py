@@ -27,21 +27,31 @@ TOL = 1e-5
 # version's cuBLAS product.  Where that moves an f32 residual across a bf16
 # rounding midpoint, K2's bf16 residual is the other neighbour (a tie; on an
 # H100 at most 1.7e-5 of the residuals, each within 64 f32 units in the last
-# place of the midpoint).  So K2's gradient is held to TOL against the plain
-# formula on K2's own residual, and every differing residual must be such a
-# tie, as in chip_smoke.py.
+# place of the midpoint).  So K2's gradient is held to TOL plus the bound of
+# its ties' move (0 without ties), and to TOL against the plain formula on
+# K2's own residual, and every differing residual must be such a tie, as in
+# chip_smoke.py; the unrounded control must fail that gate.
 TIE_UNITS = 1024
 FLIP_SHARE = 1e-4
 
 
-def _check_bf16_ties(kernel, z, data, g):
-    r16 = kernel.residual(z, data)
-    flips, legal, units = G.bf16_rounding_flips(r16, G.bernoulli_residual_reference(z, data))
-    assert torch.equal(flips, legal), "a residual differs from the plain one by more than a tie"
-    assert int(flips.sum()) <= FLIP_SHARE * flips.numel()
-    if bool(flips.any()):
-        assert int(units[flips].max()) <= TIE_UNITS
-    _close(g, G.bernoulli_grad_given_residual(r16, z, data), TOL)
+def _bf16_gate(r):
+    """The list of K2's limits that ``r`` (G.bf16_residual_readings) breaks."""
+    return [name for name, held in (
+        ("gradient", r["grad_max_rel"] <= TOL + r["flip_allowance_rel"]),
+        ("gradient on its residual", r["grad_given_resid_rel"] <= TOL),
+        ("ties only", r["flips_legal"]),
+        ("tie distance", r["flip_tie_units_max"] <= TIE_UNITS),
+        ("tie share", r["flip_share"] <= FLIP_SHARE)) if not held]
+
+
+def _check_bf16_gradient(kernel, z, data, g, g_ref):
+    readings = G.bf16_residual_readings(g, kernel.residual(z, data), z, data, g_ref)
+    assert _bf16_gate(readings) == [], readings
+    ctl_data = data._replace(x=data.x.float())  # control: z and the residual not rounded
+    _, g_ctl = ctl_data.plain(z)
+    ctl = G.bf16_residual_readings(g_ctl, G.bernoulli_residual_reference(z, ctl_data), z, data, g_ref)
+    assert _bf16_gate(ctl) != [], ctl
 
 
 @pytest.fixture
@@ -81,7 +91,7 @@ def _check_kernel(family, dtype, c, n, d, device):
     assert kernel.launches == before + 1
     _close(v, v_ref, TOL)
     if family == "bernoulli_logit" and dtype == "bf16":
-        _check_bf16_ties(kernel, z, data, g)
+        _check_bf16_gradient(kernel, z, data, g, g_ref)
     else:
         _close(g, g_ref, TOL)
     v2, g2 = kernel(z, data)  # no atomics: two runs give identical bits
