@@ -1,60 +1,78 @@
-// K1 and K2: the Bernoulli-logit GLM value + gradient, designed for Hopper.
+// K1-K4: the GLM value + gradient of both families, designed for Hopper.
 //
-// Replaces brancher_tpu/ops/pallas_glm.py _bern_kernel (K1, f32 design
-// matrix) and _bern_kernel_bf16 (K2, bf16 design matrix).  Included by
-// glm_vg.cu, which defines softplus_f and sigmoid_f and the C entries
-// glm_vg_bernoulli_f32 / glm_vg_bernoulli_bf16.
+// Replaces the Pallas TPU kernels of brancher_tpu/ops/pallas_glm.py:
+//   K1 _bern_kernel         (bernoulli_logit, f32 design matrix)
+//   K2 _bern_kernel_bf16    (bernoulli_logit, bf16 design matrix)
+//   K3 _normal_kernel       (normal_learned,  f32 design matrix)
+//   K4 _normal_kernel_bf16  (normal_learned,  bf16 design matrix)
+// Included by glm_vg.cu, which defines softplus_f and sigmoid_f and the C
+// entries glm_vg_bernoulli_f32 / _bf16 and glm_vg_normal_f32 / _bf16.
 //
 // What it computes, for chains z [C,D], design X [N,D], y, offset b [N], a
 // diagonal Gaussian prior (m, iv) [D] and a likelihood scale s_ll:
-//   l = z X^T + b
-//   val  = s_ll * sum_n (y l - softplus l) - 1/2 sum_d (z-m)^2 iv
-//   grad = s_ll * (y - sigmoid l) X - (z-m) iv
-// K2 rounds z and the residual to bf16 at the two products (as the TPU
-// kernel does, pallas_glm.py:263); softplus, sigmoid and every sum stay f32.
+//   bernoulli_logit:  l = z X^T + b
+//     val  = s_ll sum_n (y l - softplus l) - 1/2 sum_d (z-m)^2 iv
+//     grad = s_ll (y - sigmoid l) X - (z-m) iv
+//   normal_learned:   r = y - (z X^T + b), rss = sum_n r^2, s = z.u + c0,
+//                     e2 = exp(-2 s)
+//     val  = s_ll (-1/2 e2 rss - N s) - 1/2 sum_d (z-m)^2 iv
+//     grad = s_ll (e2 r X + (e2 rss - N) u) - (z-m) iv
+// K2 and K4 round z and the residual to bf16 at the two products (as the
+// TPU kernels do, pallas_glm.py:263, :310); softplus, sigmoid, rss, z.u,
+// exp and every sum stay f32.
 //
 // Bound on this card.  4 C N D operations against one read of X: at the
 // MXU-scale shape (C=256, N=131072, D=1024) 137 GFLOP, 0.14 ms at the
-// 989 TFLOP/s of bf16 tensor cores (K2) and 2.05 ms at the 67 TFLOP/s of
-// f32 CUDA-core FMA (K1).  Both are bound by operations there.
+// 989 TFLOP/s of bf16 tensor cores (K2, K4) and 2.05 ms at the 67 TFLOP/s
+// of f32 CUDA-core FMA (K1, K3).  All four are bound by operations there.
+// The two families differ only in the elementwise middle of pass A and in
+// the finish's epilogue, so they share every mainloop below.
 //
 // Design.  The TPU kernel sweeps row blocks in order and keeps val/grad
 // resident.  Here the call is cut into passes with no atomics and a fixed
 // order of every sum, so each launch is bit-reproducible:
-//   pass 0  z into a scratch with a 16-byte-aligned row stride (K2: rounded
-//           to bf16 once per call);
-//   pass A  grid (chain tile, row tile): l = z X^T + b for the tile, K = D
-//           the reduction; the elementwise middle in registers; the residual
-//           to a scratch [C, ldr] (bf16 for K2, f32 for K1) and one
-//           log-likelihood partial per (chain, row tile) to ll_part [C, T];
+//   pass 0  z into a scratch with a 16-byte-aligned row stride (bf16:
+//           rounded once per call);
+//   pass A  grid (chain tile, row tile): z X^T + b for the tile, K = D the
+//           reduction; the family's elementwise middle in registers; the
+//           residual (y - sigmoid l, or y - loc) to a scratch [C, ldr] (bf16
+//           or f32) and one partial per (chain, row tile) to ll_part [C, T]:
+//           the log-likelihood, or the rss;
 //   pass B  grid (chain tile, D tile, row split): g_part[s] = resid[:, rows
 //           of s] X[rows of s, :], the output tile accumulated in registers
 //           over all the rows of the split and written once;
-//   finish  one block per chain: the fixed-order sums of the T log-lik
-//           partials and the S gradient partials, the prior, the epilogue.
-// The wrapper's planner (ops/glm.py plan_bernoulli) chooses the strides, the
-// row tiles and the splits; the launch checks them against the tiles here.
+//   finish  one block per chain: the fixed-order sums of the T partials
+//           and the S gradient partials, z.u for normal_learned, the prior
+//           and the family's epilogue.
+// The wrapper's planner (ops/glm.py plan_glm) chooses the strides, the row
+// tiles and the splits; the launch checks them against the tiles here.
 //
-// K2 mainloops: one warpgroup per block runs wgmma.m64n64k16 (bf16 in, f32
-// accumulators in registers) on tiles that TMA brings into a 3-stage ring of
-// shared memory, each stage completed by an mbarrier.  Tiles are 64 bf16
+// bf16 mainloops (K2, K4): one warpgroup per block runs wgmma.m64n64k16
+// (bf16 in, f32 accumulators in registers) on tiles that TMA brings into a
+// 3-stage ring of shared memory, each stage completed by an mbarrier.  At
+// the MXU shape K2's passes reached 275 TFLOP/s on an H100 (PERF.md), 28 %
+// of the bound: pass A's 4,096 short tiles each refill the ring and run
+// their epilogue (a persistent pass A is queued).  Tiles are 64 bf16
 // (128 bytes) deep with the 128-byte swizzle, which the wgmma descriptors
 // match.  Pass A's operands are both K-major (z rows, X rows); pass B's A
 // (the residual) is K-major and its B (X, whose rows are now the depth) is
 // MN-major, taken with the descriptor's transpose bit.  TMA fills out-of-
 // bounds elements with zeros, which covers the ragged C, N and D edges.
 //
-// K1 mainloops: exact f32 FMA on the CUDA cores (no tensor cores, no TF32).
-// 256 threads own a 128 x 128 tile, 8 x 8 outputs each; cp.async brings
-// 16-byte pieces into a 4-stage ring; each thread reads its operands as
-// float4, one shared-memory load for every 16 FMAs.  Ragged edges are
+// f32 mainloops (K1, K3): exact f32 FMA on the CUDA cores (no tensor cores,
+// no TF32).  256 threads own a 128 x 128 tile, 8 x 8 outputs each; cp.async
+// brings 16-byte pieces into a 4-stage ring; each thread reads its operands
+// as float4, one shared-memory load for every 16 FMAs.  Ragged edges are
 // zero-filled by the copies' source size.
 
 #pragma once
 
-namespace bern {
+namespace glm90 {
 
-// ---- K2 (bf16, wgmma + TMA) -----------------------------------------------
+constexpr int BERNOULLI = 0;  // bernoulli_logit: K1, K2
+constexpr int NORMAL = 1;     // normal_learned: K3, K4
+
+// ---- bf16 (wgmma + TMA) -----------------------------------------------------
 constexpr int T_BM = 64;        // chains per block, both passes (one wgmma M)
 constexpr int T_ROWS_A = 128;   // pass A: X rows per tile (two n64 products)
 constexpr int T_COLS_B = 128;   // pass B: D columns per block (two n64 products)
@@ -71,7 +89,7 @@ constexpr int T_STAGE_B = 2 * T_HALF_B;      // 16 KB
 constexpr int T_SMEM = T_STAGES * (T_STAGE_A + T_STAGE_B) + 1024 + 8 * T_STAGES;
 constexpr int T_ALIGN = 8;      // elements in 16 bytes of bf16
 
-// ---- K1 (f32, CUDA cores, cp.async) ---------------------------------------
+// ---- f32 (CUDA cores, cp.async) ---------------------------------------------
 constexpr int F_BM = 128;       // chains per block, both passes
 constexpr int F_BN = 128;       // pass A: X rows per tile; pass B: D columns
 constexpr int F_BK = 16;        // depth per stage
@@ -185,7 +203,23 @@ __global__ void __launch_bounds__(256) stage_z(const float* __restrict__ z, T* _
   }
 }
 
-// ---- K2 mainloop: TMA ring -> wgmma ----------------------------------------
+// ---- pass A's elementwise middle --------------------------------------------
+// One element of pass A: acc = z.x_n, yv = y[n], bv = b[n].  Adds the
+// element's term to the partial (log-likelihood or rss) and returns its
+// residual.
+template <int FAMILY>
+__device__ __forceinline__ float middle(float acc, float yv, float bv, float& part) {
+  const float l = acc + bv;
+  if (FAMILY == BERNOULLI) {
+    part += yv * l - softplus_f(l);
+    return yv - sigmoid_f(l);
+  }
+  const float r = yv - l;
+  part += r * r;
+  return r;
+}
+
+// ---- bf16 mainloop: TMA ring -> wgmma ---------------------------------------
 // acc[h] is the h-th n64 half of the block's [64 x 128] output.  The tensor
 // cores sum each 64-deep stage into fresh registers, which are then added
 // to acc on the CUDA cores in f32 with round-to-nearest: the tensor cores'
@@ -265,15 +299,16 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return off ? p + (1024 - off) : p;
 }
 
-// ---- K2 pass A --------------------------------------------------------------
+// ---- bf16 pass A ------------------------------------------------------------
 // The tensor cores sum the D products in another order than cuBLAS's f32
-// product in the plain version, so a logit may differ from the plain one in
-// its last bits, and where that moves the residual across a bf16 rounding
-// midpoint the bf16 residual differs by one bf16 unit.  Such ties are rare
-// (17 in a million residuals at the MXU shape on an H100); chip_smoke.py
-// and the card-only tests count them and hold the rest of the call to the
-// plain version given the kernel's rounding.
-__global__ void __launch_bounds__(T_THREADS) bf16_logits(
+// product in the plain version, so a logit (or loc) may differ from the
+// plain one in its last bits, and where that moves the residual across a
+// bf16 rounding midpoint the bf16 residual differs by one bf16 unit.  Such
+// ties are rare (17 in a million Bernoulli residuals at the MXU shape on an
+// H100); chip_smoke.py and the card-only tests count them and hold the rest
+// of the call to the plain version given the kernel's rounding.
+template <int FAMILY>
+__global__ void __launch_bounds__(T_THREADS) bf16_pass_a(
     const __grid_constant__ CUtensorMap zmap, const __grid_constant__ CUtensorMap xmap,
     const float* __restrict__ y, const float* __restrict__ b, __nv_bfloat16* __restrict__ resid,
     float* __restrict__ ll_part, int C, int N, int D, int ldr, int row_tiles) {
@@ -293,7 +328,7 @@ __global__ void __launch_bounds__(T_THREADS) bf16_logits(
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int c = c_base + w * 16 + (l >> 2) + 8 * hr;
-    float ll = 0.f;
+    float ll = 0.f;  // log-likelihood or rss of the tile's real rows
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -301,14 +336,9 @@ __global__ void __launch_bounds__(T_THREADS) bf16_logits(
         const int n = r_base + h * 64 + j * 8 + (l & 3) * 2;
         float r[2] = {0.f, 0.f};
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n + e < N) {
-            const float lg = acc[h][j * 4 + hr * 2 + e] + b[n + e];
-            const float yv = y[n + e];
-            ll += yv * lg - softplus_f(lg);
-            r[e] = yv - sigmoid_f(lg);
-          }
-        }
+        for (int e = 0; e < 2; ++e)
+          if (n + e < N)
+            r[e] = middle<FAMILY>(acc[h][j * 4 + hr * 2 + e], y[n + e], b[n + e], ll);
         if (c < C && n < N)  // n even, ldr a multiple of 8: the pair lies in the row
           *reinterpret_cast<__nv_bfloat162*>(resid + static_cast<size_t>(c) * ldr + n) =
               __floats2bfloat162_rn(r[0], r[1]);
@@ -320,8 +350,8 @@ __global__ void __launch_bounds__(T_THREADS) bf16_logits(
   }
 }
 
-// ---- K2 pass B --------------------------------------------------------------
-__global__ void __launch_bounds__(T_THREADS) bf16_grad(
+// ---- bf16 pass B (both families) --------------------------------------------
+__global__ void __launch_bounds__(T_THREADS) bf16_pass_b(
     const __grid_constant__ CUtensorMap rmap, const __grid_constant__ CUtensorMap xmap,
     float* __restrict__ g_part, int C, int N, int D, int ldg, int rows_per_split) {
   extern __shared__ uint8_t smem_raw[];
@@ -361,8 +391,9 @@ __global__ void __launch_bounds__(T_THREADS) bf16_grad(
   }
 }
 
-// ---- K1 pass A --------------------------------------------------------------
-__global__ void __launch_bounds__(F_THREADS, 2) f32_logits(
+// ---- f32 pass A -------------------------------------------------------------
+template <int FAMILY>
+__global__ void __launch_bounds__(F_THREADS, 2) f32_pass_a(
     const float* __restrict__ zs, const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ b, float* __restrict__ resid, float* __restrict__ ll_part, int C,
     int N, int D, int ldz, int ldx, int ldr, int row_tiles) {
@@ -432,15 +463,13 @@ __global__ void __launch_bounds__(F_THREADS, 2) f32_logits(
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int c = c_base + ty + 16 * i;
-    float ll = 0.f;
+    float ll = 0.f;  // log-likelihood or rss of the tile's real rows
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = r_base + tx + 16 * j;
       if (n < N) {
-        const float lg = acc[i][j] + b[n];
-        const float yv = y[n];
-        ll += yv * lg - softplus_f(lg);
-        if (c < C) resid[static_cast<size_t>(c) * ldr + n] = yv - sigmoid_f(lg);
+        const float r = middle<FAMILY>(acc[i][j], y[n], b[n], ll);
+        if (c < C) resid[static_cast<size_t>(c) * ldr + n] = r;
       }
     }
     // the 16 tx lanes of a chain, in a fixed order
@@ -450,8 +479,8 @@ __global__ void __launch_bounds__(F_THREADS, 2) f32_logits(
   }
 }
 
-// ---- K1 pass B --------------------------------------------------------------
-__global__ void __launch_bounds__(F_THREADS, 2) f32_grad(
+// ---- f32 pass B (both families) ---------------------------------------------
+__global__ void __launch_bounds__(F_THREADS, 2) f32_pass_b(
     const float* __restrict__ resid, const float* __restrict__ x, float* __restrict__ g_part,
     int C, int N, int D, int ldr, int ldx, int ldg, int rows_per_split) {
   extern __shared__ float4 fsm4[];
@@ -551,36 +580,51 @@ __global__ void __launch_bounds__(F_THREADS, 2) f32_grad(
 }
 
 // ---- finish: fixed-order sums of the partials, prior, epilogue --------------
+// ll_part holds log-likelihood partials (bernoulli_logit) or rss partials
+// (normal_learned); u, c0 and n_real are read for normal_learned only.
+template <int FAMILY>
 __global__ void __launch_bounds__(FINISH_THREADS) finish(
     const float* __restrict__ z, const float* __restrict__ m, const float* __restrict__ iv,
-    const float* __restrict__ ll_part, const float* __restrict__ g_part, float* __restrict__ val,
-    float* __restrict__ grad, int C, int D, int T, int S, int ldg, float ll_scale) {
+    const float* __restrict__ u, const float* __restrict__ ll_part,
+    const float* __restrict__ g_part, float* __restrict__ val, float* __restrict__ grad, int C,
+    int D, int T, int S, int ldg, float ll_scale, float c0, float n_real) {
   __shared__ float red_q[FINISH_THREADS];
   __shared__ float red_l[FINISH_THREADS];
+  __shared__ float red_s[FINISH_THREADS];
   const int c = blockIdx.x, tid = threadIdx.x;
   const float* zc = z + static_cast<size_t>(c) * D;
-  float q = 0.f, ll = 0.f;
+  float q = 0.f, ll = 0.f, su = 0.f;
   for (int d = tid; d < D; d += FINISH_THREADS) {
     const float dz = zc[d] - m[d];
     q += dz * dz * iv[d];
+    if (FAMILY == NORMAL) su += zc[d] * u[d];  // the f32 z, as the TPU kernel
   }
   for (int t = tid; t < T; t += FINISH_THREADS) ll += ll_part[static_cast<size_t>(c) * T + t];
   red_q[tid] = q;
   red_l[tid] = ll;
+  red_s[tid] = su;
   __syncthreads();
   for (int w = FINISH_THREADS / 2; w > 0; w >>= 1) {
     if (tid < w) {
       red_q[tid] += red_q[tid + w];
       red_l[tid] += red_l[tid + w];
+      red_s[tid] += red_s[tid + w];
     }
     __syncthreads();
   }
+  const float s = red_s[0] + c0;  // normal_learned: the log noise scale
+  const float e2 = FAMILY == NORMAL ? expf(-2.f * s) : 1.f;
+  const float g_u = e2 * red_l[0] - n_real;  // normal_learned: d ll / d s
   for (int d = tid; d < D; d += FINISH_THREADS) {
     float gs = 0.f;
     for (int k = 0; k < S; ++k) gs += g_part[(static_cast<size_t>(k) * C + c) * ldg + d];
-    grad[static_cast<size_t>(c) * D + d] = ll_scale * gs - (zc[d] - m[d]) * iv[d];
+    const float g_ll = FAMILY == NORMAL ? e2 * gs + g_u * u[d] : gs;
+    grad[static_cast<size_t>(c) * D + d] = ll_scale * g_ll - (zc[d] - m[d]) * iv[d];
   }
-  if (tid == 0) val[c] = ll_scale * red_l[0] - 0.5f * red_q[0];
+  if (tid == 0) {
+    const float v_ll = FAMILY == NORMAL ? -0.5f * e2 * red_l[0] - n_real * s : red_l[0];
+    val[c] = ll_scale * v_ll - 0.5f * red_q[0];
+  }
 }
 
 // ---- host side ----------------------------------------------------------------
@@ -641,7 +685,7 @@ inline bool plan_ok(bool bf16, int C, int N, int D, int ldx, int ldz, int ldr, i
   return covered >= N && covered - rows_per_split < N && splits <= 65535;
 }
 
-#define BERN_CHECK(call)                                \
+#define GLM90_CHECK(call)                               \
   do {                                                  \
     call;                                               \
     const cudaError_t e_ = cudaGetLastError();          \
@@ -650,21 +694,22 @@ inline bool plan_ok(bool bf16, int C, int N, int D, int ldx, int ldz, int ldr, i
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory, once per
 // device (the attribute holds for the process).
-#define BERN_SMEM_ONCE(KERNEL, BYTES)                                              \
+#define GLM90_SMEM_ONCE(KERNEL, BYTES)                                             \
   do {                                                                             \
     static bool done_[64] = {};                                                    \
     int dev_ = 0;                                                                  \
-    BERN_CHECK(cudaGetDevice(&dev_));                                              \
+    GLM90_CHECK(cudaGetDevice(&dev_));                                             \
     if (dev_ >= 64 || !done_[dev_]) {                                              \
-      BERN_CHECK(cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                                      BYTES));                                     \
+      GLM90_CHECK(cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                       BYTES));                                    \
       if (dev_ < 64) done_[dev_] = true;                                           \
     }                                                                              \
   } while (0)
 
-// K2's four tensor maps: X in pass A's boxes [128 rows, 64 columns] and in
-// pass B's [64, 64], the z scratch and the residual scratch in [64 chains,
-// 64] boxes.  The wrapper encodes them once per X and scratch and keeps them.
+// The bf16 kernels' four tensor maps: X in pass A's boxes [128 rows, 64
+// columns] and in pass B's [64, 64], the z scratch and the residual scratch
+// in [64 chains, 64] boxes.  The wrapper encodes them once per X and scratch
+// and keeps them.
 inline int encode_maps(const void* x, int ldx, const void* zs, int ldz, const void* resid,
                        int ldr, int C, int N, int D, CUtensorMap (&maps)[4]) {
   int err = encode_bf16_map(&maps[0], x, D, N, ldx * 2, T_ROWS_A);
@@ -674,49 +719,56 @@ inline int encode_maps(const void* x, int ldx, const void* zs, int ldz, const vo
   return err;
 }
 
-// One value+grad call: every pass, on one stream.  For K2, maps holds the
-// four tensor maps of encode_maps for these X and scratch; K1 takes none.
-template <bool BF16>
+// One value+grad call: every pass, on one stream.  For bf16, maps holds the
+// four tensor maps of encode_maps for these X and scratch; f32 takes none.
+// u, c0 and n_real (the number of rows) are read for normal_learned only.
+template <int FAMILY, bool BF16>
 int launch(const float* z, const void* x, const void* maps, const float* y, const float* b,
-           const float* m, const float* iv, float ll_scale, float* val, float* grad, void* zs,
-           void* resid, float* ll_part, float* g_part, int C, int N, int D, int ldx, int ldz,
-           int ldr, int ldg, int row_tiles, int splits, int rows_per_split, void* stream) {
+           const float* m, const float* iv, const float* u, float c0, float ll_scale,
+           float n_real, float* val, float* grad, void* zs, void* resid, float* ll_part,
+           float* g_part, int C, int N, int D, int ldx, int ldz, int ldr, int ldg, int row_tiles,
+           int splits, int rows_per_split, void* stream) {
   if (!plan_ok(BF16, C, N, D, ldx, ldz, ldr, ldg, row_tiles, splits, rows_per_split) ||
       !aligned16(x) || !aligned16(zs) || !aligned16(resid) || !aligned16(g_part) ||
-      (BF16 && maps == nullptr))
+      (BF16 && maps == nullptr) || (FAMILY == NORMAL && u == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   typedef typename std::conditional<BF16, __nv_bfloat16, float>::type OT;
   const int z_blocks = static_cast<int>(
       std::min<long long>((static_cast<long long>(C) * D + 255) / 256, 4096));
-  BERN_CHECK((stage_z<OT><<<z_blocks, 256, 0, st>>>(z, static_cast<OT*>(zs), C, D, ldz)));
+  GLM90_CHECK((stage_z<OT><<<z_blocks, 256, 0, st>>>(z, static_cast<OT*>(zs), C, D, ldz)));
   if (BF16) {
     CUtensorMap m4[4];  // X for pass A, X for pass B, z scratch, residual
     memcpy(m4, maps, sizeof(m4));
-    BERN_SMEM_ONCE(bf16_logits, T_SMEM);
-    BERN_SMEM_ONCE(bf16_grad, T_SMEM);
-    BERN_CHECK((bf16_logits<<<dim3((C + T_BM - 1) / T_BM, row_tiles), T_THREADS, T_SMEM, st>>>(
-        m4[2], m4[0], y, b, static_cast<__nv_bfloat16*>(resid), ll_part, C, N, D, ldr, row_tiles)));
-    BERN_CHECK((bf16_grad<<<dim3((C + T_BM - 1) / T_BM, (D + T_COLS_B - 1) / T_COLS_B, splits),
-                            T_THREADS, T_SMEM, st>>>(m4[3], m4[1], g_part, C, N, D, ldg,
-                                                     rows_per_split)));
+    GLM90_SMEM_ONCE(bf16_pass_a<FAMILY>, T_SMEM);
+    GLM90_SMEM_ONCE(bf16_pass_b, T_SMEM);
+    GLM90_CHECK((bf16_pass_a<FAMILY><<<dim3((C + T_BM - 1) / T_BM, row_tiles), T_THREADS, T_SMEM,
+                                       st>>>(m4[2], m4[0], y, b,
+                                             static_cast<__nv_bfloat16*>(resid), ll_part, C, N,
+                                             D, ldr, row_tiles)));
+    GLM90_CHECK((bf16_pass_b<<<dim3((C + T_BM - 1) / T_BM, (D + T_COLS_B - 1) / T_COLS_B, splits),
+                               T_THREADS, T_SMEM, st>>>(m4[3], m4[1], g_part, C, N, D, ldg,
+                                                        rows_per_split)));
   } else {
-    BERN_SMEM_ONCE(f32_logits, F_SMEM_A);
-    BERN_SMEM_ONCE(f32_grad, F_SMEM_B);
-    BERN_CHECK((f32_logits<<<dim3((C + F_BM - 1) / F_BM, row_tiles), F_THREADS, F_SMEM_A, st>>>(
-        static_cast<const float*>(zs), static_cast<const float*>(x), y, b,
-        static_cast<float*>(resid), ll_part, C, N, D, ldz, ldx, ldr, row_tiles)));
-    BERN_CHECK((f32_grad<<<dim3((C + F_BM - 1) / F_BM, (D + F_BN - 1) / F_BN, splits), F_THREADS,
-                           F_SMEM_B, st>>>(static_cast<const float*>(resid),
-                                           static_cast<const float*>(x), g_part, C, N, D, ldr, ldx,
-                                           ldg, rows_per_split)));
+    GLM90_SMEM_ONCE(f32_pass_a<FAMILY>, F_SMEM_A);
+    GLM90_SMEM_ONCE(f32_pass_b, F_SMEM_B);
+    GLM90_CHECK((f32_pass_a<FAMILY><<<dim3((C + F_BM - 1) / F_BM, row_tiles), F_THREADS, F_SMEM_A,
+                                      st>>>(static_cast<const float*>(zs),
+                                            static_cast<const float*>(x), y, b,
+                                            static_cast<float*>(resid), ll_part, C, N, D, ldz,
+                                            ldx, ldr, row_tiles)));
+    GLM90_CHECK((f32_pass_b<<<dim3((C + F_BM - 1) / F_BM, (D + F_BN - 1) / F_BN, splits),
+                              F_THREADS, F_SMEM_B, st>>>(static_cast<const float*>(resid),
+                                                         static_cast<const float*>(x), g_part, C,
+                                                         N, D, ldr, ldx, ldg, rows_per_split)));
   }
-  BERN_CHECK((finish<<<C, FINISH_THREADS, 0, st>>>(z, m, iv, ll_part, g_part, val, grad, C, D,
-                                                   row_tiles, splits, ldg, ll_scale)));
+  GLM90_CHECK((finish<FAMILY><<<C, FINISH_THREADS, 0, st>>>(z, m, iv, u, ll_part, g_part, val,
+                                                           grad, C, D, row_tiles, splits, ldg,
+                                                           ll_scale, c0, n_real)));
   return 0;
 }
 
-#undef BERN_SMEM_ONCE
-#undef BERN_CHECK
+#undef GLM90_SMEM_ONCE
+#undef GLM90_CHECK
 
-}  // namespace bern
+}  // namespace glm90

@@ -9,10 +9,11 @@ includes (``#include "..."``, followed through headers), and of the
 compile and link flags, so an edited source or header is rebuilt and a
 stale build is never loaded.
 
-K2's TMA tensor maps are encoded by the driver-API call
-``cuTensorMapEncodeTiled``.  The library reaches it through the runtime's
-``cudaGetDriverEntryPoint`` (``csrc/glm_bernoulli_sm90.cuh``), so it links
-against nothing beyond the CUDA runtime: ``LINK_FLAGS`` is empty.
+The bf16 GLM kernels' (K2, K4) TMA tensor maps are encoded by
+``cuTensorMapEncodeTiled``, a libcuda call.  The library reaches it
+through the CUDA runtime's entry-point query (``csrc/glm_sm90.cuh``), so
+it links against nothing beyond the CUDA runtime: ``LINK_FLAGS`` is
+empty.
 
 Nothing here runs when the package is imported: a kernel wrapper calls
 ``load_library`` on its first launch.  ``nvcc``'s output (with ptxas's

@@ -7,14 +7,15 @@ the dense likelihoods of the model zoo:
   * ``normal_learned``   y_n ~ N(x_n.z + b_n, exp(u.z + c0))
 
 For each family and design-matrix type (f32, bf16) there is a plain
-PyTorch version (``*_vg_reference*``) and a kernel written by hand in CUDA.
-The Bernoulli pair K1 (f32) and K2 (bf16) has its own design for Hopper
-(``csrc/glm_bernoulli_sm90.cuh``: passes planned by ``plan_bernoulli``,
-K2 on the tensor cores through ``wgmma`` fed by TMA); the Normal pair K3/K4
-and K6 (``ops/logreg.py``) share the template of ``csrc/glm_vg.cu``.  The
-wrappers (``GlmKernel``, ``BernoulliKernel``) take a tensor on the CPU to
-the plain version and a tensor on a CUDA device to the kernel; there is no
-fallback from the kernel to the plain version.
+PyTorch version (``*_vg_reference*``) and a kernel written by hand in CUDA:
+K1 (Bernoulli, f32), K2 (Bernoulli, bf16), K3 (Normal, f32), K4 (Normal,
+bf16).  All four run the passes of ``csrc/glm_sm90.cuh``, planned by
+``plan_glm``: the bf16 kernels on the tensor cores through ``wgmma`` fed
+by TMA, the f32 ones register-tiled on the CUDA cores fed by ``cp.async``;
+the families differ only in the elementwise middle and the epilogue.  The
+wrapper (``GlmKernel``) takes a tensor on the CPU to the plain version and
+a tensor on a CUDA device to the kernel; there is no fallback from the
+kernel to the plain version.
 
 ``recognize_fused_family`` numerically probes a compiled model: it checks
 that the z-space prior is a diagonal Gaussian, extracts the affine design
@@ -107,36 +108,91 @@ def normal_vg_reference_bf16(z, x16, y, b, u, c0, prior_mean, prior_inv_var, ll_
     return val, grad
 
 
-def bernoulli_residual_reference(z, data):
-    """The plain version's f32 residual y - sigmoid(l) [C, N] before any
-    bf16 rounding, for a Bernoulli FusedFamily (bf16 multiplies when X is
-    bf16)."""
+def residual_reference(z, data):
+    """The plain version's f32 residual [C, N] before any bf16 rounding:
+    y - sigmoid(l) for bernoulli_logit, y - loc for normal_learned (bf16
+    multiplies when X is bf16)."""
     x = data.x
-    logits = (_bf16_matmul(z, x.T) if x.dtype == torch.bfloat16 else z @ x.T) + data.b[None, :]
-    return data.y[None, :] - torch.sigmoid(logits)
+    lin = (_bf16_matmul(z, x.T) if x.dtype == torch.bfloat16 else z @ x.T) + data.b[None, :]
+    if data.family == "bernoulli_logit":
+        return data.y[None, :] - torch.sigmoid(lin)
+    return data.y[None, :] - lin
 
 
-def bernoulli_grad_given_residual(resid, z, data):
+def residual_weight(z, data):
+    """The factor [C] by which each chain's residual product enters the
+    likelihood's gradient: e2 = exp(-2 (z.u + c0)) for normal_learned, 1
+    for bernoulli_logit."""
+    if data.family == "bernoulli_logit":
+        return torch.ones(z.shape[0], dtype=torch.float32, device=z.device)
+    return torch.exp(-2.0 * (z @ data.u + data.c0))
+
+
+def grad_given_residual(resid, z, data):
     """The plain version's gradient with the residual [C, N] given, its
-    rounding included: ll_scale * resid @ X - (z - m) iv, in f32."""
+    rounding included, in f32.  For normal_learned the rss term comes from
+    the plain version's f32 residual, as each kernel takes it from its own
+    f32 residual and rounds only the product's operand."""
     dz = z - data.prior_mean[None, :]
-    return data.ll_scale * (resid.float() @ data.x.float()) - dz * data.prior_inv_var[None, :]
+    g_x = resid.float() @ data.x.float()
+    if data.family == "normal_learned":
+        r32 = residual_reference(z, data)
+        e2 = residual_weight(z, data)
+        g_s = e2 * torch.sum(r32 * r32, -1) - data.y.shape[0]
+        g_x = e2[:, None] * g_x + g_s[:, None] * data.u[None, :]
+    return data.ll_scale * g_x - dz * data.prior_inv_var[None, :]
 
 
-def bf16_rounding_flips(resid16, resid32):
+# A bf16 kernel's residual that is not the bf16 rounding of the plain f32
+# residual is a tie when the plain residual lay within TIE_UNITS units of
+# its f32 precision (``residual_unit``) of rounding to the kernel's value:
+# the two linear predictors, summed in two orders, differ in their last
+# bits.  On an H100 the farthest of K2's ties lay 64 units away, of the
+# 32,768 a residual can lie from a rounding boundary (PERF.md).
+TIE_UNITS = 1024
+
+
+def residual_unit(r32, z, data):
+    """The f32 precision of each plain residual [C, N]: one unit in the
+    last place of |y - sigmoid(l)| for bernoulli_logit.  For
+    normal_learned, y - loc carries loc's rounding, which any summation
+    order bounds by the last place of the sum of loc's absolute terms
+    (|b| + |z| |x|, z rounded as the product takes it): one unit in the
+    last place of the larger of that sum and |y|."""
+    mag = r32.abs()
+    if data.family == "normal_learned":
+        x = data.x.float()
+        zz = z.to(torch.bfloat16).float() if data.x.dtype == torch.bfloat16 else z
+        terms = zz.abs() @ x.abs().T + data.b.abs()[None, :]
+        mag = torch.maximum(data.y.abs()[None, :], terms)
+    return torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+
+
+def _bf16_interval(v16):
+    """(lo, hi) in f64: the f32 values whose bf16 rounding is ``v16``, the
+    midpoints to its two bf16 neighbours (ties to even aside)."""
+    bits = v16.float().contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    away = (mag + 0x8000).view(torch.float32).double()
+    half = torch.tensor(0x8000, dtype=torch.int32).view(torch.float32).double()
+    toward = torch.where(mag == 0, -half.to(v16.device),
+                         (mag - 0x8000).clamp(min=0).view(torch.float32).double())
+    neg = bits < 0
+    return torch.where(neg, -away, toward), torch.where(neg, -toward, away)
+
+
+def bf16_rounding_flips(resid16, resid32, unit):
     """Where a bf16 residual is not the round-to-nearest-even of the f32
-    one: (flips, legal, tie_units).  ``legal`` marks the flips that are
-    the other bf16 neighbour of the f32 value, one bf16 unit away;
-    ``tie_units`` is each f32 value's distance from the midpoint between
-    its two bf16 neighbours, in f32 units in the last place (the 16 bits
-    that bf16 drops)."""
-    r32 = resid32.float().contiguous()
-    bits32 = r32.view(torch.int32)
-    bits16 = resid16.float().contiguous().view(torch.int32)
-    flips = resid16.float() != r32.to(torch.bfloat16).float()
-    toward_zero = bits32 & ~0xFFFF
-    legal = flips & ((bits16 == toward_zero) | (bits16 == toward_zero + 0x10000))
-    return flips, legal, ((bits32 & 0xFFFF) - 0x8000).abs()
+    one: (flips, units).  ``units`` is each f32 value's distance from the
+    f32 values that round to ``resid16``, in ``unit``s (0 where it rounds
+    there): for the other bf16 neighbour, the distance from the midpoint
+    between the two; infinite where ``resid16`` is no bf16 value (a
+    residual that was not rounded)."""
+    r, v = resid32.double(), resid16.float()
+    lo, hi = _bf16_interval(resid16)
+    units = ((lo - r).clamp(min=0) + (r - hi).clamp(min=0)) / unit.double()
+    units = torch.where(v == v.to(torch.bfloat16).float(), units, float("inf"))
+    return v != resid32.float().to(torch.bfloat16).float(), units
 
 
 def _rel(got: Tensor, ref: Tensor) -> float:
@@ -144,33 +200,42 @@ def _rel(got: Tensor, ref: Tensor) -> float:
 
 
 def bf16_residual_readings(g, resid, z, data, g_ref) -> Dict[str, float]:
-    """What the checks of K2 (bf16 Bernoulli) read for a gradient ``g``
+    """What the checks of a bf16 kernel (K2, K4) read for a gradient ``g``
     that was computed from the residual ``resid`` [C, N], against the
     plain version's gradient ``g_ref`` on the bf16 ``data``.
 
     ``resid_flips`` counts the residuals that are not the bf16 rounding of
-    the plain version's f32 residual; ``flips_legal`` says whether each is
-    the other bf16 neighbour (a tie), and ``flip_tie_units_max`` how far the
-    farthest lay from the rounding midpoint (``bf16_rounding_flips``).  A
-    tie moves its chain's gradient by its bf16 unit times ll_scale times
-    its row of X, so ``flip_allowance_rel`` is ll_scale times the largest
-    sum over one chain's ties of that unit times the row's max|X|, over
-    max(max|g_ref|, 1): 0 where no residual differs.  ``grad_max_rel`` is
-    the raw error against ``g_ref`` and ``grad_given_resid_rel`` the error
-    against the plain formula on ``resid``, both in that scale."""
-    r32 = bernoulli_residual_reference(z, data)
-    flips, legal, units = bf16_rounding_flips(resid, r32)
+    the plain version's f32 residual, and ``flip_tie_units_max`` says how
+    far the farthest of those that are bf16 values lay from rounding to the
+    kernel's value, in units of the residual's f32 precision
+    (``bf16_rounding_flips``, ``residual_unit``).  A flip within
+    ``TIE_UNITS`` is a tie: the two linear predictors, summed in two
+    orders, differ in their last bits, and the residual lay that close to
+    a bf16 rounding boundary.  ``flips_legal`` says whether every flip is
+    a tie.  A tie moves its
+    chain's gradient by its bf16 step times ll_scale times the chain's
+    ``residual_weight`` (e2 for normal_learned) times its row of X, so
+    ``flip_allowance_rel`` is ll_scale times the largest sum over one
+    chain's ties of that step times the weight times the row's max|X|,
+    over max(max|g_ref|, 1): 0 where no residual differs.
+    ``grad_max_rel`` is the raw error against ``g_ref`` and
+    ``grad_given_resid_rel`` the error against the plain formula on
+    ``resid`` (``grad_given_residual``), both in that scale."""
+    r32 = residual_reference(z, data)
+    flips, units = bf16_rounding_flips(resid, r32, residual_unit(r32, z, data))
+    ties = flips & (units <= TIE_UNITS)
     n_flips = int(flips.sum())
-    step = torch.where(legal, (resid.float() - r32.to(torch.bfloat16).float()).abs(), 0.0)
-    x_row_max = data.x.float().abs().amax(1)
+    step = torch.where(ties, (resid.float() - r32.to(torch.bfloat16).float()).abs(), 0.0)
+    move = residual_weight(z, data) * (step @ data.x.float().abs().amax(1))
     scale = max(float(g_ref.abs().max()), 1.0)
+    far = units[flips & units.isfinite()]
     return {
         "resid_flips": n_flips, "flip_share": n_flips / resid.numel(),
-        "flips_legal": bool(torch.equal(flips, legal)),
-        "flip_tie_units_max": int(units[flips].max()) if n_flips else 0,
+        "flips_legal": bool(torch.equal(flips, ties)),
+        "flip_tie_units_max": float(far.max()) if far.numel() else 0.0,
         "grad_max_rel": _rel(g, g_ref),
-        "flip_allowance_rel": abs(data.ll_scale) * float((step @ x_row_max).max()) / scale,
-        "grad_given_resid_rel": _rel(g, bernoulli_grad_given_residual(resid, z, data)),
+        "flip_allowance_rel": abs(data.ll_scale) * float(move.max()) / scale,
+        "grad_given_resid_rel": _rel(g, grad_given_residual(resid, z, data)),
     }
 
 
@@ -192,7 +257,7 @@ class FusedFamily(NamedTuple):
     prior_mean: Tensor  # [D]
     prior_inv_var: Tensor  # [D]
     ll_scale: float
-    scratch: Optional["BernoulliScratch"] = None  # K1/K2's, as long as the data lives
+    scratch: Optional["GlmScratch"] = None  # K1-K4's, as long as the data lives
 
     def value_and_grad(self, dtype: str = "f32") -> Callable[[Tensor], Tuple[Tensor, Tensor]]:
         """Batched fused potential fn(z [C,D]) -> (val [C], grad [C,D]) on
@@ -234,38 +299,156 @@ class FusedFamily(NamedTuple):
         return fn(z, self.x, self.y, self.b, self.u, self.c0, *common)
 
 
+class GlmTiles(NamedTuple):
+    """Tiles of K1-K4 (``csrc/glm_sm90.cuh``) for one operand type, in the
+    order ``glm_sm90_tiles`` reports them."""
+
+    chains_a: int  # pass A: chains per block
+    rows_a: int  # pass A: X rows per tile (one log-lik or rss partial each)
+    chains_b: int  # pass B: chains per block
+    cols_b: int  # pass B: D columns per block
+    rows_b: int  # pass B: rows per depth step (a split is a multiple)
+    align: int  # elements in 16 bytes: every row stride is a multiple
+    blocks_per_sm: int  # blocks one multiprocessor holds (registers, shared memory)
+
+
+GLM_TILES = {
+    "f32": GlmTiles(128, 128, 128, 128, 16, 4, 2),
+    "bf16": GlmTiles(64, 128, 64, 128, 64, 8, 3),
+}
+
+
+class GlmPlan(NamedTuple):
+    """How one K1-K4 call is cut: the scratch strides (elements), the row
+    tiles of pass A and the row splits of pass B."""
+
+    ldz: int  # z scratch [C, ldz], operand type
+    ldr: int  # residual scratch [C, ldr], operand type
+    ldg: int  # gradient partials [splits, C, ldg], f32
+    row_tiles: int  # log-lik or rss partials [C, row_tiles], f32
+    splits: int
+    rows_per_split: int
+
+    def scratch_shapes(self, c: int) -> Dict[str, Tuple[int, ...]]:
+        return {"z": (c, self.ldz), "resid": (c, self.ldr),
+                "ll_part": (c, self.row_tiles), "g_part": (self.splits, c, self.ldg)}
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+# The row stride that the planner gives the operand scratch and the data
+# build gives X: 128 bytes, one row of a TMA box with the 128-byte swizzle.
+# The kernels take any multiple of 16 bytes (what TMA and the 16-byte
+# copies need), but at 16 bytes K4 at C=256, N=131072, D=1025 took 0.742
+# ms against 0.445 at 128 (an H100, PERF.md): a box row then spans two
+# 128-byte lines.
+ROW_BYTES = 128
+
+
+def plan_glm(c: int, n: int, d: int, dtype: str, sms: int) -> GlmPlan:
+    """The passes of one value+grad call over z [C,D] and N rows on a card
+    with ``sms`` multiprocessors, for the f32 kernels (K1, K3; dtype 'f32')
+    or the bf16 ones (K2, K4; 'bf16'): both families share the passes.
+    Every operand scratch row stride is a multiple of ``ROW_BYTES`` (TMA
+    and 16-byte copies need 16; f32 partials a multiple of 4 elements).
+    Pass A has one
+    tile per ``rows_a`` rows.  Pass B cuts the rows into splits of whole
+    depth steps: as many as let every (chain block, column block, split)
+    run in one wave of ``blocks_per_sm`` blocks per multiprocessor (a
+    second, nearly empty wave would double the pass), and none empty."""
+    t = GLM_TILES[dtype]
+    row = ROW_BYTES // (2 if dtype == "bf16" else 4)
+    steps = -(-n // t.rows_b)
+    blocks = -(-c // t.chains_b) * -(-d // t.cols_b)
+    splits = max(1, min(steps, t.blocks_per_sm * sms // blocks))
+    steps_per_split = -(-steps // splits)
+    splits = -(-steps // steps_per_split)
+    return GlmPlan(ldz=_round_up(d, row), ldr=_round_up(n, row),
+                   ldg=_round_up(d, 4), row_tiles=-(-n // t.rows_a), splits=splits,
+                   rows_per_split=steps_per_split * t.rows_b)
+
+
+def x_row_aligned(x: Tensor) -> bool:
+    """X [N, D] as K1-K4 read it: unit column stride, rows 16-byte aligned."""
+    row_bytes = x.stride(0) * x.element_size()
+    return (x.dim() == 2 and x.stride(1) == 1 and x.stride(0) >= x.shape[1]
+            and row_bytes % 16 == 0 and x.data_ptr() % 16 == 0)
+
+
+def align_rows(x: Tensor) -> Tensor:
+    """X [N, D] with its rows ``ROW_BYTES`` apart: X itself when a
+    contiguous X's rows are, else a view of the first D columns of a
+    zero-padded [N, D'] buffer."""
+    n, d = x.shape
+    if x.is_contiguous() and (d * x.element_size()) % ROW_BYTES == 0 \
+            and x.data_ptr() % ROW_BYTES == 0:
+        return x
+    buf = torch.zeros((n, _round_up(d, ROW_BYTES // x.element_size())), dtype=x.dtype,
+                      device=x.device)
+    buf[:, :d] = x
+    return buf[:, :d]
+
+
+class GlmScratch:
+    """K1-K4's workspace for one FusedFamily (``build_glm_data`` makes it
+    with the data, so it is freed with the data): the plan and the scratch
+    tensors of the last (device, stream, C, X) it served, and the bf16
+    kernels' four TMA tensor maps of that X and scratch.  The next call
+    with the same key runs after the last in stream order and reuses them;
+    a call with another key replaces them."""
+
+    __slots__ = ("key", "plan", "tensors", "maps")
+
+    def __init__(self):
+        self.key = self.plan = self.tensors = self.maps = None
+
+
 class GlmKernel:
-    """Wrapper of one instantiation of ``csrc/glm_vg.cu``.
+    """Wrapper of one value+grad kernel K1-K4 (passes in
+    ``csrc/glm_sm90.cuh``, C entries in ``glm_vg.cu``).  One call launches
+    the passes ``plan_glm`` lays out and counts one launch in ``launches``.
 
-    ``launches`` counts the calls that launched the kernel (one per
-    value+grad evaluation; the two passes of a call count once).
-    """
+    The scratch of a call (z staged, the residual, the partials) and the
+    bf16 kernels' tensor maps live in the data's ``GlmScratch``, so the
+    host's work per call is two output allocations and the launches, which
+    is what a launch-bound call at the floor shape pays.  Data without one
+    (a FusedFamily built by hand) gets fresh scratch on every call."""
 
-    source = "brancher_torch/csrc/glm_vg.cu"
+    source = "brancher_torch/csrc/glm_sm90.cuh"
 
-    def __init__(self, name: str, family: str, x_dtype: torch.dtype,
-                 symbol: str, replaces: str):
+    def __init__(self, name: str, family: str, x_dtype: torch.dtype, symbol: str,
+                 replaces: str):
         self.name = name
         self.family = family
         self.x_dtype = x_dtype
+        self.dtype = "bf16" if x_dtype == torch.bfloat16 else "f32"
         self.symbol = symbol
         self.replaces = replaces
         self.launches = 0
-        self._fn = None
-        self._tiles = None  # (chains, rows) per block, read from the library
+        self._fn = self._encode = None
 
     def _c_function(self):
         if self._fn is None:
-            p = ctypes.c_void_p
-            self._fn, self._tiles = glm_vg_function(
-                self.symbol, [p, p, p, p, p, p, p, ctypes.c_float, ctypes.c_float,
-                              ctypes.c_float, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_int, p])
-        return self._fn
+            from .cuda_build import load_library
 
-    @staticmethod
-    def _x_layout_ok(x: Tensor) -> bool:
-        return x.is_contiguous()
+            lib = load_library("glm_vg")
+            lib.glm_sm90_tiles.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            lib.glm_sm90_tiles.restype = ctypes.c_int
+            got = (ctypes.c_int * len(GlmTiles._fields))()
+            lib.glm_sm90_tiles(int(self.dtype == "bf16"), ctypes.addressof(got))
+            if tuple(got) != tuple(GLM_TILES[self.dtype]):
+                raise RuntimeError(f"{self.name}: the library's tiles {tuple(got)} are not "
+                                   f"the planner's {tuple(GLM_TILES[self.dtype])}")
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = [p] * 8 + [f] * 3 + [p] * 6 + [i] * 10 + [p]
+            fn.restype = ctypes.c_int
+            lib.glm_sm90_encode_maps.argtypes = [p, i, p, i, p, i, i, i, i, p]
+            lib.glm_sm90_encode_maps.restype = ctypes.c_int
+            self._fn, self._encode = fn, lib.glm_sm90_encode_maps
+        return self._fn
 
     def _check(self, z: Tensor, data: FusedFamily):
         if data.family != self.family:
@@ -281,7 +464,7 @@ class GlmKernel:
             want["u"] = (d,)
         for field, shape in want.items():
             t = getattr(data, field)
-            layout_ok = self._x_layout_ok(t) if field == "x" else t.is_contiguous()
+            layout_ok = x_row_aligned(t) if field == "x" else t.is_contiguous()
             if tuple(t.shape) != shape or t.device != z.device or not layout_ok:
                 raise ValueError(
                     f"{self.name}: {field} must be a {shape} tensor on {z.device} "
@@ -291,205 +474,14 @@ class GlmKernel:
         if c == 0 or n == 0 or d == 0:
             raise ValueError(f"{self.name}: empty input (C={c}, N={n}, D={d})")
 
-    def __call__(self, z: Tensor, data: FusedFamily) -> Tuple[Tensor, Tensor]:
-        if z.device.type == "cpu":
-            return data.plain(z)
-        if z.device.type != "cuda":
-            raise RuntimeError(f"{self.name} runs on CUDA tensors, got {z.device}")
-        self._check(z, data)
-        fn = self._c_function()
-        c, d = z.shape
-        n = data.x.shape[0]
-        val, grad, ll_part, g_part, splits, tiles_per_split = _two_pass_buffers(
-            z, n, self._tiles)
-        u_ptr = data.u.data_ptr() if data.u is not None else None
-        with torch.cuda.device(z.device):
-            stream = torch.cuda.current_stream(z.device).cuda_stream
-            err = fn(z.data_ptr(), data.x.data_ptr(), data.y.data_ptr(), data.b.data_ptr(),
-                     data.prior_mean.data_ptr(), data.prior_inv_var.data_ptr(), u_ptr,
-                     float(data.c0), float(data.ll_scale), float(n),
-                     val.data_ptr(), grad.data_ptr(), ll_part.data_ptr(), g_part.data_ptr(),
-                     c, n, d, splits, tiles_per_split, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
-        self.launches += 1
-        return val, grad
-
-
-def glm_vg_function(symbol: str, argtypes):
-    """The C function ``symbol`` of ``csrc/glm_vg.cu`` (built and loaded at
-    first use) with its argument types set, and the library's tile sizes
-    (chains, rows) per block."""
-    from .cuda_build import load_library
-
-    lib = load_library("glm_vg")
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    for tile in (lib.glm_vg_block_chains, lib.glm_vg_block_rows):
-        tile.argtypes = []
-        tile.restype = ctypes.c_int
-    return fn, (lib.glm_vg_block_chains(), lib.glm_vg_block_rows())
-
-
-def _two_pass_buffers(z: Tensor, n: int, tiles: Tuple[int, int]):
-    """Outputs and scratch of one two-pass launch over z [C,D] and N rows:
-    (val, grad, ll_part, g_part, splits, tiles_per_split).  The rows are
-    cut into enough splits that (chain block, split) blocks fill the card
-    twice over."""
-    c, d = z.shape
-    block_chains, block_rows = tiles
-    n_tiles = -(-n // block_rows)
-    chain_blocks = -(-c // block_chains)
-    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
-    splits = max(1, min(n_tiles, -(-2 * sms // chain_blocks)))
-    tiles_per_split = -(-n_tiles // splits)
-    splits = -(-n_tiles // tiles_per_split)  # no empty split
-    f32 = dict(device=z.device, dtype=torch.float32)
-    return (torch.empty((c,), **f32), torch.empty((c, d), **f32),
-            torch.empty((splits, c), **f32), torch.empty((splits, c, d), **f32),
-            splits, tiles_per_split)
-
-
-class BernoulliTiles(NamedTuple):
-    """Tiles of K1/K2 (``csrc/glm_bernoulli_sm90.cuh``), in the order
-    ``glm_bern_tiles`` reports them."""
-
-    chains_a: int  # pass A: chains per block
-    rows_a: int  # pass A: X rows per tile (one log-lik partial each)
-    chains_b: int  # pass B: chains per block
-    cols_b: int  # pass B: D columns per block
-    rows_b: int  # pass B: rows per depth step (a split is a multiple)
-    align: int  # elements in 16 bytes: every row stride is a multiple
-    blocks_per_sm: int  # blocks one multiprocessor holds (registers, shared memory)
-
-
-BERNOULLI_TILES = {
-    "f32": BernoulliTiles(128, 128, 128, 128, 16, 4, 2),
-    "bf16": BernoulliTiles(64, 128, 64, 128, 64, 8, 3),
-}
-
-
-class BernoulliPlan(NamedTuple):
-    """How one K1/K2 call is cut: the scratch strides (elements), the row
-    tiles of pass A and the row splits of pass B."""
-
-    ldz: int  # z scratch [C, ldz], operand type
-    ldr: int  # residual scratch [C, ldr], operand type
-    ldg: int  # gradient partials [splits, C, ldg], f32
-    row_tiles: int  # log-lik partials [C, row_tiles], f32
-    splits: int
-    rows_per_split: int
-
-    def scratch_shapes(self, c: int) -> Dict[str, Tuple[int, ...]]:
-        return {"z": (c, self.ldz), "resid": (c, self.ldr),
-                "ll_part": (c, self.row_tiles), "g_part": (self.splits, c, self.ldg)}
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
-def plan_bernoulli(c: int, n: int, d: int, dtype: str, sms: int) -> BernoulliPlan:
-    """The passes of one K1 (dtype 'f32') or K2 ('bf16') call over z [C,D]
-    and N rows on a card with ``sms`` multiprocessors.  Every scratch row
-    stride is a multiple of 16 bytes (TMA and 16-byte copies need it; f32
-    partials a multiple of 4 elements).  Pass A has one tile per
-    ``rows_a`` rows.  Pass B cuts the rows into splits of whole depth steps:
-    as many as let every (chain block, column block, split) run in one wave
-    of ``blocks_per_sm`` blocks per multiprocessor (a second, nearly empty
-    wave would double the pass), and none empty."""
-    t = BERNOULLI_TILES[dtype]
-    steps = -(-n // t.rows_b)
-    blocks = -(-c // t.chains_b) * -(-d // t.cols_b)
-    splits = max(1, min(steps, t.blocks_per_sm * sms // blocks))
-    steps_per_split = -(-steps // splits)
-    splits = -(-steps // steps_per_split)
-    return BernoulliPlan(ldz=_round_up(d, t.align), ldr=_round_up(n, t.align),
-                         ldg=_round_up(d, 4), row_tiles=-(-n // t.rows_a), splits=splits,
-                         rows_per_split=steps_per_split * t.rows_b)
-
-
-def x_row_aligned(x: Tensor) -> bool:
-    """X [N, D] as K1/K2 read it: unit column stride, rows 16-byte aligned."""
-    row_bytes = x.stride(0) * x.element_size()
-    return (x.dim() == 2 and x.stride(1) == 1 and x.stride(0) >= x.shape[1]
-            and row_bytes % 16 == 0 and x.data_ptr() % 16 == 0)
-
-
-def align_rows(x: Tensor) -> Tensor:
-    """X [N, D] with its rows 16 bytes aligned: X itself when they are, else
-    a view of the first D columns of a zero-padded [N, D'] buffer."""
-    if x.is_contiguous() and x_row_aligned(x):
-        return x
-    n, d = x.shape
-    buf = torch.zeros((n, _round_up(d, 16 // x.element_size())), dtype=x.dtype, device=x.device)
-    buf[:, :d] = x
-    return buf[:, :d]
-
-
-class BernoulliScratch:
-    """K1/K2's workspace for one FusedFamily (``build_glm_data`` makes it
-    with the data, so it is freed with the data): the plan and the scratch
-    tensors of the last (device, stream, C, X) it served, and K2's four TMA
-    tensor maps of that X and scratch.  The next call with the same key
-    runs after the last in stream order and reuses them; a call with
-    another key replaces them."""
-
-    __slots__ = ("key", "plan", "tensors", "maps")
-
-    def __init__(self):
-        self.key = self.plan = self.tensors = self.maps = None
-
-
-class BernoulliKernel(GlmKernel):
-    """Wrapper of K1/K2 (``csrc/glm_bernoulli_sm90.cuh``, entries in
-    ``glm_vg.cu``).  One call launches the passes ``plan_bernoulli`` lays
-    out and counts one launch.
-
-    The scratch of a call (z staged, the residual, the partials) and K2's
-    tensor maps live in the data's ``BernoulliScratch``, so the host's
-    work per call is two output allocations and the launches, which is
-    what a launch-bound call at the floor shape pays.  Data without one
-    (a FusedFamily built by hand) gets fresh scratch on every call."""
-
-    source = "brancher_torch/csrc/glm_bernoulli_sm90.cuh"
-
-    def __init__(self, name: str, x_dtype: torch.dtype, symbol: str, replaces: str):
-        super().__init__(name, "bernoulli_logit", x_dtype, symbol, replaces)
-        self.dtype = "bf16" if x_dtype == torch.bfloat16 else "f32"
-        self._encode = None
-
-    _x_layout_ok = staticmethod(x_row_aligned)
-
-    def _c_function(self):
-        if self._fn is None:
-            from .cuda_build import load_library
-
-            lib = load_library("glm_vg")
-            lib.glm_bern_tiles.argtypes = [ctypes.c_int, ctypes.c_void_p]
-            lib.glm_bern_tiles.restype = ctypes.c_int
-            got = (ctypes.c_int * len(BernoulliTiles._fields))()
-            lib.glm_bern_tiles(int(self.dtype == "bf16"), ctypes.addressof(got))
-            if tuple(got) != tuple(BERNOULLI_TILES[self.dtype]):
-                raise RuntimeError(f"{self.name}: the library's tiles {tuple(got)} are not "
-                                   f"the planner's {tuple(BERNOULLI_TILES[self.dtype])}")
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = [p] * 7 + [ctypes.c_float] + [p] * 6 + [i] * 10 + [p]
-            fn.restype = ctypes.c_int
-            lib.glm_bern_encode_maps.argtypes = [p, i, p, i, p, i, i, i, i, p]
-            lib.glm_bern_encode_maps.restype = ctypes.c_int
-            self._fn, self._encode = fn, lib.glm_bern_encode_maps
-        return self._fn
-
-    def _fill(self, scratch: BernoulliScratch, key: tuple, x: Tensor, c: int):
-        """Plan, allocate and (K2) encode ``scratch`` for ``key``.  A tensor
-        map holds the pointer, shape and strides it was encoded for, so the
-        key holds X's pointer and stride, and the scratch is new with it."""
+    def _fill(self, scratch: GlmScratch, key: tuple, x: Tensor, c: int):
+        """Plan, allocate and (bf16) encode ``scratch`` for ``key``.  A
+        tensor map holds the pointer, shape and strides it was encoded for,
+        so the key holds X's pointer and stride, and the scratch is new with
+        it."""
         device, n, d = x.device, x.shape[0], x.shape[1]
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = plan_bernoulli(c, n, d, self.dtype, sms)
+        plan = plan_glm(c, n, d, self.dtype, sms)
         shapes = plan.scratch_shapes(c)
         zs = torch.empty(shapes["z"], device=device, dtype=self.x_dtype)
         resid = torch.empty(shapes["resid"], device=device, dtype=self.x_dtype)
@@ -510,8 +502,8 @@ class BernoulliKernel(GlmKernel):
         return self._launch(z, data)[:2]
 
     def residual(self, z: Tensor, data: FusedFamily) -> Tensor:
-        """The residual [C, N] of one launch, in the operand type (for K2
-        with its bf16 rounding): what the second product read."""
+        """The residual [C, N] of one launch, in the operand type (for the
+        bf16 kernels with its bf16 rounding): what the second product read."""
         return self._launch(z, data)[2].clone()
 
     def _launch(self, z: Tensor, data: FusedFamily) -> Tuple[Tensor, Tensor, Tensor]:
@@ -524,7 +516,8 @@ class BernoulliKernel(GlmKernel):
         n = x.shape[0]
         f32 = dict(device=z.device, dtype=torch.float32)
         val, grad = torch.empty((c,), **f32), torch.empty((c, d), **f32)
-        scratch = data.scratch if data.scratch is not None else BernoulliScratch()
+        scratch = data.scratch if data.scratch is not None else GlmScratch()
+        u_ptr = None if data.u is None else data.u.data_ptr()
         with torch.cuda.device(z.device):
             stream = torch.cuda.current_stream(z.device).cuda_stream
             key = (z.device, stream, c, x.data_ptr(), x.stride(0), n, d)
@@ -533,11 +526,11 @@ class BernoulliKernel(GlmKernel):
             plan, (zs, resid, ll_part, g_part) = scratch.plan, scratch.tensors
             maps = None if scratch.maps is None else ctypes.addressof(scratch.maps)
             err = fn(z.data_ptr(), x.data_ptr(), maps, data.y.data_ptr(), data.b.data_ptr(),
-                     data.prior_mean.data_ptr(), data.prior_inv_var.data_ptr(),
-                     float(data.ll_scale), val.data_ptr(), grad.data_ptr(), zs.data_ptr(),
-                     resid.data_ptr(), ll_part.data_ptr(), g_part.data_ptr(), c, n, d,
-                     x.stride(0), plan.ldz, plan.ldr, plan.ldg, plan.row_tiles, plan.splits,
-                     plan.rows_per_split, stream)
+                     data.prior_mean.data_ptr(), data.prior_inv_var.data_ptr(), u_ptr,
+                     float(data.c0), float(data.ll_scale), float(n), val.data_ptr(),
+                     grad.data_ptr(), zs.data_ptr(), resid.data_ptr(), ll_part.data_ptr(),
+                     g_part.data_ptr(), c, n, d, x.stride(0), plan.ldz, plan.ldr, plan.ldg,
+                     plan.row_tiles, plan.splits, plan.rows_per_split, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
@@ -547,10 +540,10 @@ class BernoulliKernel(GlmKernel):
 _SRC = "brancher_tpu/ops/pallas_glm.py"
 KERNELS: Dict[str, GlmKernel] = {
     k.name: k for k in (
-        BernoulliKernel("glm_bernoulli_f32", torch.float32,
-                        "glm_vg_bernoulli_f32", f"{_SRC}:179 _bern_kernel"),
-        BernoulliKernel("glm_bernoulli_bf16", torch.bfloat16,
-                        "glm_vg_bernoulli_bf16", f"{_SRC}:240 _bern_kernel_bf16"),
+        GlmKernel("glm_bernoulli_f32", "bernoulli_logit", torch.float32,
+                  "glm_vg_bernoulli_f32", f"{_SRC}:179 _bern_kernel"),
+        GlmKernel("glm_bernoulli_bf16", "bernoulli_logit", torch.bfloat16,
+                  "glm_vg_bernoulli_bf16", f"{_SRC}:240 _bern_kernel_bf16"),
         GlmKernel("glm_normal_f32", "normal_learned", torch.float32,
                   "glm_vg_normal_f32", f"{_SRC}:207 _normal_kernel"),
         GlmKernel("glm_normal_bf16", "normal_learned", torch.bfloat16,
@@ -568,10 +561,10 @@ def build_glm_data(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=0.0,
                    ll_scale=1.0, dtype="f32", device=None, align_x=True) -> FusedFamily:
     """Prepare the data of a fused potential once: move it to ``device``
     (default ``config.device``), make it contiguous, and for dtype='bf16'
-    cast the design matrix to bf16.  For bernoulli_logit (K1/K2) X's rows
-    start 16 bytes apart (``align_rows``: a padded buffer when D is not a
-    multiple of 16 bytes) unless ``align_x`` is False, for a reader that
-    takes X contiguous (K5), and the data carries K1/K2's scratch."""
+    cast the design matrix to bf16.  X's rows start ``ROW_BYTES`` apart,
+    as K1-K4 read them best (``align_rows``: a padded buffer when D is not
+    a multiple of 128 bytes), unless ``align_x`` is False, for a reader
+    that takes X contiguous (K5).  The data carries K1-K4's scratch."""
     if family not in ("bernoulli_logit", "normal_learned"):
         raise ValueError(f"unknown GLM family {family!r}")
     if dtype not in ("f32", "bf16"):
@@ -584,13 +577,11 @@ def build_glm_data(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=0.0,
     xd = torch.as_tensor(x, dtype=torch.float32).to(dev).contiguous()
     if dtype == "bf16":
         xd = xd.to(torch.bfloat16)
-    bernoulli = family == "bernoulli_logit"
-    if bernoulli and align_x:
+    if align_x:
         xd = align_rows(xd)
     return FusedFamily(
         family, xd, vec(y), vec(b), None if u is None else vec(u), float(c0),
-        vec(prior_mean), vec(prior_inv_var), float(ll_scale),
-        BernoulliScratch() if bernoulli else None,
+        vec(prior_mean), vec(prior_inv_var), float(ll_scale), GlmScratch(),
     )
 
 
@@ -802,12 +793,11 @@ def glm_bytes(c: int, n: int, d: int, x_bytes: int, family: str) -> int:
 
 __all__ = [
     "bernoulli_vg_reference", "bernoulli_vg_reference_bf16",
-    "bernoulli_residual_reference", "bernoulli_grad_given_residual", "bf16_rounding_flips",
-    "bf16_residual_readings",
     "normal_vg_reference", "normal_vg_reference_bf16",
-    "GlmKernel", "BernoulliKernel", "BernoulliScratch", "KERNELS", "kernel_for", "build_glm_data",
-    "BernoulliTiles", "BERNOULLI_TILES", "BernoulliPlan", "plan_bernoulli",
-    "align_rows", "x_row_aligned",
+    "residual_reference", "residual_weight", "grad_given_residual", "bf16_rounding_flips",
+    "bf16_residual_readings",
+    "GlmKernel", "GlmScratch", "KERNELS", "kernel_for", "build_glm_data",
+    "GlmTiles", "GLM_TILES", "GlmPlan", "plan_glm", "ROW_BYTES", "align_rows", "x_row_aligned",
     "build_glm_vg", "FusedFamily", "recognize_fused_family",
     "glm_flops", "glm_bytes",
 ]

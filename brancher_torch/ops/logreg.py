@@ -6,7 +6,7 @@ Counterpart of ``brancher_tpu/ops/pallas_logreg.py``:
     grad[c] = (y - sigmoid(l_c)) @ X - w_c / sigma^2,     l_c = X @ w_c
 
   * ``logreg_value_and_grad_reference``: the plain PyTorch version;
-  * ``logreg_value_and_grad``: kernel K6, the ``logreg`` instantiation of
+  * ``logreg_value_and_grad``: kernel K6, the two-pass template of
     ``csrc/glm_vg.cu`` (no offset, no mask, prior N(0, sigma^2)), with its
     own C symbol and launch counter; a CPU tensor takes the plain version;
   * ``make_logreg_log_posterior``: a scalar-per-chain log posterior whose
@@ -22,7 +22,6 @@ import torch
 
 from ..config import resolve_device
 from ..distributions import softplus
-from .glm import _two_pass_buffers, glm_vg_function
 
 Tensor = torch.Tensor
 
@@ -35,6 +34,25 @@ def logreg_value_and_grad_reference(w: Tensor, x: Tensor, y: Tensor,
     val = ll - 0.5 * torch.sum(w * w, dim=-1) / prior_scale**2
     grad = (y[None, :] - torch.sigmoid(logits)) @ x - w / prior_scale**2
     return val, grad
+
+
+def _two_pass_buffers(z: Tensor, n: int, tiles: Tuple[int, int]):
+    """Outputs and scratch of one K6 launch over z [C,D] and N rows:
+    (val, grad, ll_part, g_part, splits, tiles_per_split).  The rows are
+    cut into enough splits that (chain block, split) blocks fill the card
+    twice over."""
+    c, d = z.shape
+    block_chains, block_rows = tiles
+    n_tiles = -(-n // block_rows)
+    chain_blocks = -(-c // block_chains)
+    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
+    splits = max(1, min(n_tiles, -(-2 * sms // chain_blocks)))
+    tiles_per_split = -(-n_tiles // splits)
+    splits = -(-n_tiles // tiles_per_split)  # no empty split
+    f32 = dict(device=z.device, dtype=torch.float32)
+    return (torch.empty((c,), **f32), torch.empty((c, d), **f32),
+            torch.empty((splits, c), **f32), torch.empty((splits, c, d), **f32),
+            splits, tiles_per_split)
 
 
 class LogregKernel:
@@ -51,10 +69,20 @@ class LogregKernel:
         self._tiles = None
 
     def _c_function(self):
+        """The C function (``csrc/glm_vg.cu``, built and loaded at first
+        use) and the template's tile sizes (chains, rows) per block."""
         if self._fn is None:
+            from .cuda_build import load_library
+
+            lib = load_library("glm_vg")
             p, i = ctypes.c_void_p, ctypes.c_int
-            self._fn, self._tiles = glm_vg_function(
-                "logreg_vg_f32", [p, p, p, ctypes.c_float, p, p, p, p, i, i, i, i, i, p])
+            fn = lib.logreg_vg_f32
+            fn.argtypes = [p, p, p, ctypes.c_float, p, p, p, p, i, i, i, i, i, p]
+            fn.restype = ctypes.c_int
+            for tile in (lib.glm_vg_block_chains, lib.glm_vg_block_rows):
+                tile.argtypes = []
+                tile.restype = ctypes.c_int
+            self._fn, self._tiles = fn, (lib.glm_vg_block_chains(), lib.glm_vg_block_rows())
         return self._fn
 
     def __call__(self, w: Tensor, x: Tensor, y: Tensor, prior_scale: float):

@@ -7,19 +7,20 @@
 Phases (each prints one or more JSON lines tagged "phase"):
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the builds of brancher_torch/csrc/glm_vg.cu (with
-     the header glm_bernoulli_sm90.cuh it includes) and leapfrog.cu (one
-     nvcc each, started together) with ptxas's register, spill and
-     shared-memory lines;
+     the header glm_sm90.cuh it includes) and leapfrog.cu (one nvcc each,
+     started together) with ptxas's register, spill and shared-memory
+     lines;
   2. every kernel against its plain PyTorch version: K1-K4 at the floor
-     shape (C=1024, N=1000, D=32), the conjugate shape (C=64, N=20, D=1)
-     and the MXU-scale GLM shape (C=256, N=131072, D=1024), K1/K2 also at
-     a ragged shape (C=100, N=1037, D=33: no axis a multiple of 8); K5 (the
-     fused leapfrog) for both families at the floor and conjugate shapes
-     with 1, 8 and 32 steps; K6 (logreg) at the floor and MXU shapes.  Each
-     row has errors, a control, the determinism check, the kernel's and
-     the plain version's median ms, the bound's ms and TFLOP/s; the
-     value+grad rows also the median ms of the two products alone through
-     cuBLAS (matmul_pair_ms);
+     shape (C=1024, N=1000, D=32), the conjugate shape (C=64, N=20, D=1),
+     the MXU-scale GLM shape (C=256, N=131072, D=1024) and a ragged shape
+     (C=100, N=1037, D=33: no axis a multiple of 8), K3/K4 also at phase
+     5's linear-Gaussian shape (C=256, N=131072, D=1025); K5 (the fused
+     leapfrog) for both families at the floor and conjugate shapes with 1,
+     8 and 32 steps; K6 (logreg) at the floor and MXU shapes.  Each row has
+     errors, a control, the determinism check, the kernel's and the plain
+     version's median ms, the bound's ms and TFLOP/s; the value+grad rows
+     also the median ms of the two products alone through cuBLAS
+     (matmul_pair_ms);
   3. vectorized NUTS at the floor config: make_logreg_data(1000, 32) ->
      logistic_regression_model -> sample(NUTS(max_depth=8), 500 warmup,
      1000 draws, 1024 chains) with fused_potential "auto" (K1), "bf16" (K2)
@@ -27,14 +28,18 @@ Phases (each prints one or more JSON lines tagged "phase"):
   4. NUTS on the conjugate model with "auto" (K3) and "bf16" (K4) against
      its closed-form posterior;
   5. the MXU-scale logistic regression (N=131072, D=1024, 256 chains) with
-     "auto" and "bf16", and the peak card memory of the recognizer's
-     prior probe with the whole log density and with the prior alone;
+     "auto" (K1) and "bf16" (K2), and the peak card memory of the
+     recognizer's prior probe with the whole log density and with the
+     prior alone; then a linear-Gaussian regression on the same X (w ~
+     N(0, 1) [1024], sigma ~ LogNormal(0, 0.5), y ~ N(X w, sigma): D=1025)
+     with "auto" (K3) and "bf16" (K4);
   6. ChEES at the floor config (500 warmup, 1000 draws, 1024 chains) three
      ways: fused_leapfrog=True (K5), a loop of K1, and value_and_grad_fn=
      K6; posterior means against phase 3's "auto" run;
   7. HMC(num_integration_steps=16) with fused_leapfrog=True on the
      conjugate model (K5 on normal_learned), against the closed form;
-  8. the {"kernels": [...]} summary (K5 once for each of its two paths),
+  8. the {"kernels": [...]} summary (K3, K4 and K5 once for each of their
+     two paths),
      the card's name and power limit, and
      the last line {"ok": true, "device": {...}}.
 
@@ -69,18 +74,23 @@ SHAPES = {
     "conjugate": (64, 20, 1),
     "mxu": (256, 131072, 1024),
     "ragged": (100, 1037, 33),
+    "linreg": (256, 131072, 1025),
 }
-# shapes of the Bernoulli kernels K1/K2 only (K3/K4 keep their rows)
-BERNOULLI_ONLY_SHAPES = ("ragged",)
+# phase 5's linear-Gaussian regression (z = [sigma, w]): K3/K4 only
+NORMAL_ONLY_SHAPES = ("linreg",)
 LEAPFROG_SHAPES = ("floor", "conjugate")
 LEAPFROG_STEPS = (1, 8, 32)
 LOGREG_SHAPES = ("floor", "mxu")
 SOURCES = ("glm_vg", "leapfrog")
 # each value+grad kernel's shape on its main path (phase 3 and 6 for K1,
-# K2 and K6; phase 4 for K3/K4)
-MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor",
-              "glm_normal_f32": "conjugate", "glm_normal_bf16": "conjugate",
-              "logreg_f32": "floor"}
+# K2 and K6)
+MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor", "logreg_f32": "floor"}
+# K3/K4 run on two main paths, one entry each in the summary: (section and
+# run of RESULTS, phase-2 shape)
+NORMAL_PATHS = {"glm_normal_f32": ((("conjugate", "auto"), "conjugate"),
+                                   (("mxu_linreg", "auto"), "linreg")),
+                "glm_normal_bf16": ((("conjugate", "bf16"), "conjugate"),
+                                    (("mxu_linreg", "bf16"), "linreg"))}
 # K5 runs on two main paths, one entry each in the summary: (section and
 # run of RESULTS, phase-2 shape, family)
 LEAPFROG_PATHS = ((("chees", "fused"), "floor", "bernoulli_logit"),
@@ -94,26 +104,28 @@ LEAPFROG_PATHS = ((("chees", "fused"), "floor", "bernoulli_logit"),
 # with TF32 products, and for bf16 the plain version without the bf16
 # rounding of z and the residual.  A kernel that did either would fail.
 TOL = 1e-5
-# K2 (bf16 Bernoulli) sums its logits on the tensor cores, in another order
-# than cuBLAS's f32 product in the plain version, and cuBLAS's own order
-# changes with the shape.  Where the last bits of a logit move the f32
-# residual across a bf16 rounding midpoint, K2's bf16 residual is the other
-# neighbour, one bf16 unit away (a tie), and the gradient of its chain moves
-# by that unit times ll_scale times the row of X: up to 2e-5 of the
-# gradient's scale for one tie at the floor.  So a K2 row (_k2_ok) holds:
+# The bf16 kernels (K2, K4) sum their linear predictor (logit or loc) on
+# the tensor cores, in another order than cuBLAS's f32 product in the plain
+# version, and cuBLAS's own order changes with the shape.  Where the last
+# bits of the predictor move the f32 residual across a bf16 rounding
+# boundary, the kernel's bf16 residual is another bf16 value (a tie), and
+# the gradient of its chain moves by that step times ll_scale times the
+# chain's e2 (normal_learned) times the row of X: up to 2e-5 of the
+# gradient's scale for one tie at the floor.  So a bf16 row (_bf16_ok)
+# holds:
 #   - its value to TOL;
 #   - its gradient to TOL plus the bound of its ties' move
 #     (glm.bf16_residual_readings' flip_allowance_rel, 0 without ties);
 #   - its gradient to TOL against the plain formula applied to the kernel's
 #     own bf16 residual;
-#   - every differing residual to a tie whose plain f32 residual lies within
-#     TIE_UNITS f32 units in the last place of the midpoint (on an H100 the
-#     farthest lay 64 units away, of the 32,768 a residual can lie from it),
-#     at most FLIP_SHARE of the residuals (an H100 read 1.7e-5 at the MXU
-#     shape).
+#   - every differing residual to a tie (glm.TIE_UNITS of the residual's f32
+#     precision from rounding to the kernel's value), at most FLIP_SHARE of
+#     the residuals.  K2 on an H100 read 1.7e-5 at the MXU shape.  A Normal
+#     residual near 0, where bf16's step is finest, flips for the same last
+#     bits of loc, so K4's share is higher: 1.77e-4 at the linear-Gaussian
+#     shape on an H100, each tie within 1.125 units (PERF.md).
 # The unrounded control goes through the same gate and must fail it.
-TIE_UNITS = 1024
-FLIP_SHARE = 1e-4
+FLIP_SHARE = {"bernoulli_logit": 1e-4, "normal_learned": 1e-3}
 # The same quantity for K5's z, r, val and grad after a trajectory.  A
 # trajectory carries each step's rounding into the next, so the error
 # grows with the step count: on an H100 the worst reading was 3.1e-6
@@ -244,7 +256,7 @@ def _glm_rows(gen, per_kernel):
 
     for shape_name, (c, n, d) in SHAPES.items():
         for family in ("bernoulli_logit", "normal_learned"):
-            if family != "bernoulli_logit" and shape_name in BERNOULLI_ONLY_SHAPES:
+            if family != "normal_learned" and shape_name in NORMAL_ONLY_SHAPES:
                 continue
             x, y, b, z, m, iv, u = _glm_inputs(c, n, d, family, gen)
             for dtype in ("f32", "bf16"):
@@ -271,17 +283,18 @@ def _glm_rows(gen, per_kernel):
                     "control": "tf32" if dtype == "f32" else "unrounded_bf16",
                     "control_val_rel": _rel(v_ctl, v_ref), "control_grad_rel": _rel(g_ctl, g_ref),
                 }
-                ties = family == "bernoulli_logit" and dtype == "bf16"
+                ties = dtype == "bf16"
                 if ties:
                     err.update(glm.bf16_residual_readings(g, kernel.residual(z, data), z, data, g_ref))
                     err["grad_limit_rel"] = TOL + err["flip_allowance_rel"]
-                    r_ctl = glm.bernoulli_residual_reference(z, data._replace(x=data.x.float()))
+                    r_ctl = glm.residual_reference(z, data._replace(x=data.x.float()))
                     ctl = glm.bf16_residual_readings(g_ctl, r_ctl, z, data, g_ref)
                     ctl["val_max_rel"] = control["control_val_rel"]
                     control.update({f"control_{k}": ctl[k] for k in (
                         "resid_flips", "flips_legal", "flip_allowance_rel")})
-                    control["control_passes_gate"] = _k2_ok(ctl)
-                ok = ((_k2_ok(err) if ties else err["val_max_rel"] <= TOL and err["grad_max_rel"] <= TOL)
+                    control["control_passes_gate"] = _bf16_ok(ctl, family)
+                ok = ((_bf16_ok(err, family) if ties
+                       else err["val_max_rel"] <= TOL and err["grad_max_rel"] <= TOL)
                       and bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all()))
                 deterministic = bool(torch.equal(v, v2) and torch.equal(g, g2))
                 ms = time_ms(lambda: kernel(z, data))
@@ -297,7 +310,8 @@ def _glm_rows(gen, per_kernel):
                 row = {
                     "phase": 2, "kernel": kernel.name, "shape": shape_name, "C": c, "N": n, "D": d,
                     **err, **control, "tolerance_rel": TOL, "ok": ok, "deterministic": deterministic,
-                    **({"tie_units_limit": TIE_UNITS, "flip_share_limit": FLIP_SHARE} if ties else {}),
+                    **({"tie_units_limit": glm.TIE_UNITS, "flip_share_limit": FLIP_SHARE[family]}
+                       if ties else {}),
                     "ms": ms, "plain_ms": plain_ms, "matmul_pair_ms": matmul_ms, "library_ms": None,
                     **_bound(glm.glm_bytes(c, n, d, 2 if dtype == "bf16" else 4, family),
                              glm.glm_flops(c, n, d), dtype),
@@ -307,17 +321,18 @@ def _glm_rows(gen, per_kernel):
                 per_kernel[kernel.name].append(row)
                 check(ok, f"{kernel.name} at {shape_name} disagrees with its plain version: {err}")
                 check(not (ties and control["control_passes_gate"]),
-                      f"{kernel.name} at {shape_name}: the unrounded control passes K2's gate")
+                      f"{kernel.name} at {shape_name}: the unrounded control passes the bf16 gate")
                 check(deterministic, f"{kernel.name} at {shape_name} is not bit-reproducible")
             del x, y, b, z, data
             torch.cuda.empty_cache()
 
 
-def _k2_ok(r: dict) -> bool:
-    """K2's gate on glm.bf16_residual_readings and the value's error (see TOL)."""
+def _bf16_ok(r: dict, family: str) -> bool:
+    """The bf16 kernels' gate on glm.bf16_residual_readings and the value's
+    error (see FLIP_SHARE)."""
     return (r["val_max_rel"] <= TOL and r["grad_max_rel"] <= TOL + r["flip_allowance_rel"]
             and r["grad_given_resid_rel"] <= TOL and r["flips_legal"]
-            and r["flip_tie_units_max"] <= TIE_UNITS and r["flip_share"] <= FLIP_SHARE)
+            and r["flip_share"] <= FLIP_SHARE[family])
 
 
 def _leapfrog_rows(gen, per_kernel):
@@ -578,13 +593,52 @@ def _probe_peak_gib(comp, prior_f) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-def phase_mxu():
+def _linreg_model(x, w_true):
+    """The linear-Gaussian regression of phase 5, from the ported DSL:
+    w ~ N(0, 1) [D], sigma ~ LogNormal(0, 0.5), y ~ N(X w, sigma) with y =
+    X w_true + 0.5 noise.  Its z is [sigma, w] (sorted keys), D + 1 wide."""
+    import numpy as np
+    import torch
+    import brancher_torch as BT
+    import brancher_torch.functions as BF
+
+    d = x.shape[1]
+    y = x @ w_true + 0.5 * np.random.RandomState(1).normal(size=x.shape[0]).astype(np.float32)
+    w = BT.NormalVariable(torch.zeros(d), torch.ones(d), "w")
+    sigma = BT.LogNormalVariable(0.0, 0.5, "sigma")
+    yv = BT.NormalVariable(BF.matmul(torch.as_tensor(x), w), sigma, "y")
+    yv.observe(y.astype(np.float32))
+    return BT.ProbabilisticModel([yv])
+
+
+def _mxu_runs(model, section, runs, family, setup, n, w_dim):
+    """Phase 5's sample() runs of one model: 256 chains, NUTS(max_depth=5),
+    10 warmup + 10 draws; finite draws of w [256, 10, w_dim] and the
+    family.  Each run's D is its z's width."""
     import numpy as np
     from brancher_torch.inference import NUTS
+
+    for tag, fp, kname in runs:
+        res, run = _run_sample(model, f"{section}/{tag}", kname, fused_potential=fp,
+                               kernel=NUTS(max_depth=5), num_warmup=10, num_samples=10,
+                               num_chains=256, key=2)
+        w = res.samples["w"]
+        check(tuple(w.shape) == (256, 10, w_dim), f"{section}/{tag}: samples shape {tuple(w.shape)}")
+        finite = all(bool(np.isfinite(v.float().cpu().numpy()).all()) for v in res.samples.values())
+        check(finite, f"{section}/{tag}: non-finite samples")
+        check(run["fused_family"] == family, f"{section}/{tag}: family {run['fused_family']}")
+        run.update({"phase": 5, "data_setup_seconds": setup, "N": n,
+                    "D": sum(int(np.prod(v.shape[2:])) for v in res.samples.values())})
+        emit(run)
+        RESULTS.setdefault(section, {})[tag] = run
+
+
+def phase_mxu():
+    import torch
     from brancher_torch.models import logistic_regression_model, make_logreg_data
 
     t0 = time.perf_counter()
-    x, y, _ = make_logreg_data(131072, 1024, seed=0)
+    x, y, w_true = make_logreg_data(131072, 1024, seed=0)
     model = logistic_regression_model(x, y)
     setup = time.perf_counter() - t0
     comp = model.compiled("cuda")
@@ -600,17 +654,17 @@ def phase_mxu():
     }
     emit(probe)
     RESULTS.setdefault("mxu", {})["prior_probe"] = probe
-    for tag, fp, kname in (("auto", "auto", "glm_bernoulli_f32"), ("bf16", "bf16", "glm_bernoulli_bf16")):
-        res, run = _run_sample(model, f"mxu/{tag}", kname, fused_potential=fp,
-                               kernel=NUTS(max_depth=5), num_warmup=10, num_samples=10,
-                               num_chains=256, key=2)
-        w = res.samples["w"]
-        check(tuple(w.shape) == (256, 10, 1024), f"mxu/{tag}: samples shape {tuple(w.shape)}")
-        check(bool(np.isfinite(w.float().cpu().numpy()).all()), f"mxu/{tag}: non-finite samples")
-        check(run["fused_family"] == "bernoulli_logit", f"mxu/{tag}: family {run['fused_family']}")
-        run.update({"phase": 5, "data_setup_seconds": setup, "N": 131072, "D": 1024})
-        emit(run)
-        RESULTS["mxu"][tag] = run
+    _mxu_runs(model, "mxu", (("auto", "auto", "glm_bernoulli_f32"),
+                             ("bf16", "bf16", "glm_bernoulli_bf16")),
+              "bernoulli_logit", setup, 131072, 1024)
+    del model, comp, params  # the compiled model holds its fused data and scratch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = _linreg_model(x, w_true)
+    _mxu_runs(model, "mxu_linreg", (("auto", "auto", "glm_normal_f32"),
+                                    ("bf16", "bf16", "glm_normal_bf16")),
+              "normal_learned", time.perf_counter() - t0, 131072, 1024)
 
 
 def phase_chees():
@@ -661,7 +715,7 @@ def phase_hmc_conjugate():
 
 def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
-    for section in ("floor", "conjugate", "mxu", "chees", "hmc_conjugate"):
+    for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -687,10 +741,17 @@ def summary_line():
     out = []
     for name, k in _all_kernels().items():
         rows = RESULTS["kernels"][name]
-        if name != "leapfrog_f32":
+        if name in MAIN_SHAPE:
             main = next(r for r in rows if r["shape"] == MAIN_SHAPE[name])
             out.append(_summary_entry(name, k, rows, main, main_launches[name],
                                       ("val_max_abs", "grad_max_abs")))
+            continue
+        if name in NORMAL_PATHS:  # K3/K4: one entry per path, its run's launches
+            for (section, tag), shape in NORMAL_PATHS[name]:
+                main = next(r for r in rows if r["shape"] == shape)
+                out.append(_summary_entry(f"{name}/{section}", k, rows, main,
+                                          RESULTS[section][tag]["launches"][name],
+                                          ("val_max_abs", "grad_max_abs")))
             continue
         # K5: one entry per path, its launches from that path's run and its
         # row at that path's shape and family, at the step count nearest the

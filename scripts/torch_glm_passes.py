@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""K1-K4 (the GLM value+grad kernels of brancher_torch) pass by pass, on one card.
+
+    python3 scripts/torch_glm_passes.py                           # from the repo root
+    python3 scripts/torch_glm_passes.py --family normal_learned   # K3/K4 only
+    python3 scripts/torch_glm_passes.py --tree DIR                # another checkout's
+
+For the floor (C=1024, N=1000, D=32), ragged (100, 1037, 33), MXU-width
+(256, 8192, 1024) and MXU (256, 131072, 1024) shapes, and for the Normal
+kernels also the linear-Gaussian regression's (256, 131072, 1025), prints
+one JSON line per kernel: the errors against the plain version, for the
+bf16 kernels (K2, K4) the readings of their gate
+(``ops/glm.py::bf16_residual_readings``: the bf16 residual ties, the raw
+gradient error beside the allowance for those ties, and the gradient
+against the plain formula on the kernel's own residual),
+bit-reproducibility, and the median ms of the kernel and of the plain
+version, timed by ``chip_smoke.time_ms``.  Then, at the floor, MXU and
+linear-Gaussian shapes, the host's time to enqueue one call and each
+pass's device time from torch.profiler.
+
+``--tree DIR`` takes brancher_torch from DIR instead (another commit's
+tree, unpacked with ``git archive``) and times its kernels with this
+checkout's ``time_ms``, so that two designs are timed alike; it prints the
+errors and times only.  ``--family`` restricts the run to one family.
+Needs CUDA; imports no JAX.
+"""
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import time_ms  # noqa: E402  (chip_smoke imports brancher_torch lazily)
+
+SHAPES = {"floor": (1024, 1000, 32), "ragged": (100, 1037, 33),
+          "mxu_width": (256, 8192, 1024), "mxu": (256, 131072, 1024),
+          "linreg": (256, 131072, 1025)}
+NORMAL_ONLY = ("linreg",)
+FAMILIES = ("bernoulli_logit", "normal_learned")
+
+
+def rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+
+def build(G, family, c, n, d, dtype, gen):
+    """Inputs as chip_smoke.py's phase 2 draws them, and the data of one kernel."""
+    x = torch.randn((n, d), generator=gen, device="cuda") / d**0.5
+    if family == "bernoulli_logit":
+        y = (torch.rand((n,), generator=gen, device="cuda") < 0.5).float()
+    else:
+        y = torch.randn((n,), generator=gen, device="cuda")
+    b = 0.3 * torch.randn((n,), generator=gen, device="cuda")
+    z = torch.randn((c, d), generator=gen, device="cuda")
+    m, iv = torch.linspace(-1, 1, d, device="cuda"), torch.linspace(0.5, 2.0, d, device="cuda")
+    u = None
+    if family == "normal_learned":
+        u = torch.zeros(d, device="cuda")
+        u[-1] = 0.1
+    data = G.build_glm_data(family, x, y, b, m, iv, u=u, c0=-0.3, ll_scale=1.3, dtype=dtype,
+                            device="cuda")
+    return data, z
+
+
+def errors_and_times(G, tree, families):
+    for shape, (c, n, d) in SHAPES.items():
+        for family in families:
+            if family != "normal_learned" and shape in NORMAL_ONLY:
+                continue
+            for dtype in ("f32", "bf16"):
+                gen = torch.Generator(device="cuda").manual_seed(0)  # the same inputs in every tree
+                data, z = build(G, family, c, n, d, dtype, gen)
+                k = G.kernel_for(family, dtype)
+                v, g = k(z, data)
+                v2, g2 = k(z, data)
+                v_ref, g_ref = data.plain(z)
+                row = {"tree": tree, "shape": shape, "C": c, "N": n, "D": d, "kernel": k.name,
+                       "val_max_rel": rel(v, v_ref), "grad_max_rel": rel(g, g_ref),
+                       "deterministic": bool(torch.equal(v, v2) and torch.equal(g, g2)),
+                       "ms": time_ms(lambda: k(z, data)), "plain_ms": time_ms(lambda: data.plain(z))}
+                if dtype == "bf16" and hasattr(k, "residual"):
+                    row.update(G.bf16_residual_readings(g, k.residual(z, data), z, data, g_ref))
+                print(json.dumps(row), flush=True)
+                del data, z
+                torch.cuda.empty_cache()
+
+
+def passes(G, families):
+    from torch.profiler import ProfilerActivity, profile
+
+    for shape in ("floor", "mxu", "linreg"):
+        c, n, d = SHAPES[shape]
+        for family in families:
+            if family != "normal_learned" and shape in NORMAL_ONLY:
+                continue
+            for dtype in ("f32", "bf16"):
+                gen = torch.Generator(device="cuda").manual_seed(1)
+                data, z = build(G, family, c, n, d, dtype, gen)
+                k = G.kernel_for(family, dtype)
+                for _ in range(3):
+                    k(z, data)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(100):  # the host's time to enqueue one call
+                    k(z, data)
+                host_ms = (time.perf_counter() - t0) * 10
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        k(z, data)
+                    torch.cuda.synchronize()
+                print(json.dumps({"shape": shape, "kernel": k.name, "host_enqueue_ms": host_ms}),
+                      flush=True)
+                for e in prof.key_averages():
+                    t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                    if t and "glm90::" in e.key:
+                        print(json.dumps({"shape": shape, "kernel": k.name,
+                                          "pass": e.key.split("(")[0], "ms_per_call": t / 5 / 1e3,
+                                          "launches": e.count}), flush=True)
+                del data, z
+                torch.cuda.empty_cache()
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", type=Path, help="root of another checkout whose kernels to time")
+    parser.add_argument("--family", choices=FAMILIES, help="one family only (default: both)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    tree = (args.tree or ROOT).resolve()
+    sys.path.insert(0, str(tree))
+    import brancher_torch.ops.glm as G
+
+    if Path(G.__file__).resolve().parents[2] != tree:
+        print(f"brancher_torch came from {G.__file__}, not {tree}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    families = (args.family,) if args.family else FAMILIES
+    errors_and_times(G, str(args.tree or "."), families)
+    if args.tree is None:
+        passes(G, families)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

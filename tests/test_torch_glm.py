@@ -158,6 +158,18 @@ def _lognormal_scale(pkg, bf, zeros):
     return pkg.ProbabilisticModel([x])
 
 
+def _linear_gaussian(pkg, bf, zeros):
+    """chip_smoke.py's phase-5 linear-Gaussian regression at small size:
+    z = [sigma, w], so u picks sigma's coordinate."""
+    rng = np.random.RandomState(5)
+    x = rng.normal(size=(60, 5)).astype(np.float32)
+    w = pkg.NormalVariable(zeros(5), 1.0, "w")
+    sigma = pkg.LogNormalVariable(0.0, 0.5, "sigma")
+    yv = pkg.NormalVariable(bf.matmul(x, w), sigma, "y")
+    yv.observe((x @ rng.normal(size=5) / np.sqrt(5) + 0.5 * rng.normal(size=60)).astype(np.float32))
+    return pkg.ProbabilisticModel([yv])
+
+
 def _nonlinear(pkg, bf, zeros):
     rng = np.random.RandomState(0)
     x = rng.normal(size=(50, 3)).astype(np.float32)
@@ -183,8 +195,8 @@ def _both(make_model):
     return jm.compiled(), tm.compiled(device="cpu")
 
 
-@pytest.mark.parametrize("make_model", [_logreg, _conjugate, _lognormal_scale],
-                         ids=["logreg", "conjugate", "lognormal_scale"])
+@pytest.mark.parametrize("make_model", [_logreg, _conjugate, _lognormal_scale, _linear_gaussian],
+                         ids=["logreg", "conjugate", "lognormal_scale", "linear_gaussian"])
 def test_recognizer_matches_jax(make_model):
     jc, tc = _both(make_model)
     jf = PG.recognize_fused_family(jc, jc.initial_params)

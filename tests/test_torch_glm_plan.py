@@ -1,11 +1,13 @@
-"""The K1/K2 pass planner, X's row layout and the kernel build's digest.
+"""The K1-K4 pass planner, X's row layout, the bf16 tie readings and the
+kernel build's digest.
 
-K1 and K2 (``brancher_torch/csrc/glm_bernoulli_sm90.cuh``) run only on a
-card; what surrounds them is plain Python and is held here: the planner
-(``ops/glm.py::plan_bernoulli``) must give the kernel the strides,
-alignment, row tiles and row splits it checks, the data build must lay X's
-rows 16 bytes apart, and the build digest must follow every header a
-kernel source includes and the link flags.
+K1-K4 (``brancher_torch/csrc/glm_sm90.cuh``) run only on a card; what
+surrounds them is plain Python and is held here: the planner
+(``ops/glm.py::plan_glm``) must give the kernel the strides, alignment,
+row tiles and row splits it checks, the data build must lay X's rows 16
+bytes apart for both families, the readings that gate the bf16 kernels
+(K2, K4) must tell ties from a missing rounding, and the build digest must
+follow every header a kernel source includes and the link flags.
 """
 import numpy as np
 import pytest
@@ -32,8 +34,8 @@ ITEMSIZE = {"f32": 4, "bf16": 2}
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_plan_covers_every_row_once(shape, dtype, sms):
     c, n, d = SHAPES[shape]
-    t = G.BERNOULLI_TILES[dtype]
-    plan = G.plan_bernoulli(c, n, d, dtype, sms)
+    t = G.GLM_TILES[dtype]
+    plan = G.plan_glm(c, n, d, dtype, sms)
     # pass B's split s takes rows [s rows_per_split, min((s + 1) rows_per_split, N))
     rows = [(s * plan.rows_per_split, min((s + 1) * plan.rows_per_split, n))
             for s in range(plan.splits)]
@@ -54,25 +56,26 @@ def test_plan_covers_every_row_once(shape, dtype, sms):
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_plan_scratch_layout(shape, dtype):
     c, n, d = SHAPES[shape]
-    plan = G.plan_bernoulli(c, n, d, dtype, 132)
+    plan = G.plan_glm(c, n, d, dtype, 132)
     itemsize = ITEMSIZE[dtype]
     shapes = plan.scratch_shapes(c)
     assert shapes == {"z": (c, plan.ldz), "resid": (c, plan.ldr),
                       "ll_part": (c, plan.row_tiles), "g_part": (plan.splits, c, plan.ldg)}
-    # operand scratch: rows 16 bytes apart (TMA, 16-byte copies), no wider
-    # than needed
+    # operand scratch: rows ROW_BYTES apart (TMA needs 16, its 128-byte
+    # swizzled box rows read best at 128), no wider than needed
+    row = G.ROW_BYTES // itemsize
     for ld, width in ((plan.ldz, d), (plan.ldr, n)):
-        assert ld >= width and (ld * itemsize) % 16 == 0 and ld - width < 16 // itemsize
-    assert plan.ldz % G.BERNOULLI_TILES[dtype].align == 0
+        assert ld >= width and (ld * itemsize) % G.ROW_BYTES == 0 and ld - width < row
+    assert plan.ldz % G.GLM_TILES[dtype].align == 0
     # f32 gradient partials: rows a multiple of 4 floats (float4 / float2 stores)
     assert plan.ldg >= d and plan.ldg % 4 == 0 and plan.ldg - d < 4
 
 
 def test_plan_at_the_mxu_shape():
     """The MXU-scale plans on an H100 (132 multiprocessors)."""
-    assert G.plan_bernoulli(256, 131072, 1024, "bf16", 132) == G.BernoulliPlan(
+    assert G.plan_glm(256, 131072, 1024, "bf16", 132) == G.GlmPlan(
         ldz=1024, ldr=131072, ldg=1024, row_tiles=1024, splits=12, rows_per_split=10944)
-    assert G.plan_bernoulli(256, 131072, 1024, "f32", 132) == G.BernoulliPlan(
+    assert G.plan_glm(256, 131072, 1024, "f32", 132) == G.GlmPlan(
         ldz=1024, ldr=131072, ldg=1024, row_tiles=1024, splits=16, rows_per_split=8192)
 
 
@@ -91,18 +94,33 @@ def test_build_aligns_bernoulli_rows(dtype, d):
     data, x = _bern_data(d, dtype)
     assert G.x_row_aligned(data.x)
     assert tuple(data.x.shape) == x.shape and data.x.stride(1) == 1
-    assert data.x.stride(0) * data.x.element_size() % 16 == 0
-    assert data.x.stride(0) - d < 16 // data.x.element_size()
+    assert data.x.stride(0) * data.x.element_size() % G.ROW_BYTES == 0
+    assert data.x.stride(0) - d < G.ROW_BYTES // data.x.element_size()
     want = torch.as_tensor(x)
     if dtype == "bf16":
         want = want.to(torch.bfloat16)
     assert torch.equal(data.x, want)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [1, 33, 1025])
+def test_build_aligns_normal_rows(dtype, d):
+    """K3/K4 read X as K1/K2 do: rows ROW_BYTES apart, D=1025 (the
+    linear-Gaussian regression's z = [sigma, w]) through padded rows."""
+    data, x = _bern_data(d, dtype, n=5, family="normal_learned")
+    assert G.x_row_aligned(data.x) and tuple(data.x.shape) == x.shape
+    assert data.x.stride(0) * data.x.element_size() % G.ROW_BYTES == 0
+    assert data.x.stride(0) - d < G.ROW_BYTES // data.x.element_size()
+    want = torch.as_tensor(x)
+    assert torch.equal(data.x, want.to(torch.bfloat16) if dtype == "bf16" else want)
+
+
 def test_readers_of_contiguous_x_keep_it():
-    """K3/K4 (normal_learned) and K5 (align_x=False) read X contiguous."""
+    """K5 (align_x=False) reads X contiguous, and an X whose rows are
+    already aligned is not copied; K3/K4 (normal_learned) now read aligned
+    rows like K1/K2."""
     normal, _ = _bern_data(7, "bf16", family="normal_learned")
-    assert normal.x.is_contiguous()
+    assert G.x_row_aligned(normal.x) and not normal.x.is_contiguous()
     plain, _ = _bern_data(7, "f32", align_x=False)
     assert plain.x.is_contiguous()
     aligned, _ = _bern_data(32, "f32")  # already aligned: no padded copy
@@ -115,6 +133,10 @@ def test_wrapper_check_refuses_unaligned_x():
     with pytest.raises(ValueError, match="laid out as build_glm_data"):
         G.kernel_for("bernoulli_logit", "f32")._check(z, data)
     G.kernel_for("bernoulli_logit", "f32")._check(z, _bern_data(7, "f32")[0])
+    normal, _ = _bern_data(7, "f32", align_x=False, family="normal_learned")
+    with pytest.raises(ValueError, match="laid out as build_glm_data"):
+        G.kernel_for("normal_learned", "f32")._check(z, normal)
+    G.kernel_for("normal_learned", "f32")._check(z, _bern_data(7, "f32", family="normal_learned")[0])
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -129,33 +151,63 @@ def test_cpu_wrapper_on_padded_rows_is_the_plain_version(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cpu_wrapper_on_padded_normal_rows_is_the_plain_version(dtype):
+    padded, _ = _bern_data(7, dtype, family="normal_learned")
+    packed = padded._replace(x=padded.x.contiguous())
+    z = torch.as_tensor(np.random.RandomState(1).normal(size=(5, 7)).astype(np.float32))
+    v, g = G.kernel_for("normal_learned", dtype)(z, padded)
+    v_ref, g_ref = packed.plain(z)
+    torch.testing.assert_close(v, v_ref, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(g, g_ref, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_grad_given_the_plain_residual_is_the_plain_gradient(dtype):
-    data, _ = _bern_data(7, dtype)
     z = torch.as_tensor(np.random.RandomState(2).normal(size=(4, 7)).astype(np.float32))
-    r32 = G.bernoulli_residual_reference(z, data)
-    resid = r32.to(torch.bfloat16) if dtype == "bf16" else r32
-    assert torch.equal(G.bernoulli_grad_given_residual(resid, z, data), data.plain(z)[1])
+    for family in ("bernoulli_logit", "normal_learned"):
+        data, _ = _bern_data(7, dtype, family=family)
+        data = data._replace(u=torch.linspace(-0.2, 0.3, 7), c0=0.4)
+        r32 = G.residual_reference(z, data)
+        resid = r32.to(torch.bfloat16) if dtype == "bf16" else r32
+        assert torch.equal(G.grad_given_residual(resid, z, data), data.plain(z)[1]), family
+
+
+def _ulp(t):
+    a = t.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
 
 
 def test_bf16_rounding_flips():
     r32 = torch.tensor([0.3, -0.3, 0.7, 1e-3])
-    bits = r32.view(torch.int32)
-    nearest = r32.to(torch.bfloat16)
-    # the other bf16 neighbour of each value, one bf16 unit away
-    down = (bits & ~0xFFFF).view(torch.float32)
-    other = torch.where(down.to(torch.bfloat16) == nearest,
-                        ((bits & ~0xFFFF) + 0x10000).view(torch.float32), down)
-    flips, legal, units = G.bf16_rounding_flips(nearest, r32)
-    assert not flips.any() and not legal.any()
-    flips, legal, _ = G.bf16_rounding_flips(other.to(torch.bfloat16), r32)
-    assert flips.all() and legal.all()
-    two_away = nearest.float() * 1.02  # several bf16 units off: not a tie
-    flips, legal, _ = G.bf16_rounding_flips(two_away.to(torch.bfloat16), r32)
-    assert flips.all() and not legal.any()
-    # distance from the midpoint in f32 units: 0 at a tie, 32768 on a bf16 value
+    unit = _ulp(r32)
+    flips, units = G.bf16_rounding_flips(r32.to(torch.bfloat16), r32, unit)
+    assert not flips.any() and not units.any()
+    # the other bf16 neighbour: as far as the midpoint between the two
+    flips, units = G.bf16_rounding_flips(_other_neighbour(r32), r32, unit)
+    mid_units = ((r32.view(torch.int32) & 0xFFFF) - 0x8000).abs().double()
+    assert flips.all() and torch.equal(units, mid_units)
+    two_away = r32.to(torch.bfloat16).float() * 1.02  # several bf16 units off
+    flips, units = G.bf16_rounding_flips(two_away.to(torch.bfloat16), r32, unit)
+    assert flips.all() and (units > 32768).all()
+    # 0 units on the midpoint, 32768 on a bf16 value; a unit twice as coarse halves them
     tie = torch.tensor([0x3E998000, 0x3E990000], dtype=torch.int32).view(torch.float32)
-    assert G.bf16_rounding_flips(tie.to(torch.bfloat16), tie)[2].tolist() == [0, 32768]
-    assert units.max() <= 32768
+    assert G.bf16_rounding_flips(_other_neighbour(tie), tie, _ulp(tie))[1].tolist() == [0, 32768]
+    assert G.bf16_rounding_flips(_other_neighbour(tie), tie, 2 * _ulp(tie))[1].tolist() == [0, 16384]
+
+
+def test_residual_unit_of_a_normal_residual_is_locs():
+    """y - loc is exact only to the last place of loc's absolute terms: a
+    residual near 0 gets that unit, not its own."""
+    data, _ = _bern_data(3, "f32", n=4, family="normal_learned")
+    z = torch.tensor([[1.0, -2.0, 0.5]])
+    r32 = G.residual_reference(z, data)
+    terms = z.abs() @ data.x.abs().T
+    want = _ulp(torch.maximum(terms, data.y.abs()[None, :]))
+    assert torch.equal(G.residual_unit(r32, z, data), want)
+    assert (want >= _ulp(r32)).all()
+    bern, _ = _bern_data(3, "f32", n=4)
+    rb = G.residual_reference(z, bern)
+    assert torch.equal(G.residual_unit(rb, z, bern), _ulp(rb))
 
 
 def _other_neighbour(r32):
@@ -166,28 +218,38 @@ def _other_neighbour(r32):
     return torch.where(down.to(torch.bfloat16) == r32.to(torch.bfloat16), up, down).to(torch.bfloat16)
 
 
-def _bf16_case(flip):
-    """bf16 data, z, and the plain residual, rounded, with the residuals
-    where ``flip`` [C, N] is true moved to their other bf16 neighbour."""
+def _bf16_case(n_ties, family="bernoulli_logit", n=400):
+    """bf16 data, z, the plain f32 residual and a kernel's bf16 residual:
+    the plain one rounded, with ``n_ties`` residuals of chain 1 moved to
+    their other bf16 neighbour.  Those are residuals that lie within
+    TIE_UNITS of the midpoint, where a kernel's last-bit difference in the
+    linear predictor can move them (ties), and the mask of the moved ones."""
     rng = np.random.RandomState(4)
-    c, n, d = 3, 40, 6
+    c, d = 3, 6
     x = rng.normal(size=(n, d)).astype(np.float32)
-    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
-    data = G.build_glm_data("bernoulli_logit", x, y, 0.1 * rng.normal(size=n), np.zeros(d),
-                            np.ones(d), ll_scale=1.7, dtype="bf16", device="cpu")
+    if family == "bernoulli_logit":
+        y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    else:
+        y = rng.normal(size=n).astype(np.float32)
+    data = G.build_glm_data(family, x, y, 0.1 * rng.normal(size=n), np.zeros(d), np.ones(d),
+                            u=np.linspace(-0.3, 0.3, d) if family == "normal_learned" else None,
+                            c0=0.2, ll_scale=1.7, dtype="bf16", device="cpu")
     z = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32))
-    r32 = G.bernoulli_residual_reference(z, data)
-    r16 = torch.where(torch.as_tensor(flip), _other_neighbour(r32), r32.to(torch.bfloat16))
-    return data, z, r32, r16
+    r32 = G.residual_reference(z, data)
+    other = _other_neighbour(r32)
+    _, units = G.bf16_rounding_flips(other, r32, G.residual_unit(r32, z, data))
+    near = torch.zeros_like(units, dtype=torch.bool)
+    near[1] = units[1] <= G.TIE_UNITS
+    near[1, torch.cumsum(near[1].int(), 0) > n_ties] = False
+    assert int(near.sum()) == n_ties
+    return data, z, r32, torch.where(near, other, r32.to(torch.bfloat16)), near
 
 
 @pytest.mark.parametrize("n_ties", [0, 1, 3])
 def test_bf16_readings_bound_the_move_of_ties(n_ties):
-    flip = np.zeros((3, 40), bool)
-    flip[1, :n_ties] = True  # all in one chain
-    data, z, r32, r16 = _bf16_case(flip)
+    data, z, r32, r16, near = _bf16_case(n_ties)
     g_ref = data.plain(z)[1]
-    g = G.bernoulli_grad_given_residual(r16, z, data)  # a kernel with these ties
+    g = G.grad_given_residual(r16, z, data)  # a kernel with these ties
     r = G.bf16_residual_readings(g, r16, z, data, g_ref)
     assert r["resid_flips"] == n_ties and r["flips_legal"]
     assert r["flip_share"] == n_ties / r16.numel()
@@ -195,31 +257,63 @@ def test_bf16_readings_bound_the_move_of_ties(n_ties):
     if n_ties == 0:
         assert r["flip_allowance_rel"] == 0.0 and r["grad_max_rel"] == 0.0
         return
-    # the allowance bounds the ties' move, and is its sum of one bf16 unit
-    # times ll_scale times the row's max|X| over max(max|g_ref|, 1)
-    assert 0.0 < r["grad_max_rel"] <= r["flip_allowance_rel"]
-    units = (r16[1, :n_ties].float() - r32[1, :n_ties].to(torch.bfloat16).float()).abs()
-    want = 1.7 * float((units * data.x[:n_ties].float().abs().amax(1)).sum())
+    # the allowance bounds the ties' move (up to the f32 rounding of the two
+    # products, which the gates' TOL covers), and is its sum of one bf16
+    # unit times ll_scale times the row's max|X| over max(max|g_ref|, 1)
+    assert 0.0 < r["grad_max_rel"] <= r["flip_allowance_rel"] + 1e-6
+    rows = near[1]
+    units = (r16[1, rows].float() - r32[1, rows].to(torch.bfloat16).float()).abs()
+    want = 1.7 * float((units * data.x[rows].float().abs().amax(1)).sum())
+    assert r["flip_allowance_rel"] == pytest.approx(want / max(float(g_ref.abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("n_ties", [1, 3])
+def test_normal_bf16_readings_scale_the_allowance_with_e2(n_ties):
+    """A K4 tie moves the gradient through e2 = exp(-2 s) of its chain."""
+    data, z, r32, r16, near = _bf16_case(n_ties, "normal_learned")
+    g_ref = data.plain(z)[1]
+    g = G.grad_given_residual(r16, z, data)
+    r = G.bf16_residual_readings(g, r16, z, data, g_ref)
+    assert r["resid_flips"] == n_ties and r["flips_legal"] and r["grad_given_resid_rel"] == 0.0
+    assert 0.0 < r["grad_max_rel"] <= r["flip_allowance_rel"] + 1e-6
+    rows = near[1]
+    step = (r16[1, rows].float() - r32[1, rows].to(torch.bfloat16).float()).abs()
+    e2 = float(torch.exp(-2.0 * (z[1] @ data.u + data.c0)))
+    assert e2 != pytest.approx(1.0, abs=0.05)
+    want = 1.7 * e2 * float((step * data.x[rows].float().abs().amax(1)).sum())
     assert r["flip_allowance_rel"] == pytest.approx(want / max(float(g_ref.abs().max()), 1.0))
 
 
 def test_bf16_readings_refuse_the_unrounded_residual():
     """The control (no bf16 rounding of z or the residual) is no set of ties."""
-    data, z, _, _ = _bf16_case(np.zeros((3, 40), bool))
+    data, z, _, _, _ = _bf16_case(0, n=40)
     ctl_data = data._replace(x=data.x.float())
     g_ref, (_, g_ctl) = data.plain(z)[1], ctl_data.plain(z)
-    r_ctl = G.bernoulli_residual_reference(z, ctl_data)
+    r_ctl = G.residual_reference(z, ctl_data)
     r = G.bf16_residual_readings(g_ctl, r_ctl, z, data, g_ref)
     assert r["resid_flips"] > 0.9 * r_ctl.numel() and not r["flips_legal"]
     assert r["flip_allowance_rel"] < r["grad_max_rel"]  # only ties earn an allowance
 
 
+def test_normal_bf16_readings_refuse_the_unrounded_residual():
+    """K4's control: its residuals differ nearly everywhere and are no bf16
+    values, so none is a tie or earns an allowance."""
+    data, z, _, _, _ = _bf16_case(0, "normal_learned")
+    ctl_data = data._replace(x=data.x.float())
+    g_ref, (_, g_ctl) = data.plain(z)[1], ctl_data.plain(z)
+    r_ctl = G.residual_reference(z, ctl_data)
+    r = G.bf16_residual_readings(g_ctl, r_ctl, z, data, g_ref)
+    assert r["resid_flips"] > 0.9 * r_ctl.numel() and not r["flips_legal"]
+    assert r["flip_allowance_rel"] == 0.0 and r["grad_max_rel"] > 1e-4
+
+
 def test_bernoulli_data_carries_its_own_scratch():
     a, _ = _bern_data(7, "bf16")
     b, _ = _bern_data(7, "bf16")
-    assert isinstance(a.scratch, G.BernoulliScratch) and a.scratch is not b.scratch
+    assert isinstance(a.scratch, G.GlmScratch) and a.scratch is not b.scratch
     assert a.scratch.key is None  # filled at the first launch on a card
-    assert _bern_data(7, "f32", family="normal_learned")[0].scratch is None
+    normal = _bern_data(7, "f32", family="normal_learned")[0].scratch
+    assert isinstance(normal, G.GlmScratch) and normal is not a.scratch and normal.key is None
 
 
 def _csrc(tmp_path, monkeypatch):
@@ -255,5 +349,5 @@ def test_digest_follows_compile_and_link_flags(tmp_path, monkeypatch):
 
 
 def test_the_repo_kernels_include_their_headers():
-    assert [p.name for p in cuda_build.included_headers("glm_vg")] == ["glm_bernoulli_sm90.cuh"]
+    assert [p.name for p in cuda_build.included_headers("glm_vg")] == ["glm_sm90.cuh"]
     assert cuda_build.included_headers("leapfrog") == []

@@ -51,6 +51,45 @@ def test_logreg_posterior_mean_matches_jax():
     assert np.max(tres.diagnostics["r_hat"]["w"]) < 1.05
 
 
+def _linreg(pkg, bf, zeros, x, y):
+    """w ~ N(0, 1), sigma ~ LogNormal(0, 0.5), y ~ N(X w, sigma): the
+    linear-Gaussian regression that chip_smoke.py runs at N=131072, D=1024."""
+    w = pkg.NormalVariable(zeros(x.shape[1]), 1.0, "w")
+    sigma = pkg.LogNormalVariable(0.0, 0.5, "sigma")
+    yv = pkg.NormalVariable(bf.matmul(x, w), sigma, "y")
+    yv.observe(y)
+    return pkg.ProbabilisticModel([yv])
+
+
+@pytest.mark.slow  # about 20 s on a CPU, most of it JAX compiling its NUTS
+def test_linreg_posterior_mean_matches_jax():
+    import jax.numpy as jnp
+
+    import brancher_torch as BT
+    import brancher_torch.functions as BFT
+    import brancher_tpu as BJ
+    import brancher_tpu.functions as BFJ
+
+    x, _, w_true = make_logreg_data(100, 3, seed=2)
+    y = (x @ w_true + 0.5 * np.random.RandomState(3).normal(size=100)).astype(np.float32)
+    # init from the prior: under the default uniform(-2, 2) start, a chain that
+    # starts near log sigma = -2 can stay stuck under the shared step size, in
+    # both packages (ROADMAP queue 3)
+    kw = dict(num_samples=200, num_warmup=150, num_chains=8, init_strategy="prior")
+    jres = jsample(_linreg(BJ, BFJ, jnp.zeros, x, y), kernel=JNUTS(max_depth=4),
+                   key=jax.random.PRNGKey(0), fused_potential="off", **kw)
+    tres = sample(_linreg(BT, BFT, torch.zeros, torch.as_tensor(x), y), kernel=NUTS(max_depth=4),
+                  key=1, device="cpu", **kw)
+    assert tres.diagnostics["fused_family"] == "normal_learned"
+    for name in ("w", "sigma"):
+        jm, jsd, jess = _mean_sd_ess(jres.samples[name], jres.diagnostics["ess"][name])
+        tm, tsd, tess = _mean_sd_ess(tres.samples[name].numpy(), tres.diagnostics["ess"][name])
+        mcse = np.sqrt(jsd**2 / jess + tsd**2 / tess)
+        assert np.all(np.abs(tm - jm) < 5 * mcse), (name, tm, jm, mcse)
+        np.testing.assert_allclose(tsd, jsd, rtol=0.2)
+        assert np.max(tres.diagnostics["r_hat"][name]) < 1.05
+
+
 def test_fused_and_autodiff_paths_agree():
     x, y, _ = make_logreg_data(80, 2, seed=3)
     model = logistic_regression_model(x, y)
