@@ -6,7 +6,8 @@
 //   K3 _normal_kernel       (normal_learned,  f32 design matrix)
 //   K4 _normal_kernel_bf16  (normal_learned,  bf16 design matrix)
 // Included by glm_vg.cu, which defines softplus_f and sigmoid_f and the C
-// entries glm_vg_bernoulli_f32 / _bf16 and glm_vg_normal_f32 / _bf16.
+// entries glm_vg_bernoulli_f32 / _bf16 and glm_vg_normal_f32 / _bf16, and
+// logreg_vg_f32 (K6 of pallas_logreg.py, on K1's passes).
 //
 // What it computes, for chains z [C,D], design X [N,D], y, offset b [N], a
 // diagonal Gaussian prior (m, iv) [D] and a likelihood scale s_ll:

@@ -406,9 +406,10 @@ class GlmScratch:
 
 
 class GlmKernel:
-    """Wrapper of one value+grad kernel K1-K4 (passes in
-    ``csrc/glm_sm90.cuh``, C entries in ``glm_vg.cu``).  One call launches
-    the passes ``plan_glm`` lays out and counts one launch in ``launches``.
+    """Wrapper of one value+grad kernel K1-K4, or K6 (``ops/logreg.py``)
+    (passes in ``csrc/glm_sm90.cuh``, C entries in ``glm_vg.cu``).  One
+    call launches the passes ``plan_glm`` lays out and counts one launch in
+    ``launches``.
 
     The scratch of a call (z staged, the residual, the partials) and the
     bf16 kernels' tensor maps live in the data's ``GlmScratch``, so the

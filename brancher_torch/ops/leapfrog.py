@@ -24,11 +24,19 @@ one).  That admits about 1,700 rows at D=32; the floor shape (N=1000,
 D=32, 132 KB) and the conjugate shape (N=20, D=1) pass, the MXU-scale GLM
 (N=131072, D=1024) does not and takes the loop of K1.  The TPU kernel's
 6 MB VMEM budget does not carry over.
+
+Plan.  ``plan_leapfrog`` (pure) lays out one launch in what X leaves of
+the block's shared memory: the chains per block (G; about C over the
+number of multiprocessors, so that one wave holds every chain), the warps
+(up to 16), the rows of a tile, the row slices of the second product and
+whether r and g stay in shared memory.  Every shape the gate admits has a
+plan: at worst one chain and one warp, which needs no more than the gate's
+bytes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,12 +48,17 @@ Tensor = torch.Tensor
 # the shared memory one block may opt in to on an H100 (cudaDevAttr
 # MaxSharedMemoryPerBlockOptin); the device's own figure is used when known
 SMEM_PER_BLOCK_OPTIN = 232448
-MAX_WARPS_PER_BLOCK = 32
+H100_SMS = 132
+# the chains per block csrc/leapfrog.cu is built for, widest first, and its
+# most warps per block (__launch_bounds__)
+K5_CHAINS_PER_BLOCK = (8, 4, 2, 1)
+K5_MAX_WARPS = 16
 
 
 def leapfrog_smem_bytes(n: int, d: int, warps: int) -> int:
-    """Shared memory of one K5 block: X with rows padded to an odd stride,
-    and per warp (one chain) z, r, g [D] and 32 residuals."""
+    """The size gate's bytes: X with rows padded to an odd stride, and per
+    chain z, r, g [D] and 32 residuals (the one-warp-per-chain block of the
+    first K5; ``leapfrog_fits`` asks for one chain)."""
     return 4 * (n * (d | 1) + warps * (3 * d + 32))
 
 
@@ -54,11 +67,84 @@ def leapfrog_fits(n: int, d: int, smem_limit: int = SMEM_PER_BLOCK_OPTIN) -> boo
     return leapfrog_smem_bytes(n, d, 1) <= smem_limit
 
 
-def _smem_limit(device: torch.device) -> int:
+def _r4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def leapfrog_layout_floats(n: int, d: int, chains: int, warps: int, rows_per_tile: int,
+                           row_slices: int, state_in_smem: bool) -> int:
+    """Floats of one K5 block's shared memory, as ``csrc/leapfrog.cu``'s
+    ``layout`` lays it out: z [G][D'] and the residuals [G][T'] (D', T'
+    rounded up to 4), the partial gradients [S][G][D] when S > 1, r and g
+    [G][D] when they stay in shared memory, the reductions [W G + 2 G],
+    and X [N][D | 1]."""
+    g = chains
+    return (g * _r4(d) + g * _r4(rows_per_tile)
+            + (_r4(row_slices * g * d) if row_slices > 1 else 0)
+            + (2 * _r4(g * d) if state_in_smem else 0)
+            + _r4(warps * g + 2 * g) + n * (d | 1))
+
+
+class LeapfrogPlan(NamedTuple):
+    """One K5 launch over C chains (``plan_leapfrog``)."""
+
+    chains: int  # G, chains per block: block b takes chains [b G, min((b + 1) G, C))
+    warps: int  # warps per block
+    rows_per_tile: int  # T, a multiple of 4: rows of X per product-1/product-2 round
+    row_slices: int  # S, row slices of a tile in product 2
+    state_in_smem: bool  # r and g in shared memory (else in the outputs)
+    smem_bytes: int  # the block's dynamic shared memory
+    blocks: int
+
+
+def plan_leapfrog(c: int, n: int, d: int, smem_limit: int = SMEM_PER_BLOCK_OPTIN,
+                  sms: int = H100_SMS) -> LeapfrogPlan:
+    """K5's launch over z [C, D] and X [N, D] on a card with ``sms``
+    multiprocessors and ``smem_limit`` bytes of shared memory per block.
+
+    G is the widest of ``K5_CHAINS_PER_BLOCK`` not above C / sms (rounded
+    up), so that one wave of blocks holds every chain; the warps start at
+    one for every 64 rows (product 1 takes two rows a thread) or every 32
+    columns, at most ``K5_MAX_WARPS``; product 2 cuts a tile's rows into
+    as many slices as the warps cover column chunks.  The tile takes the
+    rows that the rest leaves room for, and must give every warp rows
+    (one warp: any tile); failing that, r and g move to the outputs, then
+    the warps, then G shrink.  Raises when X fails the size gate."""
+    if not leapfrog_fits(n, d, smem_limit):
+        raise ValueError(f"K5: X [{n}, {d}] fails the size gate ({smem_limit} bytes)")
+    budget = smem_limit // 4
+    per_sm = -(-c // sms)
+    chunks = -(-d // 32)
+    top = min(K5_MAX_WARPS, max(1, -(-n // 64), chunks))
+    for g in K5_CHAINS_PER_BLOCK:
+        if g > per_sm and g > 1:
+            continue
+        for w in range(top, 0, -1):
+            s = max(1, w // chunks)
+            for state in (True, False):
+                fixed = leapfrog_layout_floats(n, d, g, w, 0, s, state)
+                t = min(_r4(n), (budget - fixed) // g // 4 * 4)
+                if t >= (min(_r4(n), 64 * w) if w > 1 else 4):
+                    floats = leapfrog_layout_floats(n, d, g, w, t, s, state)
+                    return LeapfrogPlan(g, w, t, s, state, 4 * floats, -(-c // g))
+    raise AssertionError("unreachable: one chain and one warp fit whatever the gate admits")
+
+
+_CAPS: Dict[Tuple[str, Optional[int]], Tuple[int, int]] = {}
+
+
+def device_caps(device: torch.device) -> Tuple[int, int]:
+    """(shared memory a block may opt in to, multiprocessors) of a device,
+    read once; an H100's for a device that is not CUDA."""
+    device = torch.device(device)
     if device.type != "cuda":
-        return SMEM_PER_BLOCK_OPTIN
-    props = torch.cuda.get_device_properties(device)
-    return int(getattr(props, "shared_memory_per_block_optin", SMEM_PER_BLOCK_OPTIN))
+        return SMEM_PER_BLOCK_OPTIN, H100_SMS
+    key = (device.type, device.index if device.index is not None else torch.cuda.current_device())
+    if key not in _CAPS:
+        props = torch.cuda.get_device_properties(key[1])
+        _CAPS[key] = (int(getattr(props, "shared_memory_per_block_optin", SMEM_PER_BLOCK_OPTIN)),
+                      int(props.multi_processor_count))
+    return _CAPS[key]
 
 
 def reference_leapfrog(value_and_grad_fn):
@@ -96,7 +182,7 @@ class LeapfrogKernel:
 
             fn = getattr(load_library("leapfrog"), self.symbols[family])
             p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-            fn.argtypes = [p] * 12 + [f, f, f] + [p] * 4 + [i] * 5 + [ctypes.c_size_t, p]
+            fn.argtypes = [p] * 12 + [f, f, f] + [p] * 4 + [i] * 9 + [ctypes.c_size_t, p]
             fn.restype = ctypes.c_int
             self._fns[family] = fn
         return fn
@@ -116,7 +202,10 @@ class LeapfrogKernel:
         if data.x.shape[1] != d or c == 0:
             raise ValueError(f"leapfrog: z is [{c}, {d}], X is {tuple(data.x.shape)}")
 
-    def __call__(self, data: FusedFamily, z, r, grad, eps, inv_mass, n_steps):
+    def __call__(self, data: FusedFamily, z, r, grad, eps, inv_mass, n_steps,
+                 plan: Optional[LeapfrogPlan] = None):
+        """One trajectory; ``plan`` is ``plan_leapfrog``'s for these shapes
+        on z's device (made here when not given)."""
         if z.device.type == "cpu":
             return reference_leapfrog(data.plain)(z, r, grad, eps, inv_mass, n_steps)
         if z.device.type != "cuda":
@@ -131,14 +220,8 @@ class LeapfrogKernel:
                else torch.full((), int(n_steps), dtype=torch.int32, device=dev))
         c, d = z.shape
         n = data.x.shape[0]
-        limit = _smem_limit(dev)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        warps = max(1, min(MAX_WARPS_PER_BLOCK, -(-c // sms)))  # one wave of blocks
-        while warps > 1 and leapfrog_smem_bytes(n, d, warps) > limit:
-            warps -= 1
-        smem = leapfrog_smem_bytes(n, d, warps)
-        if smem > limit:
-            raise ValueError(f"{self.name}: X [{n}, {d}] does not fit in shared memory")
+        if plan is None:
+            plan = plan_leapfrog(c, n, d, *device_caps(dev))
         z1, r1, g1 = torch.empty_like(z), torch.empty_like(z), torch.empty_like(z)
         val = torch.empty((c,), dtype=torch.float32, device=dev)
         u_ptr = data.u.data_ptr() if data.u is not None else None
@@ -150,7 +233,9 @@ class LeapfrogKernel:
                      data.prior_inv_var.data_ptr(), im.data_ptr(), u_ptr,
                      eps_t.data_ptr(), n_t.data_ptr(), float(data.c0),
                      float(data.ll_scale), float(n), z1.data_ptr(), r1.data_ptr(),
-                     val.data_ptr(), g1.data_ptr(), c, n, d, d | 1, warps, smem, stream)
+                     val.data_ptr(), g1.data_ptr(), c, n, d, d | 1, plan.chains, plan.warps,
+                     plan.rows_per_tile, plan.row_slices, int(plan.state_in_smem),
+                     plan.smem_bytes, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
@@ -163,12 +248,22 @@ LEAPFROG = LeapfrogKernel()
 class FusedLeapfrog:
     """K5 over data prepared once: ``(z, r, grad, eps, inv_mass, n_steps)
     -> (z1, r1, val1, grad1)``, the kernel on CUDA, its plain version on
-    the CPU."""
+    the CPU.  Keeps K5's plan per (device, C), so a call reads no device
+    properties."""
 
     host_syncs_per_call = 0
 
     def __init__(self, data: FusedFamily):
         self.data = data
+        self._plans: Dict[Tuple[torch.device, int], LeapfrogPlan] = {}
+
+    def plan(self, z: Tensor) -> LeapfrogPlan:
+        """K5's plan for chains z [C, D] on z's device."""
+        key = (z.device, z.shape[0])
+        if key not in self._plans:
+            n, d = self.data.x.shape
+            self._plans[key] = plan_leapfrog(z.shape[0], n, d, *device_caps(z.device))
+        return self._plans[key]
 
     @property
     def uses_kernel(self) -> bool:
@@ -176,7 +271,8 @@ class FusedLeapfrog:
         return self.data.x.device.type == "cuda"
 
     def __call__(self, z, r, grad, eps, inv_mass, n_steps):
-        return LEAPFROG(self.data, z, r, grad, eps, inv_mass, n_steps)
+        plan = self.plan(z) if z.device.type == "cuda" else None
+        return LEAPFROG(self.data, z, r, grad, eps, inv_mass, n_steps, plan=plan)
 
 
 def build_fused_leapfrog(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=0.0,
@@ -187,7 +283,7 @@ def build_fused_leapfrog(family, x, y, b, prior_mean, prior_inv_var, u=None, c0=
     data = build_glm_data(family, x, y, b, prior_mean, prior_inv_var, u=u, c0=c0,
                           ll_scale=ll_scale, dtype="f32", device=device, align_x=False)
     n, d = data.x.shape
-    if not leapfrog_fits(n, d, _smem_limit(data.x.device)):
+    if not leapfrog_fits(n, d, device_caps(data.x.device)[0]):
         return None
     return FusedLeapfrog(data)
 
@@ -207,5 +303,7 @@ def leapfrog_bytes(c: int, n: int, d: int, family: str) -> int:
 __all__ = [
     "reference_leapfrog", "build_fused_leapfrog", "FusedLeapfrog",
     "LeapfrogKernel", "LEAPFROG", "leapfrog_fits", "leapfrog_smem_bytes",
-    "leapfrog_flops", "leapfrog_bytes", "SMEM_PER_BLOCK_OPTIN",
+    "LeapfrogPlan", "plan_leapfrog", "leapfrog_layout_floats", "device_caps",
+    "leapfrog_flops", "leapfrog_bytes", "SMEM_PER_BLOCK_OPTIN", "K5_CHAINS_PER_BLOCK",
+    "K5_MAX_WARPS",
 ]

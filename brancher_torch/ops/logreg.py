@@ -6,22 +6,24 @@ Counterpart of ``brancher_tpu/ops/pallas_logreg.py``:
     grad[c] = (y - sigmoid(l_c)) @ X - w_c / sigma^2,     l_c = X @ w_c
 
   * ``logreg_value_and_grad_reference``: the plain PyTorch version;
-  * ``logreg_value_and_grad``: kernel K6, the two-pass template of
-    ``csrc/glm_vg.cu`` (no offset, no mask, prior N(0, sigma^2)), with its
-    own C symbol and launch counter; a CPU tensor takes the plain version;
+  * ``logreg_value_and_grad``: kernel K6 on CUDA tensors, the plain version
+    on CPU tensors.  K6 is the Bernoulli GLM with b = 0, m = 0, iv =
+    1/sigma^2 on every coordinate and ll_scale = 1 (``logreg_data``), run
+    on K1's f32 passes (``csrc/glm_sm90.cuh``) under its own C symbol
+    ``logreg_vg_f32`` and launch counter (``LOGREG``, a ``GlmKernel``);
   * ``make_logreg_log_posterior``: a scalar-per-chain log posterior whose
     forward computes value and gradient in one K6 launch and whose
     backward returns ``g[:, None] * grad`` (the JAX ``custom_vjp``).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, Tuple
 
 import torch
 
 from ..config import resolve_device
 from ..distributions import softplus
+from .glm import FusedFamily, GlmKernel, build_glm_data
 
 Tensor = torch.Tensor
 
@@ -36,92 +38,64 @@ def logreg_value_and_grad_reference(w: Tensor, x: Tensor, y: Tensor,
     return val, grad
 
 
-def _two_pass_buffers(z: Tensor, n: int, tiles: Tuple[int, int]):
-    """Outputs and scratch of one K6 launch over z [C,D] and N rows:
-    (val, grad, ll_part, g_part, splits, tiles_per_split).  The rows are
-    cut into enough splits that (chain block, split) blocks fill the card
-    twice over."""
-    c, d = z.shape
-    block_chains, block_rows = tiles
-    n_tiles = -(-n // block_rows)
-    chain_blocks = -(-c // block_chains)
-    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
-    splits = max(1, min(n_tiles, -(-2 * sms // chain_blocks)))
-    tiles_per_split = -(-n_tiles // splits)
-    splits = -(-n_tiles // tiles_per_split)  # no empty split
-    f32 = dict(device=z.device, dtype=torch.float32)
-    return (torch.empty((c,), **f32), torch.empty((c, d), **f32),
-            torch.empty((splits, c), **f32), torch.empty((splits, c, d), **f32),
-            splits, tiles_per_split)
+def logreg_data(x: Tensor, y: Tensor, prior_scale: float) -> FusedFamily:
+    """The Bernoulli ``FusedFamily`` K6 runs over, on x's device: X and y as
+    given (X with the row layout of ``build_glm_data``, a copy only where
+    D's rows are not 128 bytes), b = 0, prior mean 0 and inverse variance
+    1/sigma^2 on every coordinate, ll_scale 1.  Its ``plain`` is K6's
+    function."""
+    n, d = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return build_glm_data("bernoulli_logit", x, y, torch.zeros(n, **f32), torch.zeros(d, **f32),
+                          torch.full((d,), 1.0 / prior_scale**2, **f32), device=x.device)
 
 
-class LogregKernel:
-    """Wrapper of ``logreg_vg_f32`` in ``csrc/glm_vg.cu``.  ``launches``
-    counts the calls that launched it (one per value+grad evaluation)."""
+LOGREG = GlmKernel("logreg_f32", "bernoulli_logit", torch.float32, "logreg_vg_f32",
+                   "brancher_tpu/ops/pallas_logreg.py:45 _kernel")
 
-    name = "logreg_f32"
-    source = "brancher_torch/csrc/glm_vg.cu"
-    replaces = "brancher_tpu/ops/pallas_logreg.py:45 _kernel"
+
+def _tensor_key(t: Tensor) -> tuple:
+    # _version moves with every edit in place, so an edited X is rebuilt
+    return (t.data_ptr(), t._version, tuple(t.shape), t.stride(), t.dtype)
+
+
+class _LastData:
+    """The data of the last (x, y, sigma, device) ``logreg_value_and_grad``
+    served.  A caller passes the same x and y on every call; building the
+    three small vectors anew would add launches to a call that is launch-
+    bound at the floor shape.  x and y are held, so their memory (and so
+    the key's pointers) cannot pass to another tensor while cached."""
+
+    __slots__ = ("key", "held", "data")
 
     def __init__(self):
-        self.launches = 0
-        self._fn = None
-        self._tiles = None
+        self.key = self.held = self.data = None
 
-    def _c_function(self):
-        """The C function (``csrc/glm_vg.cu``, built and loaded at first
-        use) and the template's tile sizes (chains, rows) per block."""
-        if self._fn is None:
-            from .cuda_build import load_library
-
-            lib = load_library("glm_vg")
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn = lib.logreg_vg_f32
-            fn.argtypes = [p, p, p, ctypes.c_float, p, p, p, p, i, i, i, i, i, p]
-            fn.restype = ctypes.c_int
-            for tile in (lib.glm_vg_block_chains, lib.glm_vg_block_rows):
-                tile.argtypes = []
-                tile.restype = ctypes.c_int
-            self._fn, self._tiles = fn, (lib.glm_vg_block_chains(), lib.glm_vg_block_rows())
-        return self._fn
-
-    def __call__(self, w: Tensor, x: Tensor, y: Tensor, prior_scale: float):
-        if w.device.type == "cpu":
-            return logreg_value_and_grad_reference(w, x, y, prior_scale)
-        if w.device.type != "cuda":
-            raise RuntimeError(f"{self.name} runs on CUDA tensors, got {w.device}")
-        if w.dtype != torch.float32 or w.dim() != 2 or not w.is_contiguous():
-            raise TypeError(f"{self.name} takes w as a contiguous [C, D] float32 tensor")
-        c, d = w.shape
-        n = x.shape[0]
-        for nm, t, shape in (("x", x, (n, d)), ("y", y, (n,))):
-            if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != w.device
-                    or not t.is_contiguous()):
-                raise ValueError(f"{self.name}: {nm} must be a contiguous float32 {shape} "
-                                 f"tensor on {w.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-        if c == 0 or n == 0 or d == 0:
-            raise ValueError(f"{self.name}: empty input (C={c}, N={n}, D={d})")
-        fn = self._c_function()
-        val, grad, ll_part, g_part, splits, tiles_per_split = _two_pass_buffers(w, n, self._tiles)
-        with torch.cuda.device(w.device):
-            stream = torch.cuda.current_stream(w.device).cuda_stream
-            err = fn(w.data_ptr(), x.data_ptr(), y.data_ptr(), float(1.0 / prior_scale**2),
-                     val.data_ptr(), grad.data_ptr(), ll_part.data_ptr(), g_part.data_ptr(),
-                     c, n, d, splits, tiles_per_split, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
-        self.launches += 1
-        return val, grad
+    def get(self, x: Tensor, y: Tensor, prior_scale: float) -> FusedFamily:
+        key = (x.device, float(prior_scale), _tensor_key(x), _tensor_key(y))
+        if self.key != key:
+            self.data = logreg_data(x, y, prior_scale)
+            self.key, self.held = key, (x, y)
+        return self.data
 
 
-LOGREG = LogregKernel()
+_LAST = _LastData()
 
 
 def logreg_value_and_grad(w: Tensor, x: Tensor, y: Tensor,
                           prior_scale: float = 1.0) -> Tuple[Tensor, Tensor]:
     """w [C,d] -> (val [C], grad [C,d]): K6 on CUDA tensors, the plain
     version on CPU tensors.  x [N,d] and y [N] are float32 on w's device."""
-    return LOGREG(w, x, y, prior_scale)
+    if w.device.type == "cpu":
+        return logreg_value_and_grad_reference(w, x, y, prior_scale)
+    if w.device.type != "cuda":
+        raise RuntimeError(f"{LOGREG.name} runs on CUDA tensors, got {w.device}")
+    n = x.shape[0]
+    for nm, t, shape in (("x", x, (n, w.shape[-1])), ("y", y, (n,))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != w.device:
+            raise ValueError(f"{LOGREG.name}: {nm} must be a float32 {shape} tensor on "
+                             f"{w.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return LOGREG(w, _LAST.get(x, y, prior_scale))
 
 
 class _LogPosterior(torch.autograd.Function):
@@ -146,7 +120,7 @@ def make_logreg_log_posterior(x, y, prior_scale: float = 1.0, use_pallas="auto",
     use_pallas keeps the JAX package's name and takes only "auto": the
     kernel for CUDA tensors, the plain version for CPU tensors.  x and y
     move once to ``device`` (default: where they are when they are
-    tensors, else ``config.device``).
+    tensors, else ``config.device``), and K6's data is built once there.
     """
     if use_pallas != "auto":
         raise ValueError(f"use_pallas must be 'auto', got {use_pallas!r}")
@@ -155,9 +129,14 @@ def make_logreg_log_posterior(x, y, prior_scale: float = 1.0, use_pallas="auto",
     dev = resolve_device(device)
     xt = torch.as_tensor(x, dtype=torch.float32).to(dev).contiguous()
     yt = torch.as_tensor(y, dtype=torch.float32).to(dev).reshape(-1).contiguous()
+    if dev.type == "cpu":
+        def fused(w):
+            return logreg_value_and_grad_reference(w, xt, yt, prior_scale)
+    else:
+        data = logreg_data(xt, yt, prior_scale)
 
-    def fused(w):
-        return LOGREG(w, xt, yt, prior_scale)
+        def fused(w):
+            return LOGREG(w, data)
 
     def log_post(w: Tensor) -> Tensor:
         return _LogPosterior.apply(w, fused)
@@ -166,6 +145,6 @@ def make_logreg_log_posterior(x, y, prior_scale: float = 1.0, use_pallas="auto",
 
 
 __all__ = [
-    "logreg_value_and_grad_reference", "logreg_value_and_grad", "LogregKernel",
+    "logreg_value_and_grad_reference", "logreg_value_and_grad", "logreg_data",
     "LOGREG", "make_logreg_log_posterior",
 ]

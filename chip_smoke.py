@@ -36,10 +36,14 @@ Phases (each prints one or more JSON lines tagged "phase"):
   6. ChEES at the floor config (500 warmup, 1000 draws, 1024 chains) three
      ways: fused_leapfrog=True (K5), a loop of K1, and value_and_grad_fn=
      K6; posterior means against phase 3's "auto" run;
-  7. HMC(num_integration_steps=16) with fused_leapfrog=True on the
-     conjugate model (K5 on normal_learned), against the closed form;
-  8. the {"kernels": [...]} summary (K3, K4 and K5 once for each of their
-     two paths),
+  7. HMC with fused_leapfrog=True: HMC(num_integration_steps=16) on the
+     conjugate model (K5 on normal_learned), against the closed form; and
+     HMC(num_integration_steps=32) on the floor model (1024 chains, 100
+     warmup + 200 draws: K5 on bernoulli_logit with up to 32 steps a
+     transition), posterior means against phase 3's "auto" run, with the
+     sampler's ms per transition;
+  8. the {"kernels": [...]} summary (K3 and K4 once for each of their two
+     paths, K5 once for each of its three),
      the card's name and power limit, and
      the last line {"ok": true, "device": {...}}.
 
@@ -91,10 +95,13 @@ NORMAL_PATHS = {"glm_normal_f32": ((("conjugate", "auto"), "conjugate"),
                                    (("mxu_linreg", "auto"), "linreg")),
                 "glm_normal_bf16": ((("conjugate", "bf16"), "conjugate"),
                                     (("mxu_linreg", "bf16"), "linreg"))}
-# K5 runs on two main paths, one entry each in the summary: (section and
-# run of RESULTS, phase-2 shape, family)
-LEAPFROG_PATHS = ((("chees", "fused"), "floor", "bernoulli_logit"),
-                  (("hmc_conjugate", "fused"), "conjugate", "normal_learned"))
+# K5 runs on three main paths, one entry each in the summary: (section and
+# run of RESULTS, phase-2 shape, family, phase-2 step count; None: the one
+# nearest the run's leapfrogs per draw)
+LEAPFROG_PATHS = ((("chees", "fused"), "floor", "bernoulli_logit", None),
+                  (("hmc_conjugate", "fused"), "conjugate", "normal_learned", None),
+                  (("hmc_floor", "fused"), "floor", "bernoulli_logit", 32))
+HMC_FLOOR_STEPS = 32
 # Limit on max|kernel - plain| / max(max|plain|, 1), for val and grad.  The
 # kernel and its plain version differ only in summation order: the worst
 # reading on an H100 was 9.4e-7 (PERF.md).  For bf16 the product of two
@@ -128,9 +135,9 @@ TOL = 1e-5
 FLIP_SHARE = {"bernoulli_logit": 1e-4, "normal_learned": 1e-3}
 # The same quantity for K5's z, r, val and grad after a trajectory.  A
 # trajectory carries each step's rounding into the next, so the error
-# grows with the step count: on an H100 the worst reading was 3.1e-6
-# (normal_learned, floor shape, 32 steps; PERF.md).  The limit sits 10x
-# above it and below every floor-shape TF32 control (2.0e-4 to 9.2e-4 at
+# grows with the step count: on an H100 the worst reading was 3.6e-6
+# (normal_learned, floor shape, 32 steps; PERF.md).  The limit sits 8x
+# above it and below every floor-shape TF32 control (2.1e-4 to 1.9e-3 at
 # 1 to 32 steps); at D=1 (conjugate) the control uses no tensor cores.
 TOL_LEAPFROG = 3e-5
 LEAPFROG_EPS = 0.05
@@ -374,7 +381,8 @@ def _leapfrog_rows(gen, per_kernel):
                 plain_ms = time_ms(lambda: plain(z, r, g, eps, im, n_steps))
                 row = {
                     "phase": 2, "kernel": lf.LEAPFROG.name, "family": family, "shape": shape_name,
-                    "C": c, "N": n, "D": d, "n_steps": n_steps, **err, "max_rel": worst,
+                    "C": c, "N": n, "D": d, "n_steps": n_steps, "plan": fused.plan(z)._asdict(),
+                    **err, "max_rel": worst,
                     **control, "tolerance_rel": TOL_LEAPFROG, "ok": ok,
                     "deterministic": deterministic, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None,
@@ -698,7 +706,8 @@ def phase_chees():
                           (mean, sd, ess), "chees")
 
 
-def phase_hmc_conjugate():
+def phase_hmc():
+    import numpy as np
     from brancher_torch.inference import HMC
     from brancher_torch.models import conjugate_normal_model
 
@@ -712,10 +721,35 @@ def phase_hmc_conjugate():
     _check_conjugate(res, run, info, 7, "hmc_conjugate/fused")
     RESULTS["hmc_conjugate"] = {"fused": run}
 
+    # a long trajectory on the floor model, where K5 does most of the work
+    _, _, model = _floor_model()
+    warmup, draws = 100, 200
+    res, run = _run_sample(model, "hmc_floor/fused", "glm_bernoulli_f32",
+                           transition_kernel="leapfrog_f32",
+                           kernel=HMC(num_integration_steps=HMC_FLOOR_STEPS), fused_leapfrog=True,
+                           num_warmup=warmup, num_samples=draws, num_chains=1024, key=5)
+    mean, sd, ess, rhat = _post_stats(res, "w")
+    run.update({
+        "phase": 7, "num_samples": draws, "leaves_per_draw_is": "jax_estimate",
+        "sampler_ms_per_transition": run["sampler_seconds"] * 1e3 / (warmup + draws),
+        "k5_launches": run["launches"]["leapfrog_f32"], "min_ess": float(ess.min()),
+        "ess_per_second": float(ess.min()) / run["sampler_seconds"],
+        "max_rhat": float(rhat.max()),
+    })
+    emit(run)
+    RESULTS["hmc_floor"] = {"fused": run}
+    check(run["fused_family"] == "bernoulli_logit", f"hmc_floor: family {run['fused_family']}")
+    check(run["max_rhat"] < 1.01, f"hmc_floor: max R-hat {run['max_rhat']}")
+    check(bool(np.isfinite(mean).all()) and mean.shape == (32,), "hmc_floor: bad means")
+    if "floor_auto_moments" in RESULTS:  # phase 3 ran
+        _mcse_compare(7, "hmc_floor/fused vs nuts/auto", RESULTS["floor_auto_moments"],
+                      (mean, sd, ess), "hmc_floor")
+
 
 def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
-    for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate"):
+    for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate",
+                    "hmc_floor"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -754,20 +788,21 @@ def summary_line():
                                           ("val_max_abs", "grad_max_abs")))
             continue
         # K5: one entry per path, its launches from that path's run and its
-        # row at that path's shape and family, at the step count nearest the
-        # run's leapfrogs per draw
-        for (section, tag), shape, family in LEAPFROG_PATHS:
+        # row at that path's shape and family, at the path's step count (or
+        # the one nearest the run's leapfrogs per draw)
+        for (section, tag), shape, family, steps in LEAPFROG_PATHS:
             run = RESULTS[section][tag]
             check(run["fused_family"] == family, f"{section}/{tag}: family {run['fused_family']}")
             path_rows = [r for r in rows if r["shape"] == shape and r["family"] == family]
-            main = min(path_rows, key=lambda r: abs(r["n_steps"] - run["leaves_per_draw"]))
-            out.append(_summary_entry(f"{name}/{family}", k, path_rows, main,
+            want = run["leaves_per_draw"] if steps is None else steps
+            main = min(path_rows, key=lambda r: abs(r["n_steps"] - want))
+            out.append(_summary_entry(f"{name}/{section}", k, path_rows, main,
                                       run["launches"][name], ("max_abs",)))
     return {"kernels": out}
 
 
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
-         5: phase_mxu, 6: phase_chees, 7: phase_hmc_conjugate}
+         5: phase_mxu, 6: phase_chees, 7: phase_hmc}
 
 
 def main() -> int:

@@ -4,6 +4,7 @@
     python3 scripts/torch_glm_passes.py                           # from the repo root
     python3 scripts/torch_glm_passes.py --family normal_learned   # K3/K4 only
     python3 scripts/torch_glm_passes.py --tree DIR                # another checkout's
+    python3 scripts/torch_glm_passes.py --k56 [--tree DIR]        # K5 and K6 instead
 
 For the floor (C=1024, N=1000, D=32), ragged (100, 1037, 33), MXU-width
 (256, 8192, 1024) and MXU (256, 131072, 1024) shapes, and for the Normal
@@ -22,6 +23,14 @@ pass's device time from torch.profiler.
 tree, unpacked with ``git archive``) and times its kernels with this
 checkout's ``time_ms``, so that two designs are timed alike; it prints the
 errors and times only.  ``--family`` restricts the run to one family.
+
+``--k56`` times K5 (the fused leapfrog) at the floor shape for 1, 8 and 32
+steps in both families and at the conjugate shape for 8 (Normal), and K6
+(logreg value+grad) at the floor and MXU shapes, on chip_smoke.py's phase-2
+inputs, through the entry points both designs share
+(``build_fused_leapfrog``, ``logreg_value_and_grad``): one JSON line each
+with the error against the plain version, bit-reproducibility and the
+median ms.  With ``--tree`` it times another checkout's K5 and K6 alike.
 Needs CUDA; imports no JAX.
 """
 import argparse
@@ -89,6 +98,58 @@ def errors_and_times(G, tree, families):
                 torch.cuda.empty_cache()
 
 
+def k5_k6_times(tree):
+    """K5 and K6 of the brancher_torch on sys.path, on chip_smoke.py's
+    phase-2 inputs (the same in every tree), timed with one time_ms."""
+    import brancher_torch.ops.leapfrog as LF
+    import brancher_torch.ops.logreg as LR
+
+    for family, shape, steps in (("bernoulli_logit", "floor", (1, 8, 32)),
+                                 ("normal_learned", "floor", (1, 8, 32)),
+                                 ("normal_learned", "conjugate", (8,))):
+        c, n, d = {"floor": SHAPES["floor"], "conjugate": (64, 20, 1)}[shape]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn((n, d), generator=gen, device="cuda") / d**0.5
+        y = ((torch.rand((n,), generator=gen, device="cuda") < 0.5).float()
+             if family == "bernoulli_logit" else torch.randn((n,), generator=gen, device="cuda"))
+        b = 0.3 * torch.randn((n,), generator=gen, device="cuda")
+        z = torch.randn((c, d), generator=gen, device="cuda")
+        m, iv = torch.linspace(-1, 1, d, device="cuda"), torch.linspace(0.5, 2.0, d, device="cuda")
+        u = torch.zeros(d, device="cuda")
+        u[-1] = 0.1
+        lf = LF.build_fused_leapfrog(family, x, y, b, m, iv,
+                                     u=u if family == "normal_learned" else None, c0=-0.3,
+                                     ll_scale=1.3, device="cuda")
+        r = torch.randn((c, d), generator=gen, device="cuda")
+        _, g = lf.data.plain(z)
+        im, eps = torch.linspace(0.5, 1.5, d, device="cuda"), torch.tensor(0.05, device="cuda")
+        for n_steps in steps:
+            st = torch.tensor(n_steps, dtype=torch.int32, device="cuda")
+            out, again = lf(z, r, g, eps, im, st), lf(z, r, g, eps, im, st)
+            ref = LF.reference_leapfrog(lf.data.plain)(z, r, g, eps, im, n_steps)
+            print(json.dumps({
+                "tree": tree, "kernel": "K5 " + LF.LEAPFROG.name, "family": family, "shape": shape,
+                "C": c, "N": n, "D": d, "n_steps": n_steps,
+                "max_rel": max(rel(a, bb) for a, bb in zip(out, ref)),
+                "deterministic": all(torch.equal(a, bb) for a, bb in zip(out, again)),
+                "ms": time_ms(lambda: lf(z, r, g, eps, im, st))}), flush=True)
+    for shape in ("floor", "mxu"):
+        c, n, d = SHAPES[shape]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn((n, d), generator=gen, device="cuda") / d**0.5
+        y = (torch.rand((n,), generator=gen, device="cuda") < 0.5).float()
+        w = torch.randn((c, d), generator=gen, device="cuda")
+        (v, g), (v2, g2) = (LR.logreg_value_and_grad(w, x, y, 1.5) for _ in range(2))
+        v_ref, g_ref = LR.logreg_value_and_grad_reference(w, x, y, 1.5)
+        print(json.dumps({
+            "tree": tree, "kernel": "K6 " + LR.LOGREG.name, "shape": shape, "C": c, "N": n, "D": d,
+            "val_max_rel": rel(v, v_ref), "grad_max_rel": rel(g, g_ref),
+            "deterministic": bool(torch.equal(v, v2) and torch.equal(g, g2)),
+            "ms": time_ms(lambda: LR.logreg_value_and_grad(w, x, y, 1.5))}), flush=True)
+        del x, y, w
+        torch.cuda.empty_cache()
+
+
 def passes(G, families):
     from torch.profiler import ProfilerActivity, profile
 
@@ -129,6 +190,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", type=Path, help="root of another checkout whose kernels to time")
     parser.add_argument("--family", choices=FAMILIES, help="one family only (default: both)")
+    parser.add_argument("--k56", action="store_true", help="time K5 and K6 instead of K1-K4")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -141,6 +203,9 @@ def main():
         print(f"brancher_torch came from {G.__file__}, not {tree}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.k56:
+        k5_k6_times(str(args.tree or "."))
+        return 0
     families = (args.family,) if args.family else FAMILIES
     errors_and_times(G, str(args.tree or "."), families)
     if args.tree is None:

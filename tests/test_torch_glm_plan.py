@@ -1,5 +1,5 @@
-"""The K1-K4 pass planner, X's row layout, the bf16 tie readings and the
-kernel build's digest.
+"""The K1-K4 pass planner, X's row layout, the bf16 tie readings, the K5
+planner and the kernel build's digest.
 
 K1-K4 (``brancher_torch/csrc/glm_sm90.cuh``) run only on a card; what
 surrounds them is plain Python and is held here: the planner
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import brancher_torch.ops.glm as G
+import brancher_torch.ops.leapfrog as TL
 from brancher_torch.ops import cuda_build
 
 torch.set_num_threads(2)
@@ -351,3 +352,77 @@ def test_digest_follows_compile_and_link_flags(tmp_path, monkeypatch):
 def test_the_repo_kernels_include_their_headers():
     assert [p.name for p in cuda_build.included_headers("glm_vg")] == ["glm_sm90.cuh"]
     assert cuda_build.included_headers("leapfrog") == []
+
+
+# ---------------------------------------------------------------------------
+# K5's planner (ops/leapfrog.py plan_leapfrog)
+# ---------------------------------------------------------------------------
+
+def _gate_rows(d, limit):
+    """The most rows K5's size gate admits at width d: X [N][d | 1] and one
+    chain's z, r, g and 32 residuals within the limit."""
+    return (limit // 4 - 3 * d - 32) // (d | 1)
+
+
+def _check_leapfrog_plan(c, n, d, limit, sms):
+    plan = TL.plan_leapfrog(c, n, d, limit, sms)
+    assert plan.smem_bytes <= limit
+    assert plan.smem_bytes == 4 * TL.leapfrog_layout_floats(
+        n, d, plan.chains, plan.warps, plan.rows_per_tile, plan.row_slices, plan.state_in_smem)
+    # every chain in exactly one block: block b takes [b G, min((b + 1) G, C))
+    assert plan.chains in TL.K5_CHAINS_PER_BLOCK
+    assert (plan.blocks - 1) * plan.chains < c <= plan.blocks * plan.chains
+    assert plan.chains == 1 or plan.chains <= -(-c // sms)  # one wave where C allows
+    assert 1 <= plan.warps <= TL.K5_MAX_WARPS
+    assert plan.rows_per_tile % 4 == 0 and 4 <= plan.rows_per_tile <= -(-n // 4) * 4
+    # product 2: one (slice, 32-column chunk) item per warp, or one slice
+    assert plan.row_slices == 1 or plan.row_slices * -(-d // 32) <= plan.warps
+    return plan
+
+
+@pytest.mark.parametrize("limit", [TL.SMEM_PER_BLOCK_OPTIN, 101376])
+@pytest.mark.parametrize("d", [1, 2, 7, 31, 32, 33, 70, 128, 1024, 4000])
+def test_leapfrog_plan_for_every_shape_the_gate_admits(d, limit):
+    """Up to the gate's edge every (C, N) has a plan within the limit, and
+    the gate's answers are those of X plus one chain's state (unchanged
+    since the one-warp-per-chain kernel)."""
+    edge = _gate_rows(d, limit)
+    assert edge >= 1
+    rows = sorted({1, 2, 3, 20, 63, 64, 65, 300, 1000, edge - 1, edge}
+                  | set(range(1, edge, max(1, edge // 40))) - {0})
+    for n in (r for r in rows if r <= edge):
+        assert TL.leapfrog_fits(n, d, limit)
+        for c in (1, 13, 64, 131, 132, 256, 1024, 4097):
+            for sms in (132, 7):
+                _check_leapfrog_plan(c, n, d, limit, sms)
+    assert TL.leapfrog_smem_bytes(edge, d, 1) <= limit < TL.leapfrog_smem_bytes(edge + 1, d, 1)
+    assert not TL.leapfrog_fits(edge + 1, d, limit)
+    with pytest.raises(ValueError, match="size gate"):
+        TL.plan_leapfrog(64, edge + 1, d, limit)
+
+
+def test_leapfrog_plan_at_the_floor_and_conjugate_shapes():
+    """On an H100: eight chains and sixteen warps a block at the floor
+    (128 blocks, one wave; the whole N=1000 in one tile, r and g in
+    shared memory); one chain and one warp at the conjugate shape."""
+    assert TL.plan_leapfrog(1024, 1000, 32) == TL.LeapfrogPlan(
+        chains=8, warps=16, rows_per_tile=1000, row_slices=16, state_in_smem=True,
+        smem_bytes=184032, blocks=128)
+    assert TL.plan_leapfrog(64, 20, 1) == TL.LeapfrogPlan(
+        chains=1, warps=1, rows_per_tile=20, row_slices=1, state_in_smem=True,
+        smem_bytes=224, blocks=64)
+
+
+@pytest.mark.parametrize("c,n,d", [(256, 1750, 32), (256, 1757, 32), (13, 1000, 32),
+                                   (1, 300, 7), (256, 700, 70), (130, 700, 70)])
+def test_leapfrog_plan_of_the_card_tests(c, n, d):
+    """The shapes tests/test_torch_kernels_cuda.py runs K5 at: near the
+    gate's edge (r and g move to the outputs at N=1757), fewer chains than
+    multiprocessors, one chain, D over three 32-column chunks."""
+    plan = _check_leapfrog_plan(c, n, d, TL.SMEM_PER_BLOCK_OPTIN, 132)
+    if n == 1757:
+        assert not plan.state_in_smem and plan.rows_per_tile < n
+    if c <= 132:
+        assert plan.chains == 1 and plan.blocks == c
+    if d == 70:
+        assert plan.row_slices * 3 <= plan.warps and plan.rows_per_tile == n

@@ -134,28 +134,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
-# K5 (csrc/leapfrog.cu) and K6 (the logreg instantiation of glm_vg.cu)
+# K5 (csrc/leapfrog.cu) and K6 (the logreg entry of glm_vg.cu, K1's passes)
 # ---------------------------------------------------------------------------
-# as chip_smoke.py: 10x above the worst trajectory reading on an H100
-# (3.1e-6 at 32 steps), below the TF32 control
+# as chip_smoke.py: 8x above the worst trajectory reading on an H100
+# (3.6e-6 at 32 steps), below the TF32 control
 TOL_LEAPFROG = 3e-5
 
 
-# ragged shapes: C not a multiple of the warps per block, N not a multiple
-# of the 32-row tile, D not a multiple of the 32 lanes
-@pytest.mark.parametrize("family", ["bernoulli_logit", "normal_learned"])
-@pytest.mark.parametrize("c,n,d", [(13, 300, 7), (130, 700, 70), (1, 1, 1)])
-def test_leapfrog_matches_plain(cuda, family, c, n, d):
-    data, z = _data(family, "f32", c, n, d, cuda, align_x=False)  # K5 reads X contiguous
+def _check_leapfrog(family, c, n, d, device, steps, eps=0.05):
+    """K5 against its plain version (a loop of the family's plain
+    value+grad) for each step count: one launch a trajectory, within
+    TOL_LEAPFROG, the same bits on a second launch."""
+    data, z = _data(family, "f32", c, n, d, device, align_x=False)  # K5 reads X contiguous
     lf = TL.FusedLeapfrog(data)
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    r = torch.randn((c, d), generator=gen, device=cuda)
+    gen = torch.Generator(device=device).manual_seed(1)
+    r = torch.randn((c, d), generator=gen, device=device)
     _, g = data.plain(z)
-    im = torch.linspace(0.5, 1.5, d, device=cuda)
-    eps = torch.tensor(0.05, device=cuda)
-    for n_steps in (0, 1, 5):
+    im = torch.linspace(0.5, 1.5, d, device=device)
+    eps = torch.tensor(eps, device=device)
+    for n_steps in steps:
         before = TL.LEAPFROG.launches
-        out = lf(z, r, g, eps, im, torch.tensor(n_steps, device=cuda))
+        out = lf(z, r, g, eps, im, torch.tensor(n_steps, device=device))
         ref = TL.reference_leapfrog(data.plain)(z, r, g, eps, im, n_steps)
         torch.cuda.synchronize()
         assert TL.LEAPFROG.launches == before + 1
@@ -163,6 +162,35 @@ def test_leapfrog_matches_plain(cuda, family, c, n, d):
             _close(got, want, TOL_LEAPFROG)
         again = lf(z, r, g, eps, im, n_steps)
         assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+# ragged shapes: C not a multiple of the chains per block, N not a multiple
+# of the rows a tile or a slice takes, D not a multiple of 4 or of 32
+@pytest.mark.parametrize("family", ["bernoulli_logit", "normal_learned"])
+@pytest.mark.parametrize("c,n,d", [(13, 300, 7), (130, 700, 70), (1, 1, 1)])
+def test_leapfrog_matches_plain(cuda, family, c, n, d):
+    _check_leapfrog(family, c, n, d, cuda, (0, 1, 5))
+
+
+# the floor shape (eight chains and sixteen warps a block, one tile).  The
+# step is 0.03: at 0.05 some Normal chains of these inputs lie near the
+# edge of stability, and after 32 steps the plain loop in f32 is itself
+# 1e-4 from the same loop in f64 (2.2e-6 at 0.03; on the CPU), so no f32
+# kernel could be held to TOL_LEAPFROG there
+@pytest.mark.parametrize("n_steps", [1, 8, 32])
+@pytest.mark.parametrize("family", ["bernoulli_logit", "normal_learned"])
+def test_leapfrog_at_the_floor_shape(cuda, family, n_steps):
+    _check_leapfrog(family, 1024, 1000, 32, cuda, (n_steps,), eps=0.03)
+
+
+# the planner's other corners: near the size gate (one warp, many tiles;
+# at N=1757 r and g in the outputs), fewer chains than multiprocessors,
+# D over three 32-column chunks with two chains a block, one chain
+@pytest.mark.parametrize("family", ["bernoulli_logit", "normal_learned"])
+@pytest.mark.parametrize("c,n,d", [(256, 1750, 32), (256, 1757, 32), (13, 1000, 32),
+                                   (256, 700, 70), (1, 300, 7)])
+def test_leapfrog_at_the_plan_edges(cuda, family, c, n, d):
+    _check_leapfrog(family, c, n, d, cuda, (1, 6))
 
 
 def test_leapfrog_propagates_non_finite_positions(cuda):
@@ -197,3 +225,26 @@ def test_logreg_matches_plain(cuda, c, n, d):
     (grad,) = torch.autograd.grad(val.sum(), wt)
     assert TLR.LOGREG.launches == before + 3
     assert torch.equal(grad, g)
+
+
+# K6 at the MXU-scale shape (X itself, rows 4 KB apart) and at a ragged D
+# (one padded copy of X, kept while x, y and sigma stay the same)
+@pytest.mark.parametrize("d", [1024, 1025])
+def test_logreg_at_the_mxu_shape(cuda, d):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    n, c = 131072, 256
+    x = torch.randn((n, d), generator=gen, device=cuda) / d**0.5
+    y = (torch.rand((n,), generator=gen, device=cuda) < 0.5).float()
+    w = torch.randn((c, d), generator=gen, device=cuda)
+    before = TLR.LOGREG.launches
+    v, g = TLR.logreg_value_and_grad(w, x, y, 1.5)
+    torch.cuda.synchronize()
+    assert TLR.LOGREG.launches == before + 1
+    data = TLR._LAST.data
+    assert (data.x.data_ptr() == x.data_ptr()) == (d == 1024)
+    v_ref, g_ref = TLR.logreg_value_and_grad_reference(w, x, y, 1.5)
+    _close(v, v_ref, TOL)
+    _close(g, g_ref, TOL)
+    v2, g2 = TLR.logreg_value_and_grad(w, x, y, 1.5)
+    assert TLR._LAST.data is data and TLR.LOGREG.launches == before + 2
+    assert torch.equal(v, v2) and torch.equal(g, g2)

@@ -131,6 +131,66 @@ def test_logreg_plain_matches_pallas_interpret_and_reference():
     assert torch.equal(v, v2) and torch.equal(g, g2) and TLR.LOGREG.launches == before
 
 
+# ragged shapes: no axis a multiple of 8, and D=1
+@pytest.mark.parametrize("c,n,d", [(13, 300, 7), (5, 37, 33), (3, 64, 1)])
+def test_logreg_maps_onto_the_bernoulli_glm(c, n, d):
+    """K6 runs K1's passes over the Bernoulli FusedFamily that logreg_data
+    builds (b = 0, m = 0, iv = 1/sigma^2, ll_scale = 1): that family's plain
+    version is K6's function, as the plain version and the JAX Pallas
+    kernel (interpret mode) compute it."""
+    w, x, y = _logreg_inputs(seed=c, c=c, n=n, d=d)
+    data = TLR.logreg_data(torch.as_tensor(x), torch.as_tensor(y), 1.5)
+    assert data.family == "bernoulli_logit" and data.ll_scale == 1.0
+    assert not bool(data.b.any()) and not bool(data.prior_mean.any())
+    assert torch.equal(data.prior_inv_var, torch.full((d,), 1 / 1.5**2))
+    v, g = data.plain(torch.as_tensor(w))
+    vp, gp = PLR.logreg_value_and_grad_pallas(*map(jnp.asarray, (w, x, y)), 1.5, interpret=True)
+    vr, gr = TLR.logreg_value_and_grad_reference(*map(torch.as_tensor, (w, x, y)), 1.5)
+    # f32 sums in another order: 1e-5 of the output's scale
+    for got, want in ((v, vp), (g, gp), (v, vr), (g, gr)):
+        scale = max(float(np.max(np.abs(np.asarray(want)))), 1.0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5 * scale)
+
+
+def _aligned(t):
+    """A contiguous copy of t whose data starts 128 bytes aligned."""
+    buf = torch.empty(t.numel() + 32)
+    k = (-buf.data_ptr() % 128) // 4
+    out = buf[k:k + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_logreg_data_is_kept_for_the_same_inputs():
+    """logreg_value_and_grad builds K6's data once for a run of calls with
+    the same x, y and sigma: an edit of x or y in place, another sigma or
+    another tensor rebuilds it."""
+    w, x, y = _logreg_inputs(seed=2, n=40, d=32)
+    xt, yt = _aligned(torch.as_tensor(x)), torch.as_tensor(y)
+    first = TLR._LAST.get(xt, yt, 1.5)
+    assert TLR._LAST.get(xt, yt, 1.5) is first
+    assert first.x.data_ptr() == xt.data_ptr()  # rows of 128 bytes: X itself, no copy
+    xt.mul_(1.0)  # an edit in place
+    edited = TLR._LAST.get(xt, yt, 1.5)
+    assert edited is not first and TLR._LAST.get(xt, yt, 1.5) is edited
+    assert TLR._LAST.get(xt, yt, 2.0) is not edited  # a new sigma
+    rebuilt = TLR._LAST.get(xt, yt, 2.0)
+    yt.add_(0.0)
+    assert TLR._LAST.get(xt, yt, 2.0) is not rebuilt
+    assert TLR._LAST.get(xt.clone(), yt, 2.0) is not TLR._LAST.get(xt, yt, 2.0)
+    assert torch.equal(TLR._LAST.get(xt, yt, 2.0).prior_inv_var, torch.full((32,), 0.25))
+
+
+@pytest.mark.parametrize("d", [32, 1024, 7, 33, 1025])
+def test_logreg_data_copies_only_a_ragged_x(d):
+    """X's rows are 128 bytes apart at D = 32 and 1024, so K6 reads X
+    itself; a ragged D takes one padded copy per key."""
+    xt = _aligned(torch.randn(3, d))
+    data = TLR.logreg_data(xt, torch.zeros(3), 1.0)
+    assert G.x_row_aligned(data.x) and torch.equal(data.x, xt)
+    assert (data.x.data_ptr() == xt.data_ptr()) == (d * 4 % G.ROW_BYTES == 0)
+
+
 def test_logreg_log_posterior_autograd_matches_jax_vjp():
     w, x, y = _logreg_inputs(seed=1)
     cot = np.linspace(-1.0, 2.0, w.shape[0]).astype(np.float32)  # a non-unit cotangent
