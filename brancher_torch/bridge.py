@@ -3,9 +3,10 @@
 The JAX package's state arrives as numpy arrays (``np.asarray`` of its
 jax arrays); these functions turn it into the port's state on a chosen
 device, so that both packages compute the same function in the parity
-tests: the ``params`` dict of a compiled model, the fields of a
-``FusedFamily``, flat ``z`` batches and step-size / inverse-mass arrays.
-Nothing here imports JAX or ``brancher_tpu``.
+tests: the ``params`` dict of a compiled model (flax module variables
+included, as the port's module params), the fields of a ``FusedFamily``,
+flat ``z`` batches and step-size / inverse-mass arrays.  Nothing here
+imports JAX or ``brancher_tpu``.
 """
 from __future__ import annotations
 
@@ -26,11 +27,42 @@ def to_tensor(array: Any, device=None, dtype=torch.float32) -> torch.Tensor:
     return t.to(resolve_device(device))
 
 
+def _is_flax_variables(tree) -> bool:
+    return isinstance(tree, Mapping) and set(tree) == {"params"} and isinstance(tree["params"], Mapping)
+
+
+def flax_to_module_params(variables: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """A flax module's variables ``{"params": {"Dense_0": {"kernel", "bias"},
+    ...}}`` (as numpy) as the params of the port's module with the same
+    layer names (``functional_call`` keys ``"Dense_0.weight"``, ...): a 2-D
+    ``kernel`` [in, out] becomes ``weight`` [out, in]."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}.")
+            elif k == "kernel" and np.ndim(v) == 2:
+                out[f"{prefix}weight"] = to_tensor(np.asarray(v).T, device, dtype=None)
+            else:
+                out[f"{prefix}{k}"] = to_tensor(v, device, dtype=None)
+
+    walk(variables["params"], "")
+    return out
+
+
 def params_to_torch(params: Mapping[str, Any], device=None) -> Dict[str, Any]:
-    """A compiled model's ``params`` dict (possibly nested) on ``device``."""
+    """A params dict (possibly nested; e.g. a compiled model's params, or
+    SVI's {"p": ..., "q": ...}) on ``device``; flax module variables in it
+    become the port's module params (``flax_to_module_params``)."""
     out: Dict[str, Any] = {}
     for k, v in params.items():
-        out[k] = params_to_torch(v, device) if isinstance(v, Mapping) else to_tensor(v, device, dtype=None)
+        if _is_flax_variables(v):
+            out[k] = flax_to_module_params(v, device)
+        elif isinstance(v, Mapping):
+            out[k] = params_to_torch(v, device)
+        else:
+            out[k] = to_tensor(v, device, dtype=None)
     return out
 
 

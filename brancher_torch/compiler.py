@@ -11,6 +11,12 @@ frozen DAG in topological order and evaluates, for ONE sample:
     — the split, the prior half alone, and the observed-likelihood
     parameters that the GLM recognizer probes
   * ``constrain`` / ``unconstrain``          — support bijections
+  * ``log_prob_one`` / ``log_likelihood_one`` / ``log_prob`` — the
+    constrained-space densities SVI's guides and estimators use (lines
+    383-411, 1955), over the walks ``_walk_log_prob`` and ``_walk_mean``
+    (lines 292-314, 355-369)
+  * ``data_loader_names`` / ``sample_subgraph_one`` — the minibatch draw
+    SVI makes every step (lines 1877-1911)
 
 There is no trace step: the walks run eagerly, and a chain axis is added
 with ``torch.func.vmap`` by the caller.  The walks therefore avoid
@@ -26,7 +32,7 @@ is still to port (ROADMAP queue 1, item 13).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +46,7 @@ from .variables import (
     RandomVariable,
     Variable,
     ancestral_closure,
+    full_deps,
 )
 
 Tensor = torch.Tensor
@@ -77,7 +84,7 @@ class CompiledModel:
 
         # ---- shape-probe pass: initializes lazy params, records shapes ----
         store = ParamStore({}, frozen=False, device=dev, consts=self._consts)
-        probe_vals = self._walk_sample(store, make_generator(0, dev), {})
+        probe_vals, _ = self._walk_sample(store, make_generator(0, dev), {})
         self.initial_params: Dict[str, Any] = store.params
         self.shapes: Dict[str, Tuple[int, ...]] = {
             k: tuple(v.shape) for k, v in probe_vals.items()
@@ -132,17 +139,64 @@ class CompiledModel:
     # ------------------------------------------------------------------
     # The single-sample graph walks.
     # ------------------------------------------------------------------
-    def _walk_sample(self, store: ParamStore, generator: torch.Generator,
-                     given: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    def _walk_sample(self, store: ParamStore, generator: Optional[torch.Generator],
+                     given: Dict[str, Tensor], noise: Optional[Dict[str, Tensor]] = None,
+                     ) -> Tuple[Dict[str, Tensor], Tensor]:
+        """Ancestral sampling walk: (values, log-joint of the sampled and
+        ``given`` random variables).  A variable with an entry in ``noise``
+        is drawn from it (``from_noise``), the others from ``generator``."""
         values: Dict[str, Tensor] = {}
+        logp = torch.zeros((), device=self.device)
+        noise = noise or {}
         for v in self.order:
             if v.name in given:
                 values[v.name] = store.const(torch.as_tensor(given[v.name]))
+                if isinstance(v, RandomVariable):
+                    logp = logp + self._rv_log_prob(v, values[v.name], self._params(v, values, store))
                 continue
             if isinstance(v, DeterministicVariable):
                 values[v.name] = v.compute(values, store)
                 continue
-            values[v.name] = v.distribution.sample(generator, **self._params(v, values, store))
+            p = self._params(v, values, store)
+            if v.name in noise:
+                value = v.distribution.from_noise(noise[v.name], **p)
+            else:
+                value = v.distribution.sample(generator, **p)
+            values[v.name] = value
+            logp = logp + self._rv_log_prob(v, value, p)
+        return values, logp
+
+    def _walk_log_prob(self, store: ParamStore, values_in: Dict[str, Tensor]) -> Tensor:
+        """Log-joint of the provided latent (and optionally observed) values;
+        deterministic nodes are recomputed where ``values_in`` lacks them."""
+        values: Dict[str, Tensor] = {}
+        logp = torch.zeros((), device=self.device)
+        for v in self.order:
+            if isinstance(v, DeterministicVariable):
+                values[v.name] = values_in[v.name] if v.name in values_in else v.compute(values, store)
+                continue
+            p = self._params(v, values, store)
+            if v.name in values_in:
+                value = values_in[v.name]
+            elif v.is_observed:
+                value = self._observed_value(v, values, store)
+            else:
+                raise ValueError(f"latent variable {v.name!r} missing from sample dict")
+            values[v.name] = value
+            logp = logp + self._rv_log_prob(v, value, p)
+        return logp
+
+    def _walk_mean(self, store: ParamStore, given: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """Every random variable at its mean (the first-order Taylor point
+        of ``Taylor1Estimator``)."""
+        values: Dict[str, Tensor] = {}
+        for v in self.order:
+            if v.name in given:
+                values[v.name] = store.const(torch.as_tensor(given[v.name]))
+            elif isinstance(v, DeterministicVariable):
+                values[v.name] = v.compute(values, store)
+            else:
+                values[v.name] = v.distribution.mean(**self._params(v, values, store))
         return values
 
     def _latent_value(self, v: RandomVariable, p, z: Dict[str, Tensor]):
@@ -198,7 +252,68 @@ class CompiledModel:
         """One ancestral draw: {name: value} for every variable, with
         ``given`` entries clamped."""
         gen = make_generator(generator, self.device)
-        return self._walk_sample(self._as_store(params), gen, given or {})
+        return self._walk_sample(self._as_store(params), gen, given or {})[0]
+
+    def log_prob_one(self, params, values: Dict[str, Tensor]) -> Tensor:
+        """Joint log-density of ONE full assignment in constrained space
+        (deterministic nodes recomputed when absent from ``values``)."""
+        return self._walk_log_prob(self._as_store(params), values)
+
+    def log_likelihood_one(self, params, values: Dict[str, Tensor]) -> Tensor:
+        """Sum of the OBSERVED variables' log-probs only."""
+        store = self._as_store(params)
+        walk_values: Dict[str, Tensor] = {}
+        lp = torch.zeros((), device=self.device)
+        for v in self.order:
+            if isinstance(v, DeterministicVariable):
+                walk_values[v.name] = (values[v.name] if v.name in values
+                                       else v.compute(walk_values, store))
+                continue
+            p = self._params(v, walk_values, store)
+            if v.is_observed and v.name not in values:
+                walk_values[v.name] = self._observed_value(v, walk_values, store)
+                lp = lp + self._rv_log_prob(v, walk_values[v.name], p)
+            elif v.name in values:
+                walk_values[v.name] = values[v.name]
+                if v.is_observed:
+                    lp = lp + self._rv_log_prob(v, values[v.name], p)
+            else:
+                raise ValueError(f"latent {v.name!r} missing from values")
+        return lp
+
+    def log_prob(self, params, values: Dict[str, Tensor]) -> Tensor:
+        """Joint log-density over a leading batch axis of ``values``
+        (``torch.func.vmap`` of ``log_prob_one``; unknown names ignored)."""
+        names = set(self.names)
+        values = {k: torch.as_tensor(v, device=self.device) for k, v in values.items() if k in names}
+        return torch.func.vmap(lambda vals: self.log_prob_one(params, vals))(values)
+
+    @property
+    def data_loader_names(self) -> List[str]:
+        """The data-loader variables (Empirical / RandomIndices), which SVI
+        resamples every step to draw its minibatch."""
+        from .distributions import Empirical, RandomIndices
+
+        return [v.name for v in self.order if isinstance(v, RandomVariable)
+                and isinstance(v.distribution, (Empirical, RandomIndices))]
+
+    def sample_subgraph_one(self, params, generator, names: Sequence[str]) -> Dict[str, Tensor]:
+        """Draw only ``names`` and their ancestors (the minibatch draw)."""
+        store = self._as_store(params)
+        gen = make_generator(generator, self.device)
+        needed = set(names)
+        for v in reversed(self.order):  # ancestors, by a reverse topological sweep
+            if v.name in needed:
+                needed.update(p.name for p in full_deps(v))
+        values: Dict[str, Tensor] = {}
+        for v in self.order:
+            if v.name not in needed:
+                continue
+            if isinstance(v, DeterministicVariable):
+                values[v.name] = v.compute(values, store)
+            else:
+                values[v.name] = v.distribution.sample(gen, **self._params(v, values, store))
+        return values
 
     def log_density_z(self, params, z: Dict[str, Tensor],
                       given: Optional[Dict[str, Tensor]] = None) -> Tensor:
@@ -311,5 +426,5 @@ class CompiledModel:
         draws = []
         for i in range(n):
             g = {k: (mapped[k][i] if k in mapped else v) for k, v in given.items()}
-            draws.append(self._walk_sample(store, gen, g))
+            draws.append(self._walk_sample(store, gen, g)[0])
         return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}

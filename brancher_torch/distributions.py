@@ -7,12 +7,18 @@ The chain or sample axis is added by ``torch.func.vmap`` or written out by
 the caller, never inside a kernel.
 
 Ported so far: Normal, LogNormal and Bernoulli (logits or probs), the
-families on the main sampling path.  The other families of the JAX
+families on the main sampling path, with their ``mean``; and the data
+loaders ``Empirical`` and ``RandomIndices`` (lines 618-670), which SVI
+resamples every step to draw minibatches.  The other families of the JAX
 package are still to port (ROADMAP queue 1, item 14).
 
 Random draws take an explicit ``torch.Generator`` that lives on the
 parameters' device; the draws differ from JAX's for the same seed, so
-tests feed both packages the same numbers instead of the same seed.
+tests feed both packages the same numbers instead of the same seed.  The
+reparameterized families also take their standard-normal noise:
+``from_noise(eps, **params)`` is ``sample`` with ``eps`` in place of the
+generator's draw, so that a guide draws its noise outside
+``torch.func.vmap`` and a test can replay JAX's.
 """
 from __future__ import annotations
 
@@ -56,6 +62,9 @@ class Distribution:
     def log_prob(self, value: torch.Tensor, **params) -> torch.Tensor:
         raise NotImplementedError
 
+    def mean(self, **params) -> torch.Tensor:
+        raise NotImplementedError
+
     def __repr__(self):
         return type(self).__name__
 
@@ -70,11 +79,17 @@ class Normal(Distribution):
             _bshape(loc, scale), generator=generator, device=loc.device,
             dtype=torch.result_type(loc, scale),
         )
+        return self.from_noise(eps, loc=loc, scale=scale)
+
+    def from_noise(self, eps, *, loc, scale):
         return loc + scale * eps
 
     def log_prob(self, value, *, loc, scale):
         z = (value - loc) / scale
         return -0.5 * (z * z + _LOG_2PI) - torch.log(scale)
+
+    def mean(self, *, loc, scale):
+        return torch.broadcast_to(loc, _bshape(loc, scale))
 
 
 class LogNormal(Distribution):
@@ -85,9 +100,15 @@ class LogNormal(Distribution):
     def sample(self, generator, *, loc, scale):
         return torch.exp(Normal().sample(generator, loc=loc, scale=scale))
 
+    def from_noise(self, eps, *, loc, scale):
+        return torch.exp(Normal().from_noise(eps, loc=loc, scale=scale))
+
     def log_prob(self, value, *, loc, scale):
         logv = torch.log(value)
         return Normal().log_prob(logv, loc=loc, scale=scale) - logv
+
+    def mean(self, *, loc, scale):
+        return torch.exp(loc + 0.5 * scale**2)
 
 
 def _resolve_probs_logits(probs, logits):
@@ -113,3 +134,53 @@ class Bernoulli(Distribution):
         logits = _resolve_probs_logits(probs, logits)
         v = torch.as_tensor(value).to(logits.dtype)
         return v * logits - softplus(logits)
+
+    def mean(self, *, probs=None, logits=None):
+        return torch.sigmoid(_resolve_probs_logits(probs, logits))
+
+
+class Empirical(Distribution):
+    """Rows of a fixed dataset: ``dataset[indices]`` when indices are given,
+    else ``batch_size`` rows drawn uniformly with replacement, else the
+    whole dataset.  Density-free: ``log_prob`` is one zero per row (a bare
+    zero for a scalar value), as in the JAX package.  ``is_discrete``, so it
+    never enters an HMC state."""
+
+    param_names = ("dataset", "indices")
+    is_discrete = True
+    support = REAL
+
+    def __init__(self, batch_size=None):
+        self.batch_size = batch_size
+
+    def sample(self, generator, *, dataset, indices=None):
+        if indices is not None:
+            return dataset[indices]
+        if self.batch_size is None:
+            return dataset
+        idx = torch.randint(0, dataset.shape[0], (self.batch_size,), generator=generator,
+                            device=dataset.device)
+        return dataset[idx]
+
+    def log_prob(self, value, *, dataset, indices=None):
+        return torch.zeros(value.shape[:1], device=value.device)
+
+
+class RandomIndices(Distribution):
+    """``batch_size`` minibatch indices in [0, dataset_size), uniform with
+    replacement (int64, torch's index type; JAX draws int32)."""
+
+    param_names = ()
+    is_discrete = True
+    support = INTEGER
+
+    def __init__(self, dataset_size: int, batch_size: int):
+        self.dataset_size = int(dataset_size)
+        self.batch_size = int(batch_size)
+
+    def sample(self, generator):
+        return torch.randint(0, self.dataset_size, (self.batch_size,), generator=generator,
+                             device=generator.device)
+
+    def log_prob(self, value):
+        return torch.zeros((), device=value.device)

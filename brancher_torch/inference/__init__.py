@@ -1,10 +1,24 @@
-"""Inference engines ported so far: vectorized NUTS, chain-batched HMC
-and ChEES, and their diagnostics.
+"""Inference engines ported so far: SVI and point estimation, vectorized
+NUTS, chain-batched HMC and ChEES, and their diagnostics.
 
-Counterpart of ``brancher_tpu/inference``.  SVI, SMC and the per-chain
-engines are still to port (ROADMAP queue 1, items 10-12).
+Counterpart of ``brancher_tpu/inference``.  SMC, the per-chain engines
+and the particle methods are still to port (ROADMAP queue 1, items 11,
+12 and 14).
 """
 
+from .svi import (
+    MAP,
+    MaximumLikelihood,
+    ReverseKL,
+    SteinVariationalGradientDescent,
+    WassersteinVariationalGradientDescent,
+    perform_inference,
+)
+from .gradient_estimators import (
+    BlackBoxEstimator,
+    PathwiseDerivativeEstimator,
+    Taylor1Estimator,
+)
 from .chees import ChEESHMC, ChEESResult, chees_hmc
 from .diagnostics import (
     effective_sample_size,

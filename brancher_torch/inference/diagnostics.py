@@ -1,16 +1,25 @@
-"""Sampler diagnostics: ESS and split R-hat, on the host in numpy.
+"""Sampler diagnostics: ESS and split R-hat.
 
-Counterpart of ``brancher_tpu/inference/diagnostics.py`` (lines 19-74
-and 204-264): Geyer initial-monotone-sequence ESS from the FFT
-autocovariance, split R-hat, and the rank-normalized and folded R-hats of
-Vehtari et al. (2021).  The samples move to the host once; the device
-variants (``effective_sample_size_device``,
-``potential_scale_reduction_device``) are still to port (ROADMAP queue 1,
-item 8).
+Counterpart of ``brancher_tpu/inference/diagnostics.py``:
+
+  * on the host in numpy (lines 19-74 and 204-264): Geyer initial-
+    monotone-sequence ESS from the FFT autocovariance, split R-hat, and the
+    rank-normalized and folded R-hats of Vehtari et al. (2021); the samples
+    move to the host once;
+  * on the samples' device in torch (lines 97-201):
+    ``effective_sample_size_device`` and
+    ``potential_scale_reduction_device``.  The device ESS is the same
+    estimator with the autocovariance taken directly at the first
+    ``max_lag`` lags (no FFT), and a pessimistic tail where Geyer's
+    positive sequence has not ended by then; only the [dim] results need
+    to leave the device.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 
 def _autocovariance_fft(x: np.ndarray) -> np.ndarray:
@@ -93,6 +102,68 @@ def potential_scale_reduction(samples) -> np.ndarray:
     var_plus = (n - 1.0) / n * w + b / n
     rhat = np.sqrt(var_plus / w)
     return rhat.reshape(x.shape[2:]) if in_ndim > 2 else np.squeeze(rhat)
+
+
+def _as_float(samples) -> torch.Tensor:
+    x = torch.as_tensor(samples)
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.float()
+    return x[None, :] if x.dim() == 1 else x
+
+
+def effective_sample_size_device(samples, max_lag: int = 256) -> torch.Tensor:
+    """ESS of [chains, draws, ...] samples, computed where they are.
+
+    The estimator of :func:`effective_sample_size` with the autocovariance
+    truncated at ``max_lag`` lags.  If Geyer's initial positive sequence
+    has not ended by the last pair, the truncated sum would overstate the
+    ESS, so the last pair is taken to persist to draws/2 pairs.  Returns a
+    tensor of shape ``samples.shape[2:]`` on the samples' device.
+    """
+    x = _as_float(samples)
+    event_shape = x.shape[2:]
+    chains, draws = x.shape[0], x.shape[1]
+    if draws < 2:
+        return torch.full(event_shape, float("nan"), dtype=x.dtype, device=x.device)
+    flat = x.reshape(chains, draws, -1)
+    k = min(int(max_lag), draws - 1)
+    xc = flat - flat.mean(dim=1, keepdim=True)
+    acov = torch.stack([(xc[:, : draws - lag] * xc[:, lag:]).sum(dim=1) / draws
+                        for lag in range(k)])  # [K, C, P]
+    mean_acov = acov.mean(dim=1)  # [K, P]
+    w = acov[0].mean(dim=0) * draws / (draws - 1.0)
+    b_over_n = flat.mean(dim=1).var(dim=0) if chains > 1 else torch.zeros_like(w)
+    var_plus = w * (draws - 1.0) / draws + b_over_n
+
+    rho = 1.0 - (w[None, :] - mean_acov) / var_plus[None, :]
+    rho[0] = 1.0
+    k_half = k // 2
+    p = rho[0: 2 * k_half: 2] + rho[1: 2 * k_half: 2]
+    alive = torch.cumprod((p > 0.0).to(x.dtype), dim=0)
+    p = torch.clamp(torch.cummin(p * alive, dim=0).values, min=0.0)
+    tau = -1.0 + 2.0 * p.sum(dim=0)
+    # the truncation guard: the last pair repeated to draws/2 pairs
+    tau = torch.where(alive[-1] > 0.0, tau + 2.0 * p[-1] * (draws // 2 - k_half), tau)
+    tau = torch.clamp(tau, min=1.0 / math.log10(float(draws * chains)))
+    ess = torch.clamp(chains * draws / tau, max=float(chains * draws))
+    return ess.reshape(event_shape)
+
+
+def potential_scale_reduction_device(samples) -> torch.Tensor:
+    """Split R-hat of [chains, draws, ...] samples, computed where they are."""
+    x = _as_float(samples)
+    event_shape = x.shape[2:]
+    draws = x.shape[1]
+    if draws < 4:
+        return torch.full(event_shape, float("nan"), dtype=x.dtype, device=x.device)
+    half = draws // 2
+    split = torch.cat([x[:, :half], x[:, half: 2 * half]], dim=0)
+    m, n = split.shape[0], split.shape[1]
+    flat = split.reshape(m, n, -1)
+    w = flat.var(dim=1).mean(dim=0)
+    b = n * flat.mean(dim=1).var(dim=0)
+    var_plus = (n - 1.0) / n * w + b / n
+    return torch.sqrt(var_plus / w).reshape(event_shape)
 
 
 def _rank_normalize(x: np.ndarray) -> np.ndarray:

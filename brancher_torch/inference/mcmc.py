@@ -20,11 +20,16 @@ gate).  As in the JAX package it has no effect under NUTS or when no
 family is recognized; unlike it, ``diagnostics["fused_leapfrog"]`` says
 whether K5 ran, and ``sample()`` warns when it was asked for and did not.
 
+ESS and R-hat run on the host in numpy (``diagnostics_backend="host"``)
+or where the samples are (``"device"``); ``"auto"`` takes the device when
+the samples live on CUDA and pass 16 MB, as JAX's rule does
+(``brancher_tpu/inference/mcmc.py:1003-1009``).  Either way
+``diagnostics["ess"]`` and ``["r_hat"]`` hold numpy arrays.
+
 Not ported yet, and refused with ``NotImplementedError``: the per-chain
 and sharded chain methods, ``sample(mass="dense")`` (ChEES's own
 ``ChEESHMC(mass="dense")`` runs), ``resume_state`` and
-``enumerate_discrete`` (ROADMAP queue 1, items 12, 13 and 15), and the
-device diagnostics (item 8).
+``enumerate_discrete`` (ROADMAP queue 1, items 12, 13 and 15).
 """
 from __future__ import annotations
 
@@ -40,7 +45,12 @@ from ..config import make_generator
 from ..variables import DeterministicVariable
 from .adaptation import find_reasonable_step_size_batched
 from .chees import ChEESHMC, chees_hmc
-from .diagnostics import effective_sample_size, potential_scale_reduction
+from .diagnostics import (
+    effective_sample_size,
+    effective_sample_size_device,
+    potential_scale_reduction,
+    potential_scale_reduction_device,
+)
 from .hmc import HMC
 from .nuts import NUTS
 from .vectorized_nuts import nuts_batched
@@ -182,8 +192,6 @@ def sample(
         raise ValueError(f"unknown fused_potential {fused_potential!r}")
     if diagnostics_backend not in ("auto", "host", "device", "none"):
         raise ValueError(f"unknown diagnostics_backend {diagnostics_backend!r}")
-    if diagnostics_backend == "device":
-        _not_ported("diagnostics_backend='device'", "ROADMAP queue 1, item 8")
 
     if kernel is None:
         kernel = NUTS()
@@ -348,7 +356,11 @@ def sample(
         "fused_leapfrog": k5_ran,
         "device": str(dev),
     }
-    if diagnostics_backend != "none":
+    mode = diagnostics_backend
+    if mode == "auto":
+        total_bytes = sum(v.numel() * 4 for v in samples.values())
+        mode = "device" if dev.type == "cuda" and total_bytes > 16 * 2**20 else "host"
+    if mode != "none":
         if ess_vars is not None:
             diag_names = list(ess_vars)
             conditioned = [n for n in diag_names if given and n in given]
@@ -367,11 +379,16 @@ def sample(
         for n in diag_names:
             if given and n in given:
                 continue  # conditioned: constant across draws (0/0 R-hat)
-            x = samples[n].detach().cpu().numpy()
-            event_shape = x.shape[2:]
-            flat = x.reshape(x.shape[0], x.shape[1], -1)
+            x = samples[n].detach()
+            event_shape = tuple(x.shape[2:])
+            if mode == "device":
+                ess[n] = effective_sample_size_device(x).cpu().numpy().reshape(event_shape)
+                rhat[n] = potential_scale_reduction_device(x).cpu().numpy().reshape(event_shape)
+                continue
+            flat = x.cpu().numpy().reshape(x.shape[0], x.shape[1], -1)
             ess[n] = np.asarray(effective_sample_size(flat)).reshape(event_shape)
             rhat[n] = np.asarray(potential_scale_reduction(flat)).reshape(event_shape)
+        diagnostics["diagnostics_backend"] = mode
         diagnostics["ess"] = ess
         diagnostics["r_hat"] = rhat
     return MCMCResult(samples, stats, diagnostics)

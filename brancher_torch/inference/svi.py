@@ -1,0 +1,285 @@
+"""Stochastic variational inference and point estimation.
+
+Counterpart of ``brancher_tpu/inference/svi.py`` (lines 37-157 and
+188-415): ``perform_inference`` with the inference methods ``ReverseKL``
+(negative ELBO), ``MaximumLikelihood`` and ``MAP``, and ``InferenceResult``.
+
+The JAX package runs the whole optimisation as one jitted ``lax.scan``;
+here it is a loop of steps on the device, each drawing its random numbers
+with the run's ``torch.Generator`` (the data loaders' minibatch, then the
+guide's noise), mapping the S samples through the densities with
+``torch.func.vmap``, and stepping a ``torch.optim`` optimizer on the
+autograd gradient.  The per-step losses stay on the device until the end.
+
+A loss is ``loss_fn(opt_params, generator, num_samples, draws=None)``;
+``draws`` = {"data": the loaders' values, "noise": the guide's noise}
+replays given numbers instead of drawing (the parity tests feed JAX's).
+
+Not ported yet, and refused with ``NotImplementedError``: WVGD and SVGD
+(ROADMAP queue 1, item 14), ``mesh=`` (item 15),
+``ReverseKL(enumerate_discrete=True)`` (item 13) and a ``matmul_precision``
+other than None or "highest" (item 14).  ``scan_unroll`` and
+``batch_axis`` are accepted and do nothing: there is no scan to unroll
+and no mesh.
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..compiler import CompiledModel
+from ..config import make_generator
+from ..optimizers import detached, resolve_optimizer as _resolve_optimizer, set_grads, trainable_copy
+from .gradient_estimators import GradientEstimator, PathwiseDerivativeEstimator
+from .guides import AutoMeanField, DSLGuide
+
+Tensor = torch.Tensor
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item})")
+
+
+def _data_draw(p_comp: CompiledModel, p_params, generator, loaders, draws) -> Dict[str, Tensor]:
+    if "data" in draws:
+        return draws["data"]
+    return p_comp.sample_subgraph_one(p_params, generator, loaders) if loaders else {}
+
+
+class InferenceMethod:
+    """Base class for inference-method strategy objects."""
+
+    def make_loss(self, p_comp: CompiledModel, guide) -> Callable:
+        raise NotImplementedError
+
+
+class ReverseKL(InferenceMethod):
+    """Negative-ELBO minimization (the reference's default method).
+
+    Every step draws the target's data loaders once and feeds the draw to
+    the target and to the guide as ``given`` (an amortised guide reads the
+    same minibatch), then evaluates log p of each guide sample."""
+
+    def __init__(self, gradient_estimator: Optional[GradientEstimator] = None,
+                 enumerate_discrete: bool = False):
+        if enumerate_discrete:
+            _not_ported("ReverseKL(enumerate_discrete=True)", "item 13")
+        self.estimator = gradient_estimator or PathwiseDerivativeEstimator()
+
+    def make_loss(self, p_comp: CompiledModel, guide):
+        est = self.estimator
+        latent_set = set(p_comp.latent_names)
+        loaders = tuple(p_comp.data_loader_names)
+
+        def loss_fn(opt_params, generator, num_samples: int, draws=None):
+            draws = draws or {}
+            p_params, q_params = opt_params["p"], opt_params["q"]
+            given_data = _data_draw(p_comp, p_params, generator, loaders, draws)
+            values, log_q = guide.sample_and_log_prob(
+                q_params, generator, num_samples, detach=est.detach_samples,
+                deterministic=est.deterministic, given=given_data, noise=draws.get("noise"),
+            )
+            if guide.space == "constrained":
+                latents = {k: v for k, v in values.items() if k in latent_set}
+                log_p = torch.func.vmap(
+                    lambda s: p_comp.log_prob_one(p_params, {**s, **given_data}))(latents)
+            else:
+                log_p = torch.func.vmap(
+                    lambda z: p_comp.log_density_z(p_params, z, given_data))(values)
+            return est.surrogate_loss(log_p, log_q)
+
+        return loss_fn
+
+
+class MaximumLikelihood(InferenceMethod):
+    """Maximize the observed-data log-likelihood over learnable params;
+    latent RVs (if any) are marginalized by prior Monte-Carlo."""
+
+    def make_loss(self, p_comp: CompiledModel, guide):
+        observed = set(p_comp.observed_names)
+
+        def loss_fn(opt_params, generator, num_samples: int, draws=None):
+            p_params = opt_params["p"]
+            store = p_comp._as_store(p_params)
+
+            def one():
+                values, _ = p_comp._walk_sample(store, generator, {})
+                # the likelihood at the OBSERVED data, not at the model's
+                # prior-predictive draws of the observed variables
+                latents = {k: v for k, v in values.items() if k not in observed}
+                return p_comp.log_likelihood_one(p_params, latents)
+
+            return -torch.mean(torch.stack([one() for _ in range(num_samples)]))
+
+        return loss_fn
+
+
+class MAP(InferenceMethod):
+    """Joint MAP: optimize the unconstrained latent point z together with
+    learnable params; loss = -log p(z, data) including Jacobian."""
+
+    def make_loss(self, p_comp: CompiledModel, guide):
+        loaders = tuple(p_comp.data_loader_names)
+
+        def loss_fn(opt_params, generator, num_samples: int, draws=None):
+            p_params = opt_params["p"]
+            given_data = _data_draw(p_comp, p_params, generator, loaders, draws or {})
+            return -p_comp.log_density_z(p_params, opt_params["z"], given_data)
+
+        return loss_fn
+
+
+class WassersteinVariationalGradientDescent(InferenceMethod):
+    """Wasserstein VGD (``brancher_tpu/inference/svi.py:160``): not ported
+    yet; ``perform_inference`` refuses it (ROADMAP queue 1, item 14)."""
+
+    def __init__(self, number_particles: int = 50, number_samples: int = 512,
+                 proposal_scale: float = 1.0, psi_lr: float = 1.0,
+                 step_size: float = 0.5, method: str = "sinkhorn"):
+        self.number_particles = number_particles
+        self.number_samples = number_samples
+        self.proposal_scale = proposal_scale
+        self.psi_lr = psi_lr
+        self.step_size = step_size
+        self.method = method
+
+
+class SteinVariationalGradientDescent(InferenceMethod):
+    """SVGD (``brancher_tpu/inference/svi.py:179``): not ported yet;
+    ``perform_inference`` refuses it (ROADMAP queue 1, item 14)."""
+
+    def __init__(self, number_particles: int = 50, kernel_bandwidth: Optional[float] = None):
+        self.number_particles = number_particles
+        self.kernel_bandwidth = kernel_bandwidth
+
+
+class InferenceResult:
+    def __init__(self, params, loss_curve, guide=None, extras=None):
+        self.params = params
+        self.loss_curve = loss_curve
+        self.guide = guide
+        self.extras = extras or {}
+
+    def __repr__(self):
+        final = float(self.loss_curve[-1]) if len(self.loss_curve) else float("nan")
+        return f"<InferenceResult iterations={len(self.loss_curve)} final_loss={final:.4f}>"
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def perform_inference(
+    joint_model,
+    number_iterations: int = 1000,
+    number_samples: int = 10,
+    optimizer: Any = "adam",
+    lr: float = 0.01,
+    inference_method: Optional[InferenceMethod] = None,
+    posterior_model=None,
+    guide=None,
+    key=None,
+    params_init: Optional[Dict[str, Any]] = None,
+    mesh=None,
+    batch_axis: str = "batch",
+    progress: bool = False,
+    progress_interval: int = 100,
+    matmul_precision: Optional[str] = None,
+    scan_unroll: int = 1,
+    device=None,
+) -> InferenceResult:
+    """Run SVI / point estimation (reference entry point, SURVEY.md §3.4).
+
+    The guide is chosen by precedence: explicit ``guide`` arg > DSL
+    ``posterior_model`` (or one attached via ``set_posterior_model``) >
+    automatic mean-field in unconstrained space.
+
+    device: where the run happens; default ``config.device`` ("cuda"),
+    which raises when CUDA is absent.  key: an int seed or a
+    ``torch.Generator`` on that device.  optimizer: a name ("adam",
+    "adamw", "sgd", "rmsprop", "adagrad", each with optax's update rule), a
+    ``torch.optim.Optimizer`` class, or a factory params -> optimizer.
+    ``matmul_precision`` None or "highest" runs every product in f32: TF32
+    stays as PyTorch's default leaves it, off.  With
+    ``perform_inference._benchmark`` set, the step loop runs three more
+    times from the same start and ``perform_inference._last_run_seconds``
+    is the best of them, ended by a device synchronize.
+    """
+    del batch_axis, scan_unroll
+    if inference_method is None:
+        inference_method = ReverseKL()
+    if isinstance(inference_method, WassersteinVariationalGradientDescent):
+        _not_ported("WassersteinVariationalGradientDescent", "item 14")
+    if isinstance(inference_method, SteinVariationalGradientDescent):
+        _not_ported("SteinVariationalGradientDescent", "item 14")
+    if mesh is not None:
+        _not_ported("perform_inference(mesh=...)", "item 15")
+    if matmul_precision not in (None, "highest"):
+        _not_ported(f"matmul_precision={matmul_precision!r}", "item 14")
+
+    p_comp: CompiledModel = joint_model.compiled(device)
+    dev = p_comp.device
+    gen = make_generator(key, dev)
+
+    if guide is None:
+        q_model = posterior_model or getattr(joint_model, "posterior_model", None)
+        if q_model is not None:
+            guide = DSLGuide(q_model, device=dev)
+        elif not isinstance(inference_method, (MaximumLikelihood, MAP)):
+            guide = AutoMeanField(p_comp)
+
+    opt_params: Dict[str, Any] = {"p": dict(p_comp.initial_params)}
+    if guide is not None:
+        opt_params["q"] = guide.init_params(gen)
+    if isinstance(inference_method, MAP):
+        opt_params["z"] = p_comp.z_example()
+    if params_init:
+        opt_params.update(params_init)
+
+    loss_fn = inference_method.make_loss(p_comp, guide)
+    make_optimizer = _resolve_optimizer(optimizer, lr)
+    run_state = gen.get_state()
+
+    def run():
+        gen.set_state(run_state)
+        params, leaves = trainable_copy(opt_params)
+        opt = make_optimizer(leaves)
+        losses = torch.empty((number_iterations,), device=dev)
+        for i in range(number_iterations):
+            loss = loss_fn(params, gen, number_samples)
+            set_grads(loss, leaves)
+            opt.step()
+            losses[i] = loss.detach()
+            if progress and i % progress_interval == 0:
+                print(f"[perform_inference] step {i}: loss {float(loss):.4f}", flush=True)
+        return detached(params), losses
+
+    out, losses = run()
+    if getattr(perform_inference, "_benchmark", False):
+        best = math.inf
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out, losses = run()
+            _sync(dev)
+            best = min(best, time.perf_counter() - t0)
+        perform_inference._last_run_seconds = best
+    opt_params = out
+    loss_curve = losses.cpu().numpy()
+
+    # reference behaviour: record the loss curve on the model
+    joint_model.diagnostics["loss curve"] = loss_curve
+
+    extras = {}
+    if isinstance(inference_method, MAP):
+        with torch.no_grad():
+            extras["map_point"] = p_comp.constrain(opt_params["p"], opt_params["z"])
+    # push the trained q params back onto the attached posterior model
+    if isinstance(guide, DSLGuide):
+        guide.comp.initial_params = opt_params["q"]
+        joint_model._trained_params = opt_params
+    return InferenceResult(opt_params, loss_curve, guide=guide, extras=extras)

@@ -2,9 +2,8 @@
 
 Counterpart of ``brancher_tpu/models/logistic_regression.py``: the same
 data generator (numpy, so both packages see identical data for a seed)
-and the same model.  The minibatch form (``batch_size``) needs the
-data-loader variables, which are still to port (ROADMAP queue 1,
-item 14).
+and the same model, whole or minibatched (``batch_size``: x and y load
+through one ``RandomIndices`` draw and the likelihood scales by N/B).
 """
 from __future__ import annotations
 
@@ -14,7 +13,12 @@ import numpy as np
 import torch
 
 from .. import functions as BF
-from ..standard_variables import BernoulliVariable, NormalVariable
+from ..standard_variables import (
+    BernoulliVariable,
+    EmpiricalVariable,
+    NormalVariable,
+    RandomIndices,
+)
 from ..variables import ProbabilisticModel
 
 
@@ -35,15 +39,24 @@ def logistic_regression_model(
     prior_scale: float = 1.0,
     batch_size: Optional[int] = None,
 ):
-    """w ~ N(0, prior_scale I); y_i ~ Bernoulli(sigmoid(x_i.w))."""
-    if batch_size is not None:
-        raise NotImplementedError(
-            "minibatched logistic regression needs RandomIndices and "
-            "EmpiricalVariable (ROADMAP queue 1, item 14)"
-        )
-    d = x.shape[1]
+    """w ~ N(0, prior_scale I); y_i ~ Bernoulli(sigmoid(x_i.w)).
+
+    With ``batch_size``: the reference's RandomIndices/EmpiricalVariable
+    minibatch pattern — x and y are loaded through the same index draw,
+    and the likelihood is rescaled by N/B.
+    """
+    n, d = x.shape
     w = NormalVariable(torch.zeros(d), prior_scale * torch.ones(d), "w")
-    logits = BF.matmul(torch.as_tensor(np.asarray(x, np.float32)), w)
-    yv = BernoulliVariable(logits=logits, name="y")
-    yv.observe(np.asarray(y))
+    xt = torch.as_tensor(np.asarray(x, np.float32))
+    if batch_size is None:
+        yv = BernoulliVariable(logits=BF.matmul(xt, w), name="y")
+        yv.observe(np.asarray(y))
+        return ProbabilisticModel([yv])
+
+    idx = RandomIndices(n, batch_size, "idx")
+    xb = EmpiricalVariable(xt, name="xb", indices=idx)
+    yb = EmpiricalVariable(torch.as_tensor(np.asarray(y)), name="yb", indices=idx)
+    yv = BernoulliVariable(logits=BF.matmul(xb, w), name="y",
+                           log_prob_scale=float(n) / float(batch_size))
+    yv.observe(yb)
     return ProbabilisticModel([yv])

@@ -17,6 +17,7 @@ Counterpart of ``brancher_tpu/ops/pallas_logreg.py``:
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Tuple
 
 import torch
@@ -59,23 +60,42 @@ def _tensor_key(t: Tensor) -> tuple:
     return (t.data_ptr(), t._version, tuple(t.shape), t.stride(), t.dtype)
 
 
+def _detached(t: Tensor, src: Tensor) -> Tensor:
+    # another tensor object over the same memory: holding it does not hold src
+    return t.detach() if t is src else t
+
+
 class _LastData:
     """The data of the last (x, y, sigma, device) ``logreg_value_and_grad``
     served.  A caller passes the same x and y on every call; building the
     three small vectors anew would add launches to a call that is launch-
-    bound at the floor shape.  x and y are held, so their memory (and so
-    the key's pointers) cannot pass to another tensor while cached."""
+    bound at the floor shape.
 
-    __slots__ = ("key", "held", "data")
+    The entry dies with x or y: it holds them only through weak references
+    (the family keeps other tensor objects over their memory, never x or y
+    themselves), and a reference's callback drops the entry, its scratch
+    and any aligned copy of X, once the caller's x or y is collected.  While
+    both live, their memory cannot pass to another tensor."""
+
+    __slots__ = ("key", "refs", "data")
 
     def __init__(self):
-        self.key = self.held = self.data = None
+        self.key = self.refs = self.data = None
+
+    def _drop(self, ref) -> None:
+        if self.refs is not None and any(r is ref for r in self.refs):
+            self.key = self.refs = self.data = None
+
+    def _alive(self, x: Tensor, y: Tensor) -> bool:
+        return self.refs is not None and self.refs[0]() is x and self.refs[1]() is y
 
     def get(self, x: Tensor, y: Tensor, prior_scale: float) -> FusedFamily:
         key = (x.device, float(prior_scale), _tensor_key(x), _tensor_key(y))
-        if self.key != key:
-            self.data = logreg_data(x, y, prior_scale)
-            self.key, self.held = key, (x, y)
+        if self.key != key or not self._alive(x, y):
+            data = logreg_data(x, y, prior_scale)
+            self.data = data._replace(x=_detached(data.x, x), y=_detached(data.y, y))
+            self.refs = (weakref.ref(x, self._drop), weakref.ref(y, self._drop))
+            self.key = key
         return self.data
 
 

@@ -5,9 +5,9 @@ the reference's positional style, e.g. ``NormalVariable(mu, sigma, "x")``,
 and accept numbers, arrays, tensors, variables or expressions in every
 parameter position.
 
-Ported so far: NormalVariable, LogNormalVariable, BernoulliVariable and
-NonCenteredNormalVariable; the rest of the zoo is ROADMAP queue 1,
-item 14.
+Ported so far: NormalVariable, LogNormalVariable, BernoulliVariable,
+NonCenteredNormalVariable and the data loaders EmpiricalVariable and
+RandomIndices; the rest of the zoo is ROADMAP queue 1, item 14.
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ from .variables import DeterministicVariable, PartialLink, RandomVariable, Varia
 
 __all__ = [
     "NormalVariable", "LogNormalVariable", "BernoulliVariable",
-    "NonCenteredNormalVariable", "DeterministicVariable",
+    "NonCenteredNormalVariable", "DeterministicVariable", "EmpiricalVariable",
+    "RandomIndices",
 ]
 
 
@@ -42,6 +43,21 @@ def LogNormalVariable(loc, scale, name=None, plate_shape=(), log_prob_scale=1.0,
 
 def BernoulliVariable(probs=None, name=None, logits=None, plate_shape=(), log_prob_scale=1.0, observed=None):
     return _rv(D.Bernoulli(), {"probs": probs, "logits": logits}, name, plate_shape, log_prob_scale, observed)
+
+
+def EmpiricalVariable(dataset, name=None, indices=None, batch_size=None):
+    """Data-loader node drawing rows of ``dataset``: ``dataset[indices]``
+    with ``indices`` (a variable, typically ``RandomIndices``), iid-uniform
+    rows with ``batch_size``, the whole dataset with neither."""
+    links = {"dataset": dataset}
+    if indices is not None:
+        links["indices"] = indices
+    return RandomVariable(D.Empirical(batch_size=batch_size), name=name, links=links)
+
+
+def RandomIndices(dataset_size, batch_size, name=None):
+    """Minibatch index sampler: ``batch_size`` indices below ``dataset_size``."""
+    return RandomVariable(D.RandomIndices(dataset_size, batch_size), name=name, links={})
 
 
 def NonCenteredNormalVariable(loc, scale, name=None, shape=None, plate_shape=(), raw_name=None):

@@ -370,6 +370,8 @@ class ProbabilisticModel:
         dup = {n for n in names if names.count(n) > 1}
         if dup:
             raise ValueError(f"duplicate variable names in model: {sorted(dup)}")
+        self.posterior_model: Optional[ProbabilisticModel] = None
+        self.diagnostics: Dict[str, Any] = {}
         self._compiled_cache: Dict[Tuple, Any] = {}
 
     @property
@@ -420,6 +422,40 @@ class ProbabilisticModel:
         for v in self.variables:
             if v.is_observed:
                 v.unobserve()
+
+    # -- sampling ----------------------------------------------------------
+    def get_sample_dict(self, number_samples: int, key=None,
+                        input_values: Optional[Dict[str, Any]] = None,
+                        params: Optional[Dict[str, Any]] = None, device=None) -> Dict[str, torch.Tensor]:
+        """``number_samples`` ancestral draws {name: [n, ...]} on ``device``;
+        key: an int seed or a ``torch.Generator`` there."""
+        comp = self.compiled(device)
+        return comp.sample(comp.initial_params if params is None else params, key,
+                           number_samples, given=input_values)
+
+    # -- posterior attachment ------------------------------------------------
+    def set_posterior_model(self, model: "ProbabilisticModel") -> None:
+        """Attach a variational model; correspondence is by variable NAME."""
+        self.posterior_model = model
+
+    def get_posterior_sample_dict(self, number_samples: int, key=None, params=None,
+                                  device=None) -> Dict[str, torch.Tensor]:
+        """Draws of the posterior model pushed through this model by name.
+        ``params``: an SVI result's {"p": ..., "q": ...}; by default each
+        model's compiled params (which SVI with a DSL guide updates)."""
+        from .config import make_generator, resolve_device
+
+        if self.posterior_model is None:
+            raise ValueError("no posterior model set; call set_posterior_model first")
+        dev = resolve_device(device)
+        gen = make_generator(key, dev)
+        params = params if isinstance(params, dict) else {}
+        q_samples = self.posterior_model.get_sample_dict(
+            number_samples, key=gen, params=params.get("q"), device=dev)
+        p_names = {v.name for v in self.variables}
+        given = {k: v for k, v in q_samples.items() if k in p_names}
+        return self.get_sample_dict(number_samples, key=gen, input_values=given,
+                                    params=params.get("p"), device=dev)
 
     def __repr__(self):
         return (

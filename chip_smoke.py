@@ -42,15 +42,31 @@ Phases (each prints one or more JSON lines tagged "phase"):
      warmup + 200 draws: K5 on bernoulli_logit with up to 32 steps a
      transition), posterior means against phase 3's "auto" run, with the
      sampler's ms per transition;
-  8. the {"kernels": [...]} summary (K3 and K4 once for each of their two
+  8. the ARD headline, bench.py's child_ard at full width:
+     make_logreg_data(100, 32, seed=0), tau ~ LogNormal(0, 0.75) [32], w
+     non-centered, 1024 chains, NUTS(max_depth=8), target_accept 0.95,
+     500 warmup + 2000 draws, on bench's hand-fused value+grad (held
+     to autodiff at three random z first; no kernel: the recognizer
+     declines, logits are not affine in z); min-ESS over w and tau,
+     min-ESS/s, divergences, max R-hat, leaves per draw, and the device
+     diagnostics against the host ones on the same draws, both timed;
+  9. SVI on the floor model: perform_inference with AutoMeanField, 16
+     samples, lr 0.02, 1500 steps; the guide's loc within 0.15 of phase
+     3's NUTS means; ELBO steps/s over the call's wall time;
+ 10. the VAE, bench.py's child_vae at full width: make_vae_data(4096, 64),
+     latent 8, hidden 64, batch 256, 1 sample, lr 1e-3, 500 steps; ELBO
+     steps/s (perform_inference._benchmark), the loss means of the first
+     and last 100 steps (the last lower) and peak memory, TF32 off;
+ 11. the {"kernels": [...]} summary (K3 and K4 once for each of their two
      paths, K5 once for each of its three),
      the card's name and power limit, and
      the last line {"ok": true, "device": {...}}.
 
-Every launch counter is set to 0 just before each sample() run and read
-just after it; a run whose kernels did not launch as expected (the
-value+grad kernel once per value+grad call, K5 once per transition)
-fails the script.  Any failed check raises: the script then exits
+Every launch counter is set to 0 just before each sample() or
+perform_inference() run and read just after it; a run whose kernels did
+not launch as expected (the value+grad kernel once per value+grad call,
+K5 once per transition, none on the paths of phases 8-10) fails the
+script.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
 brancher_torch package beside it, it exits 2 at once.
 """
@@ -746,10 +762,180 @@ def phase_hmc():
                       (mean, sd, ess), "hmc_floor")
 
 
+ARD_N, ARD_D, ARD_TAU_SD = 100, 32, 0.75
+# bench.py's ARD_DRAWS, not cut although the phase takes 300-470 s on an
+# H100 (126 leaves a transition at 1.3-1.5 ms): where the slowest
+# coordinate's autocorrelation time tau is 12-16 draws, as on the card,
+# split R-hat reads about 1 + (tau - 1) / draws, and 1400 draws read
+# 1.0114, over the 1.01 limit (PERF.md).  A cut would be printed as
+# "reduced" in phase 8's line.
+ARD_DRAWS = 2000
+ARD_WARMUP = 500
+
+
+def _ard_model_and_potential():
+    """bench.py:195-227: the non-centered ARD model from the ported DSL and
+    bench's hand-fused value+grad of its z-density, z = [log tau, w_raw]."""
+    import numpy as np
+    import torch
+    import brancher_torch as BT
+    import brancher_torch.functions as BF
+    from brancher_torch.models import make_logreg_data
+
+    x, y, _ = make_logreg_data(ARD_N, ARD_D, seed=0)
+    tau = BT.LogNormalVariable(torch.zeros(ARD_D), ARD_TAU_SD * torch.ones(ARD_D), "tau")
+    w = BT.NonCenteredNormalVariable(0.0, tau, name="w", shape=(ARD_D,))
+    yv = BT.BernoulliVariable(logits=BF.matmul(torch.as_tensor(x), w), name="y")
+    yv.observe(y)
+    xt = torch.as_tensor(x, device="cuda")
+    yt = torch.as_tensor(np.asarray(y, np.float32), device="cuda")
+    sd2 = ARD_TAU_SD**2
+
+    def fused(zc):
+        v, wr = zc[:, :ARD_D], zc[:, ARD_D:]
+        tau_ = torch.exp(v)
+        logits = (wr * tau_) @ xt.T
+        ll = torch.sum(yt * logits - torch.nn.functional.softplus(logits), -1)
+        val = ll - 0.5 * torch.sum(v * v, -1) / sd2 - 0.5 * torch.sum(wr * wr, -1)
+        s = (yt - torch.sigmoid(logits)) @ xt
+        return val, torch.cat([s * wr * tau_ - v / sd2, s * tau_ - wr], -1)
+
+    return BT.ProbabilisticModel([yv]), fused
+
+
+def phase_ard():
+    import numpy as np
+    import torch
+    from brancher_torch.inference import NUTS
+    from brancher_torch.inference import diagnostics as dg
+    from brancher_torch.inference.mcmc import autodiff_value_and_grad, make_potential
+
+    model, fused = _ard_model_and_potential()
+    comp = model.compiled("cuda")
+    potential, _, _ = make_potential(comp, comp.initial_params)
+    zp = 0.5 * torch.randn((3, 2 * ARD_D), generator=torch.Generator("cuda").manual_seed(9),
+                           device="cuda")
+    va, ga = autodiff_value_and_grad(potential)(zp)
+    vf, gf = fused(zp)
+    const_sd = float(torch.std(vf - va))
+    grad_ok = bool(torch.all(torch.abs(gf - ga) <= 2e-3 * (1.0 + torch.abs(ga))))
+    check(const_sd < 1e-2 and grad_ok,
+          f"ard: the fused potential disagrees with autodiff (sd {const_sd}, grad_ok {grad_ok})")
+
+    res, run = _run_sample(model, "ard/fused", None, kernel=NUTS(max_depth=8),
+                           num_warmup=ARD_WARMUP, num_samples=ARD_DRAWS, num_chains=1024, key=6,
+                           target_accept=0.95, value_and_grad_fn=fused, ess_vars=["w", "tau"])
+    d = res.diagnostics
+    check(run["fused_family"] is None, f"ard: the recognizer took it as {run['fused_family']}")
+    ess = np.concatenate([np.ravel(d["ess"][n]) for n in ("w", "tau")])
+    rhat = np.concatenate([np.ravel(d["r_hat"][n]) for n in ("w", "tau")])
+
+    # the device diagnostics against the host ones, on the same draws
+    draws = [res.samples[n] for n in ("w", "tau")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = [(dg.effective_sample_size_device(x), dg.potential_scale_reduction_device(x)) for x in draws]
+    dev = [(e.cpu().numpy(), r.cpu().numpy()) for e, r in dev]
+    device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [(dg.effective_sample_size(x.cpu().numpy()), dg.potential_scale_reduction(x.cpu().numpy()))
+            for x in draws]
+    host_s = time.perf_counter() - t0
+    ess_rel = max(float(np.max(np.abs(e / he - 1.0))) for (e, _), (he, _) in zip(dev, host))
+    rhat_abs = max(float(np.max(np.abs(r - hr))) for (_, r), (_, hr) in zip(dev, host))
+    run.update({
+        "phase": 8, "N": ARD_N, "D": ARD_D, "chains": 1024, "num_warmup": ARD_WARMUP,
+        "num_samples": ARD_DRAWS, "min_ess": float(ess.min()),
+        "ess_cap": float(1024 * ARD_DRAWS), "ess_per_second": float(ess.min()) / run["sampler_seconds"],
+        "max_rhat": float(rhat.max()), "diagnostics_backend": d["diagnostics_backend"],
+        "fused_potential_const_sd": const_sd, "device_diag_seconds": device_s,
+        "host_diag_seconds": host_s, "device_vs_host_ess_max_rel": ess_rel,
+        "device_vs_host_rhat_max_abs": rhat_abs,
+        **({"reduced": {"num_samples": [2000, ARD_DRAWS]}} if ARD_DRAWS != 2000 else {}),
+    })
+    emit(run)
+    RESULTS["ard"] = {"fused": run}
+    check(d["diagnostics_backend"] == "device", f"ard: diagnostics ran on {d['diagnostics_backend']}")
+    check(run["max_rhat"] < 1.01, f"ard: max R-hat {run['max_rhat']}")
+    check(ess_rel <= 0.05, f"ard: device ESS {ess_rel:.4f} from the host's")
+    check(rhat_abs <= 1e-3, f"ard: device R-hat {rhat_abs:.2e} from the host's")
+
+
+def _run_svi(tag, model, iterations, benchmark, **kw):
+    """One perform_inference run with every launch counter at 0 before it
+    (no kernel is on the SVI paths).  With ``benchmark`` the step loop runs
+    three more times from the same start and its best time gives the
+    steps/s (perform_inference._benchmark); without, the call's own wall
+    time, setup included, ended by a device synchronize."""
+    import numpy as np
+    import torch
+    from brancher_torch.inference import perform_inference
+
+    _reset_launches()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    perform_inference._benchmark = benchmark
+    try:
+        t0 = time.perf_counter()
+        res = perform_inference(model, number_iterations=iterations, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        perform_inference._benchmark = False
+    launches = {name: k.launches for name, k in _all_kernels().items()}
+    check(not any(launches.values()), f"{tag}: a kernel launched on the SVI path: {launches}")
+    curve = np.asarray(res.loss_curve, np.float64)
+    first, last = float(curve[:100].mean()), float(curve[-100:].mean())
+    loop_s = perform_inference._last_run_seconds if benchmark else wall
+    info = {
+        "run": tag, "launches": launches, "number_iterations": iterations,
+        "timed": "best of 3 step loops" if benchmark else "one call, setup included",
+        "loop_seconds": loop_s, "elbo_steps_per_sec": iterations / loop_s,
+        "wall_seconds": wall,
+        "loss_first_100_mean": first, "loss_last_100_mean": last,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+    }
+    check(bool(np.isfinite(curve).all()), f"{tag}: non-finite loss")
+    check(last < first, f"{tag}: the loss did not fall ({first} -> {last})")
+    return res, info
+
+
+def phase_svi_floor():
+    import numpy as np
+
+    _, _, model = _floor_model()
+    res, info = _run_svi("svi_floor/meanfield", model, 1500, False, number_samples=16, lr=0.02,
+                         key=7)
+    loc = res.guide.posterior_moments(res.params["q"])[0].cpu().numpy()
+    info.update({"phase": 9, "guide": type(res.guide).__name__, "number_samples": 16})
+    check(bool(np.isfinite(loc).all()) and loc.shape == (32,), "svi_floor: bad loc")
+    if "floor_auto_moments" in RESULTS:  # phase 3 ran
+        info["max_abs_diff_to_nuts_mean"] = float(np.abs(loc - RESULTS["floor_auto_moments"][0]).max())
+        info["tolerance"] = 0.15
+    emit(info)
+    RESULTS["svi_floor"] = {"meanfield": info}
+    if "tolerance" in info:
+        check(info["max_abs_diff_to_nuts_mean"] < 0.15,
+              f"svi_floor: loc {info['max_abs_diff_to_nuts_mean']:.3f} from the NUTS means")
+
+
+def phase_vae():
+    from brancher_torch.models import VAEConfig, make_vae_data, vae_model
+
+    data = make_vae_data(num_points=4096, obs_dim=64)
+    p_model, _ = vae_model(data, VAEConfig(latent_dim=8, hidden_dim=64, batch_size=256))
+    _, info = _run_svi("vae", p_model, 500, True, number_samples=1, lr=1e-3, key=3)
+    info.update({"phase": 10, "num_points": 4096, "obs_dim": 64, "latent": 8, "hidden": 64,
+                 "batch": 256, "number_samples": 1})
+    emit(info)
+    RESULTS["vae"] = {"adam": info}
+
+
 def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
     for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate",
-                    "hmc_floor"):
+                    "hmc_floor", "ard", "svi_floor", "vae"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -802,12 +988,13 @@ def summary_line():
 
 
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
-         5: phase_mxu, 6: phase_chees, 7: phase_hmc}
+         5: phase_mxu, 6: phase_chees, 7: phase_hmc, 8: phase_ard, 9: phase_svi_floor,
+         10: phase_vae}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="", help="comma-separated subset of 1-7 (default: all)")
+    parser.add_argument("--phases", default="", help="comma-separated subset of 1-10 (default: all)")
     args = parser.parse_args()
     try:
         import torch
@@ -834,7 +1021,7 @@ def main() -> int:
         STEPS[num]()
         RESULTS.setdefault("phase_seconds", {})[num] = time.perf_counter() - t
     RESULTS["total_seconds"] = time.perf_counter() - t0
-    emit({"phase": 8, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    emit({"phase": 11, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
     if chosen != sorted(STEPS):
         return 0  # a subset: no summary, no "ok" line
     emit(summary_line())

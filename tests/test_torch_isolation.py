@@ -15,7 +15,10 @@ def test_import_loads_no_jax_and_builds_nothing():
     code = (
         "import sys, json, brancher_torch, brancher_torch.inference, brancher_torch.ops.glm, "
         "brancher_torch.ops.leapfrog, brancher_torch.ops.logreg, brancher_torch.ops.batched_hmc, "
-        "brancher_torch.models, brancher_torch.bridge, brancher_torch.ops.cuda_build;"
+        "brancher_torch.models, brancher_torch.bridge, brancher_torch.ops.cuda_build, "
+        "brancher_torch.functions, brancher_torch.optimizers, brancher_torch.inference.svi, "
+        "brancher_torch.inference.guides, brancher_torch.inference.gradient_estimators, "
+        "brancher_torch.models.vae;"
         "print(json.dumps({'jax': 'jax' in sys.modules, "
         "'tpu': any(m.startswith('brancher_tpu') for m in sys.modules), "
         "'loaded': sorted(brancher_torch.ops.cuda_build._loaded)}))"
@@ -41,3 +44,7 @@ def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
     assert not offenders, offenders
     for source in ("glm_vg.cu", "leapfrog.cu"):
         assert (PORT / "csrc" / source).exists()
+    # the walk covers this slice's modules
+    for module in ("functions.py", "optimizers.py", "inference/svi.py", "inference/guides.py",
+                   "inference/gradient_estimators.py", "models/vae.py"):
+        assert (PORT / module).exists()
