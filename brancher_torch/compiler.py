@@ -26,6 +26,10 @@ Flat latents follow ``jax.flatten_util.ravel_pytree`` of the JAX
 package: the continuous latents in SORTED name order, each flattened
 row-major (``ravel_z`` / ``unravel_z``).
 
+A variable's ``log_prob_mask`` (missing data, set by
+``stochastic_processes.observe_timeseries``) multiplies its elementwise
+log-prob before the sum, as in the JAX compiler (lines 243-253).
+
 The discrete-enumeration stack of the JAX compiler (compiler.py:528-1848)
 is still to port (ROADMAP queue 1, item 13).
 """
@@ -121,8 +125,14 @@ class CompiledModel:
         target = tuple(v.plate_shape) + tuple(shape)
         return {k: torch.broadcast_to(p, target) for k, p in params.items()}
 
-    def _rv_log_prob(self, v: RandomVariable, value, dist_params) -> Tensor:
-        lp = torch.sum(v.distribution.log_prob(value, **dist_params))
+    def _rv_log_prob(self, v: RandomVariable, value, dist_params, store: ParamStore) -> Tensor:
+        lp = v.distribution.log_prob(value, **dist_params)
+        mask = getattr(v, "log_prob_mask", None)
+        if mask is not None:
+            # missing data (stochastic_processes.observe_timeseries): masked
+            # terms drop out before the sum, as in the JAX compiler
+            lp = lp * store.const(mask)
+        lp = torch.sum(lp)
         if v.log_prob_scale != 1.0:
             lp = v.log_prob_scale * lp
         return lp
@@ -152,7 +162,8 @@ class CompiledModel:
             if v.name in given:
                 values[v.name] = store.const(torch.as_tensor(given[v.name]))
                 if isinstance(v, RandomVariable):
-                    logp = logp + self._rv_log_prob(v, values[v.name], self._params(v, values, store))
+                    p = self._params(v, values, store)
+                    logp = logp + self._rv_log_prob(v, values[v.name], p, store)
                 continue
             if isinstance(v, DeterministicVariable):
                 values[v.name] = v.compute(values, store)
@@ -163,7 +174,7 @@ class CompiledModel:
             else:
                 value = v.distribution.sample(generator, **p)
             values[v.name] = value
-            logp = logp + self._rv_log_prob(v, value, p)
+            logp = logp + self._rv_log_prob(v, value, p, store)
         return values, logp
 
     def _walk_log_prob(self, store: ParamStore, values_in: Dict[str, Tensor]) -> Tensor:
@@ -183,7 +194,7 @@ class CompiledModel:
             else:
                 raise ValueError(f"latent variable {v.name!r} missing from sample dict")
             values[v.name] = value
-            logp = logp + self._rv_log_prob(v, value, p)
+            logp = logp + self._rv_log_prob(v, value, p, store)
         return logp
 
     def _walk_mean(self, store: ParamStore, given: Dict[str, Tensor]) -> Dict[str, Tensor]:
@@ -230,19 +241,19 @@ class CompiledModel:
                 values[v.name] = self._observed_value(v, values, store)
                 if with_log_prob and with_likelihood:
                     p = self._params(v, values, store)
-                    lp_lik = lp_lik + self._rv_log_prob(v, values[v.name], p)
+                    lp_lik = lp_lik + self._rv_log_prob(v, values[v.name], p, store)
                 continue
             p = self._params(v, values, store) if (with_log_prob or v.name in z) else None
             if v.name in given:
                 value = store.const(torch.as_tensor(given[v.name]))
                 values[v.name] = value
                 if with_log_prob:
-                    lp_prior = lp_prior + self._rv_log_prob(v, value, p)
+                    lp_prior = lp_prior + self._rv_log_prob(v, value, p, store)
                 continue
             x, ld = self._latent_value(v, p, z)
             values[v.name] = x
             if with_log_prob:
-                lp_prior = lp_prior + self._rv_log_prob(v, x, p) + ld
+                lp_prior = lp_prior + self._rv_log_prob(v, x, p, store) + ld
         return values, lp_prior, lp_lik
 
     # ------------------------------------------------------------------
@@ -272,11 +283,11 @@ class CompiledModel:
             p = self._params(v, walk_values, store)
             if v.is_observed and v.name not in values:
                 walk_values[v.name] = self._observed_value(v, walk_values, store)
-                lp = lp + self._rv_log_prob(v, walk_values[v.name], p)
+                lp = lp + self._rv_log_prob(v, walk_values[v.name], p, store)
             elif v.name in values:
                 walk_values[v.name] = values[v.name]
                 if v.is_observed:
-                    lp = lp + self._rv_log_prob(v, values[v.name], p)
+                    lp = lp + self._rv_log_prob(v, values[v.name], p, store)
             else:
                 raise ValueError(f"latent {v.name!r} missing from values")
         return lp

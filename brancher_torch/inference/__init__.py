@@ -1,9 +1,11 @@
 """Inference engines ported so far: SVI and point estimation, vectorized
-NUTS, chain-batched HMC and ChEES, and their diagnostics.
+NUTS, chain-batched HMC and ChEES, their diagnostics, and the
+single-device particle methods (the bootstrap and streaming filters,
+tempered SMC, PMMH and particle Gibbs).
 
-Counterpart of ``brancher_tpu/inference``.  SMC, the per-chain engines
-and the particle methods are still to port (ROADMAP queue 1, items 11,
-12 and 14).
+Counterpart of ``brancher_tpu/inference``.  The per-chain engines, the
+sharded particle filters and SVGD / WVGD are still to port (ROADMAP queue
+1, items 12, 15 and 14).
 """
 
 from .svi import (
@@ -30,3 +32,8 @@ from .diagnostics import (
 from .hmc import HMC, hmc_sample
 from .mcmc import MCMCResult, sample
 from .nuts import NUTS
+from .particle_gibbs import PGResult, particle_gibbs_sample
+from .pmmh import PMMHResult, pmmh_sample
+from .smc import SMCResult, smc_sample
+from .streaming_smc import StreamingResult, StreamingSMC, streaming_particle_filter
+from .tempered_smc import TemperedSMCResult, smc_posterior_sample, tempered_smc

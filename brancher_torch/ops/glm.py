@@ -21,9 +21,12 @@ kernel to the plain version.
 that the z-space prior is a diagonal Gaussian, extracts the affine design
 of the observed likelihood's parameters, and self-checks the assembled
 potential against the autodiff log-density before trusting it.  It
-probes on the model's device.  The Categorical and AutoRegressive
-branches of the JAX recognizer are still to port (ROADMAP queue 1,
-items 13 and 14): those models are not recognized yet.
+probes on the model's device.  An observed AR(p) series is the
+normal_learned family over its lag matrix.  The Categorical branch of the
+JAX recognizer is still to port (ROADMAP queue 1, item 14): those models
+are not recognized yet.  A series observed with a ``log_prob_mask``
+(missing data) fails the self-check, as in the JAX package, since the
+family counts every row.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 
 from ..config import resolve_device
 from ..distributions import Bernoulli, Normal, softplus
+from ..stochastic_processes import AutoRegressive
 
 Tensor = torch.Tensor
 
@@ -743,6 +747,26 @@ def _recognize(comp, params, given) -> Optional[FusedFamily]:
             return None
         fam = FusedFamily("bernoulli_logit", ab[0], y_val, ab[1].contiguous(), None, 0.0,
                           prior_mean, prior_inv_var, ll_scale)
+    elif isinstance(dist, AutoRegressive):
+        # AR(p): the lag matrix of the observed series is X, the series
+        # past its first p values is y (JAX pallas_glm.py:865-890)
+        p = dist.order
+        lags = AutoRegressive.lags(y_val, p).contiguous()  # [T - p, p]
+        y_eff = y_val[p:].contiguous()
+        m = y_eff.shape[0]
+        if not _scale_is_shared(obs_params_f, "noise_scale", dim, dev):
+            return None
+
+        def f_loc(zf):
+            pr_ = obs_params_f(zf)
+            bias = _per_row(pr_["bias"], m) if "bias" in pr_ else 0.0
+            return lags @ torch.atleast_1d(pr_["coefficients"]) + bias
+
+        def f_logscale(zf):
+            return torch.log(torch.atleast_1d(obs_params_f(zf)["noise_scale"]).reshape(-1)[0:1])
+
+        fam = _extract_normal_learned(f_loc, f_logscale, y_eff, dim, dev,
+                                      prior_mean, prior_inv_var, ll_scale)
     elif isinstance(dist, Normal):
         if not _scale_is_shared(obs_params_f, "scale", dim, dev):
             return None
@@ -756,7 +780,7 @@ def _recognize(comp, params, given) -> Optional[FusedFamily]:
         fam = _extract_normal_learned(f_loc, f_logscale, y_val, dim, dev,
                                       prior_mean, prior_inv_var, ll_scale)
     else:
-        return None  # Categorical / AutoRegressive: ROADMAP queue 1, items 13-14
+        return None  # Categorical: ROADMAP queue 1, item 14
     if fam is None:
         return None
 

@@ -20,7 +20,9 @@ Phases (each prints one or more JSON lines tagged "phase"):
      errors, a control, the determinism check, the kernel's and the plain
      version's median ms, the bound's ms and TFLOP/s; the value+grad rows
      also the median ms of the two products alone through cuBLAS
-     (matmul_pair_ms);
+     (matmul_pair_ms).  K3/K4 also run at phase 11's AR(1) and AR(2)
+     shapes (C=512; N=1999, D=2 and N=998, D=3) and K5 at AR(1)'s, on the
+     family the recognizer extracts from those models;
   3. vectorized NUTS at the floor config: make_logreg_data(1000, 32) ->
      logistic_regression_model -> sample(NUTS(max_depth=8), 500 warmup,
      1000 draws, 1024 chains) with fused_potential "auto" (K1), "bf16" (K2)
@@ -57,16 +59,34 @@ Phases (each prints one or more JSON lines tagged "phase"):
      latent 8, hidden 64, batch 256, 1 sample, lr 1e-3, 500 steps; ELBO
      steps/s (perform_inference._benchmark), the loss means of the first
      and last 100 steps (the last lower) and peak memory, TF32 off;
- 11. the {"kernels": [...]} summary (K3 and K4 once for each of their two
-     paths, K5 once for each of its three),
+ 11. AR(p) series under NUTS, scripts/exp_glm_speedup.py:12-14's AR(1) at
+     full width: make_ar_data(2000, (0.7,), 0.3, seed=0) -> ar_model(order=1),
+     512 chains, NUTS(max_depth=8), 400 warmup + 800 draws, with
+     fused_potential "auto" (K3), "bf16" (K4) and "off" (autodiff, the
+     yardstick); the same model under ChEES with fused_leapfrog=True (K5);
+     and examples/03_autoregressive_timeseries.py:10-13's AR(2) (T=1000,
+     coefficients (0.5, 0.2)) under "auto", against its least-squares
+     fit.  The recognizer finds normal_learned over the lag matrix (D =
+     order + 1); phase 2 holds K3/K4 (and K5 at AR(1)) at these shapes on
+     that family;
+ 12. the particle methods (no kernel): the bootstrap filter at
+     examples/04_state_space_smc.py:17-21's config (LGSSM T=200, 8192
+     particles) and the streaming filter (T=300, 2048 particles, lag 16,
+     chunks of 64) against the Kalman filter; tempered SMC on the
+     conjugate model (2048 particles) against the closed form; PMMH (T=60,
+     128 particles, 8 chains, 200 + 400) and particle Gibbs (32 particles)
+     against the Kalman grid posterior of a; each with the limits of its
+     JAX test, its wall time and the filters' particle-steps per second;
+ 13. the {"kernels": [...]} summary (K3 once for each of its four paths,
+     K4 for each of its three, K5 for each of its four),
      the card's name and power limit, and
      the last line {"ok": true, "device": {...}}.
 
 Every launch counter is set to 0 just before each sample() or
 perform_inference() run and read just after it; a run whose kernels did
 not launch as expected (the value+grad kernel once per value+grad call,
-K5 once per transition, none on the paths of phases 8-10) fails the
-script.  Any failed check raises: the script then exits
+K5 once per transition, none on the paths of phases 8-10 and 12) fails
+the script.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
 brancher_torch package beside it, it exits 2 at once.
 """
@@ -75,6 +95,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -105,18 +126,21 @@ SOURCES = ("glm_vg", "leapfrog")
 # each value+grad kernel's shape on its main path (phase 3 and 6 for K1,
 # K2 and K6)
 MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor", "logreg_f32": "floor"}
-# K3/K4 run on two main paths, one entry each in the summary: (section and
-# run of RESULTS, phase-2 shape)
+# K3 runs on four main paths and K4 on three, one entry each in the summary:
+# (section and run of RESULTS, phase-2 shape)
 NORMAL_PATHS = {"glm_normal_f32": ((("conjugate", "auto"), "conjugate"),
-                                   (("mxu_linreg", "auto"), "linreg")),
+                                   (("mxu_linreg", "auto"), "linreg"),
+                                   (("ar1", "auto"), "ar1"), (("ar2", "auto"), "ar2")),
                 "glm_normal_bf16": ((("conjugate", "bf16"), "conjugate"),
-                                    (("mxu_linreg", "bf16"), "linreg"))}
-# K5 runs on three main paths, one entry each in the summary: (section and
+                                    (("mxu_linreg", "bf16"), "linreg"),
+                                    (("ar1", "bf16"), "ar1"))}
+# K5 runs on four main paths, one entry each in the summary: (section and
 # run of RESULTS, phase-2 shape, family, phase-2 step count; None: the one
 # nearest the run's leapfrogs per draw)
 LEAPFROG_PATHS = ((("chees", "fused"), "floor", "bernoulli_logit", None),
                   (("hmc_conjugate", "fused"), "conjugate", "normal_learned", None),
-                  (("hmc_floor", "fused"), "floor", "bernoulli_logit", 32))
+                  (("hmc_floor", "fused"), "floor", "bernoulli_logit", 32),
+                  (("ar1_chees", "fused"), "ar1", "normal_learned", None))
 HMC_FLOOR_STEPS = 32
 # Limit on max|kernel - plain| / max(max|plain|, 1), for val and grad.  The
 # kernel and its plain version differ only in summation order: the worst
@@ -157,6 +181,19 @@ FLIP_SHARE = {"bernoulli_logit": 1e-4, "normal_learned": 1e-3}
 # 1 to 32 steps); at D=1 (conjugate) the control uses no tensor cores.
 TOL_LEAPFROG = 3e-5
 LEAPFROG_EPS = 0.05
+# Phase 11's AR series: scripts/exp_glm_speedup.py:12-14's AR(1), the JAX
+# package's own AR record, and examples/03_autoregressive_timeseries.py:10-13's
+# AR(2): order -> (T, coefficients), noise 0.3; 512 chains, NUTS(max_depth=8),
+# 400 warmup + 800 draws.  z = [coefficients, log noise scale], D = order + 1.
+AR_DATA = {1: (2000, (0.7,)), 2: (1000, (0.5, 0.2))}
+AR_NOISE = 0.3
+AR_CHAINS = 512
+AR_WARMUP, AR_DRAWS = 400, 800
+# phase 2's K5 rows at AR(1): a diagonal inverse mass of the posterior's
+# scale (sd about 0.016 in both coordinates at T=2000) and a step size
+# well inside the integrator's stability limit there (about 2)
+AR_INV_MASS = 2.5e-4
+AR_EPS = 0.5
 
 RESULTS: dict = {}
 
@@ -286,68 +323,80 @@ def _glm_rows(gen, per_kernel):
                 data = glm.build_glm_data(
                     family, x, y, b, m, iv, u=u if family == "normal_learned" else None,
                     c0=-0.3, ll_scale=1.3, dtype=dtype, device="cuda")
-                kernel = glm.kernel_for(family, dtype)
-                v, g = kernel(z, data)
-                v2, g2 = kernel(z, data)
-                v_ref, g_ref = data.plain(z)
-                if dtype == "f32":  # control: the products in TF32
-                    torch.backends.cuda.matmul.allow_tf32 = True
-                    v_ctl, g_ctl = data.plain(z)
-                    torch.backends.cuda.matmul.allow_tf32 = False
-                else:  # control: z and the residual not rounded to bf16
-                    v_ctl, g_ctl = data._replace(x=data.x.float()).plain(z)
-                torch.cuda.synchronize()
-                err = {
-                    "val_max_abs": float((v - v_ref).abs().max()),
-                    "grad_max_abs": float((g - g_ref).abs().max()),
-                    "val_max_rel": _rel(v, v_ref), "grad_max_rel": _rel(g, g_ref),
-                }
-                control = {
-                    "control": "tf32" if dtype == "f32" else "unrounded_bf16",
-                    "control_val_rel": _rel(v_ctl, v_ref), "control_grad_rel": _rel(g_ctl, g_ref),
-                }
-                ties = dtype == "bf16"
-                if ties:
-                    err.update(glm.bf16_residual_readings(g, kernel.residual(z, data), z, data, g_ref))
-                    err["grad_limit_rel"] = TOL + err["flip_allowance_rel"]
-                    r_ctl = glm.residual_reference(z, data._replace(x=data.x.float()))
-                    ctl = glm.bf16_residual_readings(g_ctl, r_ctl, z, data, g_ref)
-                    ctl["val_max_rel"] = control["control_val_rel"]
-                    control.update({f"control_{k}": ctl[k] for k in (
-                        "resid_flips", "flips_legal", "flip_allowance_rel")})
-                    control["control_passes_gate"] = _bf16_ok(ctl, family)
-                ok = ((_bf16_ok(err, family) if ties
-                       else err["val_max_rel"] <= TOL and err["grad_max_rel"] <= TOL)
-                      and bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all()))
-                deterministic = bool(torch.equal(v, v2) and torch.equal(g, g2))
-                ms = time_ms(lambda: kernel(z, data))
-                plain_ms = time_ms(lambda: data.plain(z))
-                if dtype == "bf16":
-                    z16, x16 = z.to(torch.bfloat16), data.x
-                    r16 = torch.zeros((c, n), device="cuda", dtype=torch.bfloat16)
-                    pair = lambda: (z16 @ x16.T, r16 @ x16)
-                else:
-                    r32 = torch.zeros((c, n), device="cuda")
-                    pair = lambda: (z @ data.x.T, r32 @ data.x)
-                matmul_ms = time_ms(pair)
-                row = {
-                    "phase": 2, "kernel": kernel.name, "shape": shape_name, "C": c, "N": n, "D": d,
-                    **err, **control, "tolerance_rel": TOL, "ok": ok, "deterministic": deterministic,
-                    **({"tie_units_limit": glm.TIE_UNITS, "flip_share_limit": FLIP_SHARE[family]}
-                       if ties else {}),
-                    "ms": ms, "plain_ms": plain_ms, "matmul_pair_ms": matmul_ms, "library_ms": None,
-                    **_bound(glm.glm_bytes(c, n, d, 2 if dtype == "bf16" else 4, family),
-                             glm.glm_flops(c, n, d), dtype),
-                }
-                row["tflops"] = _tflops(row)
-                emit(row)
-                per_kernel[kernel.name].append(row)
-                check(ok, f"{kernel.name} at {shape_name} disagrees with its plain version: {err}")
-                check(not (ties and control["control_passes_gate"]),
-                      f"{kernel.name} at {shape_name}: the unrounded control passes the bf16 gate")
-                check(deterministic, f"{kernel.name} at {shape_name} is not bit-reproducible")
+                _glm_row(data, z, dtype, shape_name, per_kernel)
             del x, y, b, z, data
             torch.cuda.empty_cache()
+
+
+def _glm_row(data, z, dtype, shape_name, per_kernel):
+    """One value+grad kernel on ``data`` at z [C, D] against its plain
+    version: errors, control, determinism, times, bound; fails the script
+    on a disagreement."""
+    import torch
+    from brancher_torch.ops import glm
+
+    family = data.family
+    (c, d), n = z.shape, data.x.shape[0]
+    kernel = glm.kernel_for(family, dtype)
+    v, g = kernel(z, data)
+    v2, g2 = kernel(z, data)
+    v_ref, g_ref = data.plain(z)
+    if dtype == "f32":  # control: the products in TF32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        v_ctl, g_ctl = data.plain(z)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:  # control: z and the residual not rounded to bf16
+        v_ctl, g_ctl = data._replace(x=data.x.float()).plain(z)
+    torch.cuda.synchronize()
+    err = {
+        "val_max_abs": float((v - v_ref).abs().max()),
+        "grad_max_abs": float((g - g_ref).abs().max()),
+        "val_max_rel": _rel(v, v_ref), "grad_max_rel": _rel(g, g_ref),
+    }
+    control = {
+        "control": "tf32" if dtype == "f32" else "unrounded_bf16",
+        "control_val_rel": _rel(v_ctl, v_ref), "control_grad_rel": _rel(g_ctl, g_ref),
+    }
+    ties = dtype == "bf16"
+    if ties:
+        err.update(glm.bf16_residual_readings(g, kernel.residual(z, data), z, data, g_ref))
+        err["grad_limit_rel"] = TOL + err["flip_allowance_rel"]
+        r_ctl = glm.residual_reference(z, data._replace(x=data.x.float()))
+        ctl = glm.bf16_residual_readings(g_ctl, r_ctl, z, data, g_ref)
+        ctl["val_max_rel"] = control["control_val_rel"]
+        control.update({f"control_{k}": ctl[k] for k in (
+            "resid_flips", "flips_legal", "flip_allowance_rel")})
+        control["control_passes_gate"] = _bf16_ok(ctl, family)
+    ok = ((_bf16_ok(err, family) if ties
+           else err["val_max_rel"] <= TOL and err["grad_max_rel"] <= TOL)
+          and bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all()))
+    deterministic = bool(torch.equal(v, v2) and torch.equal(g, g2))
+    ms = time_ms(lambda: kernel(z, data))
+    plain_ms = time_ms(lambda: data.plain(z))
+    if dtype == "bf16":
+        z16, x16 = z.to(torch.bfloat16), data.x
+        r16 = torch.zeros((c, n), device="cuda", dtype=torch.bfloat16)
+        pair = lambda: (z16 @ x16.T, r16 @ x16)
+    else:
+        r32 = torch.zeros((c, n), device="cuda")
+        pair = lambda: (z @ data.x.T, r32 @ data.x)
+    matmul_ms = time_ms(pair)
+    row = {
+        "phase": 2, "kernel": kernel.name, "shape": shape_name, "C": c, "N": n, "D": d,
+        **err, **control, "tolerance_rel": TOL, "ok": ok, "deterministic": deterministic,
+        **({"tie_units_limit": glm.TIE_UNITS, "flip_share_limit": FLIP_SHARE[family]}
+           if ties else {}),
+        "ms": ms, "plain_ms": plain_ms, "matmul_pair_ms": matmul_ms, "library_ms": None,
+        **_bound(glm.glm_bytes(c, n, d, 2 if dtype == "bf16" else 4, family),
+                 glm.glm_flops(c, n, d), dtype),
+    }
+    row["tflops"] = _tflops(row)
+    emit(row)
+    per_kernel[kernel.name].append(row)
+    check(ok, f"{kernel.name} at {shape_name} disagrees with its plain version: {err}")
+    check(not (ties and control["control_passes_gate"]),
+          f"{kernel.name} at {shape_name}: the unrounded control passes the bf16 gate")
+    check(deterministic, f"{kernel.name} at {shape_name} is not bit-reproducible")
 
 
 def _bf16_ok(r: dict, family: str) -> bool:
@@ -360,7 +409,7 @@ def _bf16_ok(r: dict, family: str) -> bool:
 
 def _leapfrog_rows(gen, per_kernel):
     import torch
-    from brancher_torch.ops import glm, leapfrog as lf
+    from brancher_torch.ops import leapfrog as lf
 
     for shape_name in LEAPFROG_SHAPES:
         c, n, d = SHAPES[shape_name]
@@ -370,47 +419,100 @@ def _leapfrog_rows(gen, per_kernel):
             fused = lf.build_fused_leapfrog(family, x, y, b, m, iv, u=u_fam, c0=-0.3,
                                             ll_scale=1.3, device="cuda")
             check(fused is not None, f"{family} at {shape_name} fails K5's size gate")
-            data = fused.data
             r = torch.randn((c, d), generator=gen, device="cuda")
-            _, g = data.plain(z)
             im = torch.linspace(0.5, 1.5, d, device="cuda")
-            eps = torch.tensor(LEAPFROG_EPS, device="cuda")
-            plain = lf.reference_leapfrog(data.plain)  # K5's plain version
-            for n_steps in LEAPFROG_STEPS:
-                steps_t = torch.tensor(n_steps, dtype=torch.int32, device="cuda")
-                out = fused(z, r, g, eps, im, steps_t)
-                out2 = fused(z, r, g, eps, im, steps_t)
-                ref = plain(z, r, g, eps, im, n_steps)
-                torch.backends.cuda.matmul.allow_tf32 = True  # control: TF32 products
-                ctl = plain(z, r, g, eps, im, n_steps)
-                torch.backends.cuda.matmul.allow_tf32 = False
-                torch.cuda.synchronize()
-                names = ("z", "r", "val", "grad")
-                err = {f"{k}_max_rel": _rel(a, bb) for k, a, bb in zip(names, out, ref)}
-                err["max_abs"] = max(float((a - bb).abs().max()) for a, bb in zip(out, ref))
-                control = {"control": "tf32",
-                           "control_max_rel": max(_rel(a, bb) for a, bb in zip(ctl, ref))}
-                worst = max(err[f"{k}_max_rel"] for k in names)
-                ok = worst <= TOL_LEAPFROG and all(bool(torch.isfinite(t).all()) for t in out)
-                deterministic = all(torch.equal(a, bb) for a, bb in zip(out, out2))
-                ms = time_ms(lambda: fused(z, r, g, eps, im, steps_t))
-                plain_ms = time_ms(lambda: plain(z, r, g, eps, im, n_steps))
-                row = {
-                    "phase": 2, "kernel": lf.LEAPFROG.name, "family": family, "shape": shape_name,
-                    "C": c, "N": n, "D": d, "n_steps": n_steps, "plan": fused.plan(z)._asdict(),
-                    **err, "max_rel": worst,
-                    **control, "tolerance_rel": TOL_LEAPFROG, "ok": ok,
-                    "deterministic": deterministic, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": None,
-                    **_bound(lf.leapfrog_bytes(c, n, d, family), lf.leapfrog_flops(c, n, d, n_steps)),
-                }
-                row["tflops"] = _tflops(row)
-                emit(row)
-                per_kernel[lf.LEAPFROG.name].append(row)
-                check(ok, f"K5 {family} at {shape_name}, {n_steps} steps, disagrees: {err}")
-                check(deterministic, f"K5 {family} at {shape_name} is not bit-reproducible")
-            del x, y, b, z, data, fused
+            _leapfrog_steps(fused, z, r, im, LEAPFROG_EPS, shape_name, per_kernel)
+            del x, y, b, z, fused
             torch.cuda.empty_cache()
+
+
+def _leapfrog_steps(fused, z, r, im, eps, shape_name, per_kernel):
+    """K5 on ``fused``'s data from (z, r) for each of LEAPFROG_STEPS against
+    its plain version; fails the script on a disagreement."""
+    import torch
+    from brancher_torch.ops import leapfrog as lf
+
+    data, family = fused.data, fused.data.family
+    (c, d), n = z.shape, data.x.shape[0]
+    _, g = data.plain(z)
+    eps = torch.tensor(eps, device="cuda")
+    plain = lf.reference_leapfrog(data.plain)  # K5's plain version
+    for n_steps in LEAPFROG_STEPS:
+        steps_t = torch.tensor(n_steps, dtype=torch.int32, device="cuda")
+        out = fused(z, r, g, eps, im, steps_t)
+        out2 = fused(z, r, g, eps, im, steps_t)
+        ref = plain(z, r, g, eps, im, n_steps)
+        torch.backends.cuda.matmul.allow_tf32 = True  # control: TF32 products
+        ctl = plain(z, r, g, eps, im, n_steps)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        names = ("z", "r", "val", "grad")
+        err = {f"{k}_max_rel": _rel(a, bb) for k, a, bb in zip(names, out, ref)}
+        err["max_abs"] = max(float((a - bb).abs().max()) for a, bb in zip(out, ref))
+        control = {"control": "tf32",
+                   "control_max_rel": max(_rel(a, bb) for a, bb in zip(ctl, ref))}
+        worst = max(err[f"{k}_max_rel"] for k in names)
+        ok = worst <= TOL_LEAPFROG and all(bool(torch.isfinite(t).all()) for t in out)
+        deterministic = all(torch.equal(a, bb) for a, bb in zip(out, out2))
+        ms = time_ms(lambda: fused(z, r, g, eps, im, steps_t))
+        plain_ms = time_ms(lambda: plain(z, r, g, eps, im, n_steps))
+        row = {
+            "phase": 2, "kernel": lf.LEAPFROG.name, "family": family, "shape": shape_name,
+            "C": c, "N": n, "D": d, "n_steps": n_steps, "plan": fused.plan(z)._asdict(),
+            **err, "max_rel": worst,
+            **control, "tolerance_rel": TOL_LEAPFROG, "ok": ok,
+            "deterministic": deterministic, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            **_bound(lf.leapfrog_bytes(c, n, d, family), lf.leapfrog_flops(c, n, d, n_steps)),
+        }
+        row["tflops"] = _tflops(row)
+        emit(row)
+        per_kernel[lf.LEAPFROG.name].append(row)
+        check(ok, f"K5 {family} at {shape_name}, {n_steps} steps, disagrees: {err}")
+        check(deterministic, f"K5 {family} at {shape_name} is not bit-reproducible")
+
+
+def _ar_family(order):
+    """The AR path's normal_learned family (phase 11's data and model, as
+    the recognizer extracts it on the card: X the lag matrix with a zero
+    column for the noise coordinate) and z [AR_CHAINS, order + 1] near
+    the posterior."""
+    import torch
+    from brancher_torch.models import ar_model, make_ar_data
+    from brancher_torch.ops import glm
+
+    length, coeffs = AR_DATA[order]
+    comp = ar_model(make_ar_data(length, coeffs, AR_NOISE, seed=0), order).compiled("cuda")
+    fam = glm.recognize_fused_family(comp, comp.initial_params)
+    check(fam is not None and fam.family == "normal_learned",
+          f"AR({order}) is not recognized as normal_learned")
+    gen = torch.Generator(device="cuda").manual_seed(order)
+    z = 0.1 * torch.randn((AR_CHAINS, order + 1), generator=gen, device="cuda")
+    z[:, :order] += torch.tensor(coeffs, device="cuda")
+    z[:, -1] += math.log(AR_NOISE)
+    return fam, z
+
+
+def _ar_rows(per_kernel):
+    """K3 and K4 at the AR(1) and AR(2) shapes of phase 11, K5 at AR(1)'s
+    (its ChEES path), each on the family the recognizer extracts."""
+    import torch
+    from brancher_torch.ops import glm
+
+    for order in AR_DATA:
+        fam, z = _ar_family(order)
+        for dtype in ("f32", "bf16"):
+            data = glm.build_glm_data(fam.family, fam.x, fam.y, fam.b, fam.prior_mean,
+                                      fam.prior_inv_var, u=fam.u, c0=fam.c0,
+                                      ll_scale=fam.ll_scale, dtype=dtype, device="cuda")
+            _glm_row(data, z, dtype, f"ar{order}", per_kernel)
+        if order == 1:
+            fused = fam.leapfrog()
+            check(getattr(fused, "uses_kernel", False), "AR(1) fails K5's size gate")
+            r = torch.randn(z.shape, generator=torch.Generator("cuda").manual_seed(3),
+                            device="cuda")
+            im = torch.full((order + 1,), AR_INV_MASS, device="cuda")
+            _leapfrog_steps(fused, z, r, im, AR_EPS, "ar1", per_kernel)
 
 
 def _logreg_rows(gen, per_kernel):
@@ -464,6 +566,7 @@ def phase_kernels():
     _glm_rows(gen, per_kernel)
     _leapfrog_rows(gen, per_kernel)
     _logreg_rows(gen, per_kernel)
+    _ar_rows(per_kernel)
     _reset_launches()  # comparison launches do not count for the main path
     RESULTS["kernels"] = per_kernel
 
@@ -932,10 +1035,244 @@ def phase_vae():
     RESULTS["vae"] = {"adam": info}
 
 
+def _ar_run(model, section, tag, kname, trans=None, **kw):
+    """One phase-11 sample() run on an AR model (AR_CHAINS chains,
+    AR_WARMUP + AR_DRAWS): the run's line with min-ESS, min-ESS/s and
+    R-hat over [coefficients, noise scale]; fails unless R-hat < 1.01, the
+    draws are finite and a fused run recognized normal_learned.  Returns
+    (means, sds, ESS) for the MCSE comparisons."""
+    import numpy as np
+
+    res, info = _run_sample(model, f"{section}/{tag}", kname, transition_kernel=trans,
+                            num_warmup=AR_WARMUP, num_samples=AR_DRAWS, num_chains=AR_CHAINS,
+                            **kw)
+    parts = [_post_stats(res, n) for n in ("coeffs", "noise_scale")]
+    mean, sd, ess, rhat = (np.concatenate([np.ravel(p[i]) for p in parts]) for i in range(4))
+    info.update({
+        "phase": 11, "chains": AR_CHAINS, "num_warmup": AR_WARMUP, "num_samples": AR_DRAWS,
+        "post_mean": mean.tolist(), "post_sd": sd.tolist(), "min_ess": float(ess.min()),
+        "ess_per_second": float(ess.min()) / info["sampler_seconds"],
+        "max_rhat": float(rhat.max()),
+    })
+    emit(info)
+    RESULTS.setdefault(section, {})[tag] = info
+    if kname is not None:
+        check(info["fused_family"] == "normal_learned",
+              f"{section}/{tag}: family {info['fused_family']}")
+    check(bool(np.isfinite(mean).all()), f"{section}/{tag}: non-finite means")
+    check(info["max_rhat"] < 1.01, f"{section}/{tag}: max R-hat {info['max_rhat']}")
+    return mean, sd, ess
+
+
+def _ar_least_squares(data, order):
+    """[coefficients, residual sd] of the series' least-squares AR fit."""
+    import numpy as np
+
+    x = np.asarray(data, np.float64)
+    lags = np.stack([x[order - 1 - i:len(x) - 1 - i] for i in range(order)], axis=-1)
+    c, *_ = np.linalg.lstsq(lags, x[order:], rcond=None)
+    return np.concatenate([c, [np.sqrt(np.mean((x[order:] - lags @ c) ** 2))]])
+
+
+def phase_ar():
+    import numpy as np
+    from brancher_torch.inference import NUTS, ChEESHMC
+    from brancher_torch.models import ar_model, make_ar_data
+
+    length, coeffs = AR_DATA[1]
+    model = ar_model(make_ar_data(length, coeffs, AR_NOISE, seed=0), 1)
+    runs = {}
+    for tag, fp, kname in (("auto", "auto", "glm_normal_f32"), ("bf16", "bf16", "glm_normal_bf16"),
+                           ("off", "off", None)):
+        runs[tag] = _ar_run(model, "ar1", tag, kname, kernel=NUTS(max_depth=8),
+                            fused_potential=fp, key=11)
+    for tag in ("auto", "bf16"):
+        _mcse_compare(11, f"ar1/{tag} vs off", runs["off"], runs[tag], "ar1")
+    chees = _ar_run(model, "ar1_chees", "fused", "glm_normal_f32", trans="leapfrog_f32",
+                    kernel=ChEESHMC(), fused_leapfrog=True, key=12)
+    _mcse_compare(11, "ar1_chees/fused vs ar1/off", runs["off"], chees, "ar1_chees")
+
+    # AR(2): against the least-squares fit, which the posterior mean sits
+    # within a few hundredths of a posterior sd of at T=1000 (the prior's
+    # pull and the noise scale's O(1/T) offset)
+    length, coeffs = AR_DATA[2]
+    data = make_ar_data(length, coeffs, AR_NOISE, seed=0)
+    mean, sd, _ = _ar_run(ar_model(data, 2), "ar2", "auto", "glm_normal_f32",
+                          kernel=NUTS(max_depth=8), fused_potential="auto", key=13)
+    lsq = _ar_least_squares(data, 2)
+    line = {"phase": 11, "compare": "ar2/auto vs least squares", "least_squares": lsq.tolist(),
+            "max_diff_in_post_sd": float(np.max(np.abs(mean - lsq) / sd)), "limit": 0.5}
+    emit(line)
+    RESULTS["ar2"]["vs least squares"] = line
+    check(line["max_diff_in_post_sd"] < 0.5,
+          f"ar2: posterior means {line['max_diff_in_post_sd']:.2f} sd from least squares")
+
+
+def _lgssm_ssm_of_theta(theta):
+    """tests/test_pmmh.py's LGSSM with a = tanh(theta[0]) unknown, over the
+    chains of theta [C, D] (the port's batched StateSpace)."""
+    import torch
+    from brancher_torch.inference.smc import StateSpace
+    from brancher_torch.models import LGSSMParams
+
+    a = torch.tanh(theta[:, 0])[:, None]
+    p = LGSSMParams()
+
+    def randn(g, shape):
+        return torch.randn(tuple(shape), generator=g, device=g.device)
+
+    return StateSpace(
+        init_sample=lambda g, shape: math.sqrt(p.init_var) * randn(g, shape),
+        init_log_prob=lambda x: -0.5 * x * x / p.init_var,
+        trans_sample=lambda g, xp, t: a * xp + math.sqrt(p.q) * randn(g, xp.shape),
+        trans_log_prob=lambda x, xp, t: -0.5 * (x - a * xp) ** 2 / p.q,
+        obs_log_prob=lambda y, x, t: -0.5 * (y - p.c * x) ** 2 / p.r
+        - 0.5 * math.log(2 * math.pi * p.r),
+    )
+
+
+def _kalman_grid(ys):
+    """The exact posterior mean and sd of a (tests/test_pmmh.py:33-48): the
+    Kalman likelihood on a grid, theta ~ N(0, 1.5^2), a = tanh(theta)."""
+    import numpy as np
+    from brancher_torch.models import LGSSMParams, kalman_filter
+
+    grid = np.linspace(0.5, 0.995, 120)
+    lls = np.asarray([kalman_filter(ys, LGSSMParams(a=float(a)))[0] for a in grid])
+    logp = lls - 0.5 * (np.arctanh(grid) / 1.5) ** 2 - np.log1p(-grid**2)
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+    mean = float((w * grid).sum())
+    return mean, float(np.sqrt((w * (grid - mean) ** 2).sum()))
+
+
+def _particle_run(tag, fn):
+    """One particle-method run with every launch counter at 0 before it (no
+    kernel is on these paths), timed to a device synchronize."""
+    import torch
+
+    _reset_launches()
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in _all_kernels().items()}
+    check(not any(launches.values()), f"{tag}: a kernel launched on a particle path: {launches}")
+    return out, {"phase": 12, "run": tag, "seconds": seconds, "launches": launches}
+
+
+def _grid_check(tag, info, a_draws, accept, grid, accept_range):
+    """PMMH and PGAS against the Kalman grid, the JAX tests' limits."""
+    mean_a, sd_a = grid
+    info.update({"a_mean": float(a_draws.mean()), "a_sd": float(a_draws.std()),
+                 "grid_mean": mean_a, "grid_sd": sd_a, "accept_rate": accept,
+                 "mean_diff_in_grid_sd": abs(float(a_draws.mean()) - mean_a) / sd_a})
+    emit(info)
+    RESULTS["particles"][tag] = info
+    check(accept_range[0] < accept < accept_range[1], f"{tag}: accept rate {accept}")
+    check(info["mean_diff_in_grid_sd"] < 2.5, f"{tag}: mean of a off the Kalman grid's")
+    check(0.3 * sd_a < info["a_sd"] < 3.5 * sd_a, f"{tag}: sd of a {info['a_sd']} against {sd_a}")
+
+
+def phase_particles():
+    import numpy as np
+    import torch
+    from brancher_torch.inference import (
+        particle_gibbs_sample, pmmh_sample, smc_posterior_sample, smc_sample,
+        streaming_particle_filter,
+    )
+    from brancher_torch.models import (
+        LGSSMParams, conjugate_normal_model, kalman_filter, lgssm_state_space, make_lgssm_data,
+    )
+
+    RESULTS["particles"] = {}
+    params = LGSSMParams()
+    ssm = lgssm_state_space(params)
+
+    # the bootstrap filter at examples/04_state_space_smc.py:17-21's config,
+    # held to tests/test_smc.py:28-38's limits
+    t_len, p = 200, 8192
+    _, ys = make_lgssm_data(t_len, params)
+    ll, means, _ = kalman_filter(ys, params)
+    res, info = _particle_run("particles/bootstrap", lambda: smc_sample(
+        ssm, ys, num_particles=p, key=21, device="cuda"))
+    info.update({"T": t_len, "particles": p, "particle_steps_per_second": p * t_len / info["seconds"],
+                 "log_marginal": float(res.log_marginal), "kalman_log_marginal": float(ll),
+                 "max_filter_mean_err": float(np.abs(res.filter_means.cpu().numpy() - means).max()),
+                 "min_ess": float(res.ess_history.min())})
+    emit(info)
+    RESULTS["particles"]["bootstrap"] = info
+    check(abs(info["log_marginal"] - ll) < 0.5, "bootstrap: log-marginal off Kalman's")
+    check(info["max_filter_mean_err"] < 0.08, "bootstrap: filter means off Kalman's")
+    check(info["min_ess"] > 100, "bootstrap: ESS collapsed")
+
+    # the streaming filter, tests/test_smc.py:144-167's config and limits
+    t_len, p = 300, 2048
+    xs_true, ys = make_lgssm_data(t_len, params, seed=0)
+    kl, km, _ = kalman_filter(ys, params)
+    res, info = _particle_run("particles/streaming", lambda: streaming_particle_filter(
+        ssm, ys, num_particles=p, key=22, lag=16, chunk_size=64, device="cuda"))
+    fm, sm = res.filter_means.ravel(), res.smoothed_means.ravel()
+    info.update({"T": t_len, "particles": p, "lag": 16, "chunk": 64,
+                 "particle_steps_per_second": p * t_len / info["seconds"],
+                 "log_marginal": float(res.log_marginal), "kalman_log_marginal": float(kl),
+                 "max_filter_mean_err": float(np.abs(fm - km).max()),
+                 "rmse_filter": float(np.sqrt(((fm - xs_true) ** 2).mean())),
+                 "rmse_smoothed": float(np.sqrt(((sm - xs_true) ** 2).mean()))})
+    emit(info)
+    RESULTS["particles"]["streaming"] = info
+    check(info["max_filter_mean_err"] < 0.15, "streaming: filter means off Kalman's")
+    check(abs(info["log_marginal"] - kl) < 2.0, "streaming: log-marginal off Kalman's")
+    check(info["rmse_smoothed"] < info["rmse_filter"], "streaming: smoothing did not help")
+
+    # tempered SMC on the conjugate model, tests/test_tempered_smc.py:13-27
+    model, truth = conjugate_normal_model(num_obs=20)
+    n = len(truth["data"])
+    cov = np.eye(n) + 4.0 * np.ones((n, n))
+    logz = float(-0.5 * truth["data"] @ np.linalg.solve(cov, truth["data"])
+                 - 0.5 * np.linalg.slogdet(2 * np.pi * cov)[1])
+    (samples, res), info = _particle_run("particles/tempered", lambda: smc_posterior_sample(
+        model, num_particles=2048, key=23, device="cuda"))
+    mu = samples["mu"].double().cpu().numpy()
+    info.update({"particles": 2048, "stages": res.num_stages, "post_mean": float(mu.mean()),
+                 "closed_form_mean": float(truth["post_mean"]), "post_var": float(mu.var()),
+                 "closed_form_var": float(truth["post_var"]),
+                 "log_evidence": float(res.log_evidence), "exact_log_evidence": logz})
+    emit(info)
+    RESULTS["particles"]["tempered"] = info
+    check(abs(info["post_mean"] - truth["post_mean"]) < 0.05, "tempered: posterior mean")
+    check(abs(info["post_var"] - truth["post_var"]) < 0.03, "tempered: posterior variance")
+    check(res.num_stages >= 2, "tempered: one stage")
+    check(abs(info["log_evidence"] - logz) < 0.3, "tempered: log evidence")
+
+    # PMMH and PGAS on a = tanh(theta), tests/test_pmmh.py:51-74 and
+    # tests/test_particle_gibbs.py:36-56
+    _, ys = make_lgssm_data(60, LGSSMParams(a=0.85), seed=0)
+    grid = _kalman_grid(ys)
+    common = dict(log_prior=lambda th: -0.5 * torch.sum((th / 1.5) ** 2, dim=-1),
+                  theta0=[float(np.arctanh(0.7))], num_samples=400, num_warmup=200,
+                  num_chains=8, device="cuda")
+    res, info = _particle_run("particles/pmmh", lambda: pmmh_sample(
+        _lgssm_ssm_of_theta, ys, num_particles=128, key=24, **common))
+    info.update({"T": 60, "particles": 128, "chains": 8, "num_warmup": 200, "num_samples": 400,
+                 "particle_steps_per_second": 8 * 128 * 60 * 601 / info["seconds"]})
+    _grid_check("pmmh", info, np.tanh(res.thetas[..., 0].cpu().numpy().ravel()),
+                float(res.accept_rate), grid, (0.05, 0.8))
+    res, info = _particle_run("particles/pgas", lambda: particle_gibbs_sample(
+        _lgssm_ssm_of_theta, ys, num_particles=32, key=25, **common))
+    info.update({"T": 60, "particles": 32, "chains": 8, "num_warmup": 200, "num_samples": 400,
+                 "particle_steps_per_second": 8 * 32 * 60 * 600 / info["seconds"]})
+    _grid_check("pgas", info, np.tanh(res.thetas[..., 0].cpu().numpy().ravel()),
+                float(res.accept_rate), grid, (0.05, 0.9))
+
+
 def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
     for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate",
-                    "hmc_floor", "ard", "svi_floor", "vae"):
+                    "hmc_floor", "ard", "svi_floor", "vae", "ar1", "ar1_chees", "ar2",
+                    "particles"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -989,12 +1326,12 @@ def summary_line():
 
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
          5: phase_mxu, 6: phase_chees, 7: phase_hmc, 8: phase_ard, 9: phase_svi_floor,
-         10: phase_vae}
+         10: phase_vae, 11: phase_ar, 12: phase_particles}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="", help="comma-separated subset of 1-10 (default: all)")
+    parser.add_argument("--phases", default="", help="comma-separated subset of 1-12 (default: all)")
     args = parser.parse_args()
     try:
         import torch
@@ -1021,7 +1358,7 @@ def main() -> int:
         STEPS[num]()
         RESULTS.setdefault("phase_seconds", {})[num] = time.perf_counter() - t
     RESULTS["total_seconds"] = time.perf_counter() - t0
-    emit({"phase": 11, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    emit({"phase": 13, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
     if chosen != sorted(STEPS):
         return 0  # a subset: no summary, no "ok" line
     emit(summary_line())

@@ -26,6 +26,10 @@ SHAPES = {
     "conjugate": (64, 20, 1),
     "mxu": (256, 131072, 1024),
     "ragged": (100, 1037, 33),
+    # the AR(1) and AR(2) paths: X is the lag matrix with a zero column
+    # for the noise coordinate, D = order + 1
+    "ar1": (512, 1999, 2),
+    "ar2": (512, 998, 3),
 }
 ITEMSIZE = {"f32": 4, "bf16": 2}
 
@@ -414,11 +418,13 @@ def test_leapfrog_plan_at_the_floor_and_conjugate_shapes():
 
 
 @pytest.mark.parametrize("c,n,d", [(256, 1750, 32), (256, 1757, 32), (13, 1000, 32),
-                                   (1, 300, 7), (256, 700, 70), (130, 700, 70)])
+                                   (1, 300, 7), (256, 700, 70), (130, 700, 70),
+                                   (512, 1999, 2), (512, 998, 3)])
 def test_leapfrog_plan_of_the_card_tests(c, n, d):
     """The shapes tests/test_torch_kernels_cuda.py runs K5 at: near the
     gate's edge (r and g move to the outputs at N=1757), fewer chains than
-    multiprocessors, one chain, D over three 32-column chunks."""
+    multiprocessors, one chain, D over three 32-column chunks, and the
+    AR(1) / AR(2) paths' narrow D (the whole lag matrix in one tile)."""
     plan = _check_leapfrog_plan(c, n, d, TL.SMEM_PER_BLOCK_OPTIN, 132)
     if n == 1757:
         assert not plan.state_in_smem and plan.rows_per_tile < n

@@ -18,7 +18,11 @@ def test_import_loads_no_jax_and_builds_nothing():
         "brancher_torch.models, brancher_torch.bridge, brancher_torch.ops.cuda_build, "
         "brancher_torch.functions, brancher_torch.optimizers, brancher_torch.inference.svi, "
         "brancher_torch.inference.guides, brancher_torch.inference.gradient_estimators, "
-        "brancher_torch.models.vae;"
+        "brancher_torch.models.vae, brancher_torch.stochastic_processes, "
+        "brancher_torch.inference.smc, brancher_torch.inference.tempered_smc, "
+        "brancher_torch.inference.streaming_smc, brancher_torch.inference.pmmh, "
+        "brancher_torch.inference.particle_gibbs, brancher_torch.models.autoregressive, "
+        "brancher_torch.models.state_space;"
         "print(json.dumps({'jax': 'jax' in sys.modules, "
         "'tpu': any(m.startswith('brancher_tpu') for m in sys.modules), "
         "'loaded': sorted(brancher_torch.ops.cuda_build._loaded)}))"
@@ -46,5 +50,8 @@ def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
         assert (PORT / "csrc" / source).exists()
     # the walk covers this slice's modules
     for module in ("functions.py", "optimizers.py", "inference/svi.py", "inference/guides.py",
-                   "inference/gradient_estimators.py", "models/vae.py"):
+                   "inference/gradient_estimators.py", "models/vae.py", "stochastic_processes.py",
+                   "inference/smc.py", "inference/tempered_smc.py", "inference/streaming_smc.py",
+                   "inference/pmmh.py", "inference/particle_gibbs.py", "models/autoregressive.py",
+                   "models/state_space.py"):
         assert (PORT / module).exists()

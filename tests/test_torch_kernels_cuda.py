@@ -118,6 +118,41 @@ def test_glm_kernel_at_mxu_width(cuda, family, d, dtype):
     _check_kernel(family, dtype, 256, 8192, d, cuda)
 
 
+def _ar_family(order, length, device):
+    """The AR path's family: ar_model over make_ar_data's series, as the
+    recognizer extracts it (X the lag matrix with a zero noise column)."""
+    from brancher_torch.models import ar_model, make_ar_data
+
+    coeffs = (0.7,) if order == 1 else (0.5, 0.2)
+    comp = ar_model(make_ar_data(length, coeffs, 0.3, seed=0), order).compiled(device)
+    fam = G.recognize_fused_family(comp, comp.initial_params)
+    assert fam is not None and fam.family == "normal_learned"
+    gen = torch.Generator(device=device).manual_seed(5)
+    z = 0.1 * torch.randn((512, order + 1), generator=gen, device=device)
+    z[:, :order] += torch.tensor(coeffs, device=device)
+    z[:, -1] += float(np.log(0.3))  # chains near the posterior
+    return fam, z
+
+
+# K3/K4 on the AR paths of chip_smoke.py: AR(1) at T=2000 and AR(2) at
+# T=1000, 512 chains, D = order + 1
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("order,length", [(1, 2000), (2, 1000)])
+def test_glm_kernel_on_the_ar_paths(cuda, order, length, dtype):
+    fam, z = _ar_family(order, length, cuda)
+    data = G.build_glm_data(fam.family, fam.x, fam.y, fam.b, fam.prior_mean, fam.prior_inv_var,
+                            u=fam.u, c0=fam.c0, ll_scale=fam.ll_scale, dtype=dtype, device=cuda)
+    kernel = G.kernel_for(fam.family, dtype)
+    v, g = kernel(z, data)
+    v_ref, g_ref = data.plain(z)
+    torch.cuda.synchronize()
+    _close(v, v_ref, TOL)
+    if dtype == "bf16":
+        _check_bf16_gradient(kernel, z, data, g, g_ref)
+    else:
+        _close(g, g_ref, TOL)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     data, z = _data("bernoulli_logit", "f32", 8, 50, 4, cuda)
     kernel = G.kernel_for("bernoulli_logit", "f32")
@@ -191,6 +226,28 @@ def test_leapfrog_at_the_floor_shape(cuda, family, n_steps):
                                    (256, 700, 70), (1, 300, 7)])
 def test_leapfrog_at_the_plan_edges(cuda, family, c, n, d):
     _check_leapfrog(family, c, n, d, cuda, (1, 6))
+
+
+# K5 on the AR(1) ChEES path (D = 2, the whole lag matrix in each block)
+@pytest.mark.parametrize("order,length", [(1, 2000), (2, 1000)])
+def test_leapfrog_on_the_ar_paths(cuda, order, length):
+    fam, z = _ar_family(order, length, cuda)
+    lf = fam.leapfrog()
+    assert isinstance(lf, TL.FusedLeapfrog)
+    data = lf.data
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    r = torch.randn(z.shape, generator=gen, device=cuda)
+    _, g = data.plain(z)
+    im = torch.full((order + 1,), 1e-3, device=cuda)  # the posterior's scale
+    eps = torch.tensor(0.3, device=cuda)
+    for n_steps in (1, 4, 16):
+        before = TL.LEAPFROG.launches
+        out = lf(z, r, g, eps, im, torch.tensor(n_steps, device=cuda))
+        ref = TL.reference_leapfrog(data.plain)(z, r, g, eps, im, n_steps)
+        torch.cuda.synchronize()
+        assert TL.LEAPFROG.launches == before + 1
+        for got, want in zip(out, ref):
+            _close(got, want, TOL_LEAPFROG)
 
 
 def test_leapfrog_propagates_non_finite_positions(cuda):
