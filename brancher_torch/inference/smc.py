@@ -170,6 +170,26 @@ def resample_step(x: Tensor, lw: Tensor, do_resample: Tensor, idx: Tensor):
     return take_particles(x, sel), lw, sel
 
 
+def bootstrap_step(ssm: StateSpace, x: Tensor, lw: Tensor, log_ml: Tensor, y_t: Tensor, t: int,
+                   rng, ess_threshold: float = 0.5, resampling: str = "systematic"):
+    """One step of the bootstrap filter over particles x [*batch, P, ...]:
+    resample where ESS < ess_threshold * P (branch-free), propagate, weight
+    by y_t and add the incremental log-marginal.  Returns (x, lw, log_ml,
+    the selection made)."""
+    p = lw.shape[-1]
+    do_resample = _ess(lw) < ess_threshold * p
+    if resampling == "systematic":
+        idx = systematic_resample_indices(None, lw, uniform=rng.uniform(lw.shape[:-1]))
+    else:
+        idx = multinomial_resample_indices(None, lw, gumbel=rng.gumbel(lw.shape + (p,)))
+    x, lw, sel = resample_step(x, lw, do_resample, idx)
+    x = ssm.trans_sample(rng.generator, x, t)
+    lw_new = lw + ssm.obs_log_prob(y_t, x, t)
+    # incremental marginal likelihood: log mean of the unnormalized ratio
+    log_ml = log_ml + torch.logsumexp(lw_new, dim=-1) - torch.logsumexp(lw, dim=-1)
+    return x, lw_new, log_ml, sel
+
+
 def particle_filter(ssm: StateSpace, ys, num_particles: int, key=None,
                     ess_threshold: float = 0.5, resampling: str = "systematic",
                     batch_shape: Sequence[int] = (), device=None, rng=None) -> SMCResult:
@@ -195,17 +215,8 @@ def particle_filter(ssm: StateSpace, ys, num_particles: int, key=None,
     means = [weighted_mean(torch.softmax(lw, dim=-1), x)]
     esss = [_ess(lw)]
     for t in range(1, t_len):
-        do_resample = _ess(lw) < ess_threshold * p
-        if resampling == "systematic":
-            idx = systematic_resample_indices(None, lw, uniform=rng.uniform(batch))
-        else:
-            idx = multinomial_resample_indices(None, lw, gumbel=rng.gumbel(shape + (p,)))
-        x, lw, _ = resample_step(x, lw, do_resample, idx)
-        x = ssm.trans_sample(gen, x, t)
-        lw_new = lw + ssm.obs_log_prob(ys[t], x, t)
-        # incremental marginal likelihood: log mean of the unnormalized ratio
-        log_ml = log_ml + torch.logsumexp(lw_new, dim=-1) - torch.logsumexp(lw, dim=-1)
-        lw = lw_new
+        x, lw, log_ml, _ = bootstrap_step(ssm, x, lw, log_ml, ys[t], t, rng, ess_threshold,
+                                          resampling)
         means.append(weighted_mean(torch.softmax(lw, dim=-1), x))
         esss.append(_ess(lw))
     return SMCResult(log_ml, x, torch.softmax(lw, dim=-1), torch.stack(means, dim=len(batch)),
@@ -224,5 +235,5 @@ def smc_sample(ssm: StateSpace, ys, num_particles: int = 1024, key=None, mesh=No
     return particle_filter(ssm, ys, num_particles, key, ess_threshold, device=device)
 
 
-__all__ = ["StateSpace", "SMCResult", "SMCRandom", "systematic_resample_indices",
+__all__ = ["StateSpace", "SMCResult", "SMCRandom", "bootstrap_step", "systematic_resample_indices",
            "multinomial_resample_indices", "categorical", "particle_filter", "smc_sample"]

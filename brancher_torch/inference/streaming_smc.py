@@ -10,9 +10,11 @@ estimate E[x_s | y_{1:s+L}] is the weighted mean of the time-s states of
 the current particles' ancestral lines (Kitagawa's fixed-lag
 approximation); the buffer is re-indexed by every resampling.
 
-The step is the batch filter's (``smc.particle_filter``), branch-free.
+The step is the batch filter's (``smc.bootstrap_step``), branch-free.
 There is no compiled program to reuse, so a chunk is not padded to
-``chunk_size``: a longer chunk is split, and every step is a real one.
+``chunk_size``: ``process`` takes a chunk of any length, every step a real
+one, and ``chunk_size`` only sets how ``streaming_particle_filter`` slices
+its input.
 The state carries the run's ``SMCRandom``; resuming from a saved state
 waits for the checkpoint port (ROADMAP queue 1, item 16), and ``mesh=``
 for the parallelism item (item 15).
@@ -29,10 +31,9 @@ from ..config import resolve_device
 from .smc import (
     StateSpace,
     _ess,
+    bootstrap_step,
     make_rng,
     refuse_sharding,
-    resample_step,
-    systematic_resample_indices,
     take_particles,
     weighted_mean,
 )
@@ -96,34 +97,27 @@ class StreamingSMC:
 
     def _step(self, state: StreamingState, y_t: Tensor):
         t, x, lw, log_ml, buf, rng = state
-        p = self.num_particles
-        do_resample = _ess(lw) < self.ess_threshold * p
-        idx = systematic_resample_indices(None, lw, uniform=rng.uniform(()))
-        x, lw, sel = resample_step(x, lw, do_resample, idx)
+        x, lw, log_ml, sel = bootstrap_step(self.ssm, x, lw, log_ml, y_t, t, rng,
+                                            self.ess_threshold)
         buf = take_particles(buf, sel.expand(buf.shape[:2]))  # re-index the ancestral lines
-        x = self.ssm.trans_sample(rng.generator, x, t)
-        lw_new = lw + self.ssm.obs_log_prob(y_t, x, t)
-        log_ml = log_ml + torch.logsumexp(lw_new, 0) - torch.logsumexp(lw, 0)
-        w = torch.softmax(lw_new, 0)
+        w = torch.softmax(lw, 0)
         # slot t % L holds time t - L: emit its smoothed estimate under the
         # current weights, then overwrite it with time t
         slot = t % self.lag
         sm_mean = weighted_mean(w, buf[slot])
         buf[slot] = x  # buf is the gather's fresh copy
-        out = (weighted_mean(w, x), sm_mean, t - self.lag, _ess(lw_new))
-        return StreamingState(t + 1, x, lw_new, log_ml, buf, rng), out
+        out = (weighted_mean(w, x), sm_mean, t - self.lag, _ess(lw))
+        return StreamingState(t + 1, x, lw, log_ml, buf, rng), out
 
     def process(self, state: StreamingState, ys_chunk):
-        """Consume a chunk (a longer one than ``chunk_size`` is split):
-        (state, (filter_means, smoothed_means, smoothed_times, ess)), one
-        row per observation; smoothed rows with a time below 0 are warm-up
-        placeholders."""
+        """Consume a chunk of any length: (state, (filter_means,
+        smoothed_means, smoothed_times, ess)), one row per observation;
+        smoothed rows with a time below 0 are warm-up placeholders."""
         ys_chunk = torch.as_tensor(ys_chunk, dtype=torch.float32, device=self.device)
         outs = []
-        for start in range(0, ys_chunk.shape[0], self.chunk_size):
-            for y_t in ys_chunk[start:start + self.chunk_size]:
-                state, out = self._step(state, y_t)
-                outs.append(out)
+        for y_t in ys_chunk:
+            state, out = self._step(state, y_t)
+            outs.append(out)
         means, sms, times, esss = zip(*outs)
         return state, (torch.stack(means), torch.stack(sms),
                        torch.tensor(times, dtype=torch.int64), torch.stack(esss))

@@ -57,14 +57,12 @@ def _normal_log_prob(v, m, var):
     return -0.5 * (v - m) ** 2 / var - 0.5 * math.log(2 * math.pi * var)
 
 
-def lgssm_state_space(params: LGSSMParams = LGSSMParams(), device=None) -> StateSpace:
-    """The LGSSM as a StateSpace whose draws land on ``device`` (default:
-    the generator's)."""
+def lgssm_state_space(params: LGSSMParams = LGSSMParams()) -> StateSpace:
+    """The LGSSM as a StateSpace whose draws land on the generator's device."""
     a, q, c, r, v0 = params
 
     def randn(generator, shape):
-        dev = generator.device if device is None else device
-        return torch.randn(tuple(shape), generator=generator, device=dev)
+        return torch.randn(tuple(shape), generator=generator, device=generator.device)
 
     return StateSpace(
         init_sample=lambda g, shape: math.sqrt(v0) * randn(g, shape),

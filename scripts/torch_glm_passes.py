@@ -3,21 +3,24 @@
 
     python3 scripts/torch_glm_passes.py                           # from the repo root
     python3 scripts/torch_glm_passes.py --family normal_learned   # K3/K4 only
+    python3 scripts/torch_glm_passes.py --family normal_learned --shapes ar1 ar2
     python3 scripts/torch_glm_passes.py --tree DIR                # another checkout's
     python3 scripts/torch_glm_passes.py --k56 [--tree DIR]        # K5 and K6 instead
 
 For the floor (C=1024, N=1000, D=32), ragged (100, 1037, 33), MXU-width
 (256, 8192, 1024) and MXU (256, 131072, 1024) shapes, and for the Normal
-kernels also the linear-Gaussian regression's (256, 131072, 1025), prints
+kernels also the linear-Gaussian regression's (256, 131072, 1025) and the
+AR(1) and AR(2) shapes of 512 chains (512, 1999, 2) and (512, 998, 3), prints
 one JSON line per kernel: the errors against the plain version, for the
 bf16 kernels (K2, K4) the readings of their gate
 (``ops/glm.py::bf16_residual_readings``: the bf16 residual ties, the raw
 gradient error beside the allowance for those ties, and the gradient
 against the plain formula on the kernel's own residual),
 bit-reproducibility, and the median ms of the kernel and of the plain
-version, timed by ``chip_smoke.time_ms``.  Then, at the floor, MXU and
-linear-Gaussian shapes, the host's time to enqueue one call and each
-pass's device time from torch.profiler.
+version, timed by ``chip_smoke.time_ms``.  Then, at the floor, MXU,
+linear-Gaussian and AR shapes, ``plan_glm``'s plan, the host's time to
+enqueue one call and each pass's device time from torch.profiler.
+``--shapes`` restricts the run to the shapes named.
 
 ``--tree DIR`` takes brancher_torch from DIR instead (another commit's
 tree, unpacked with ``git archive``) and times its kernels with this
@@ -47,8 +50,8 @@ from chip_smoke import time_ms  # noqa: E402  (chip_smoke imports brancher_torch
 
 SHAPES = {"floor": (1024, 1000, 32), "ragged": (100, 1037, 33),
           "mxu_width": (256, 8192, 1024), "mxu": (256, 131072, 1024),
-          "linreg": (256, 131072, 1025)}
-NORMAL_ONLY = ("linreg",)
+          "linreg": (256, 131072, 1025), "ar1": (512, 1999, 2), "ar2": (512, 998, 3)}
+NORMAL_ONLY = ("linreg", "ar1", "ar2")
 FAMILIES = ("bernoulli_logit", "normal_learned")
 
 
@@ -75,8 +78,9 @@ def build(G, family, c, n, d, dtype, gen):
     return data, z
 
 
-def errors_and_times(G, tree, families):
-    for shape, (c, n, d) in SHAPES.items():
+def errors_and_times(G, tree, families, shapes):
+    for shape in shapes:
+        c, n, d = SHAPES[shape]
         for family in families:
             if family != "normal_learned" and shape in NORMAL_ONLY:
                 continue
@@ -150,10 +154,11 @@ def k5_k6_times(tree):
         torch.cuda.empty_cache()
 
 
-def passes(G, families):
+def passes(G, families, shapes):
     from torch.profiler import ProfilerActivity, profile
 
-    for shape in ("floor", "mxu", "linreg"):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape in [s for s in shapes if s not in ("ragged", "mxu_width")]:
         c, n, d = SHAPES[shape]
         for family in families:
             if family != "normal_learned" and shape in NORMAL_ONLY:
@@ -174,7 +179,8 @@ def passes(G, families):
                     for _ in range(5):
                         k(z, data)
                     torch.cuda.synchronize()
-                print(json.dumps({"shape": shape, "kernel": k.name, "host_enqueue_ms": host_ms}),
+                print(json.dumps({"shape": shape, "kernel": k.name, "host_enqueue_ms": host_ms,
+                                  "plan": G.plan_glm(c, n, d, dtype, sms)._asdict()}),
                       flush=True)
                 for e in prof.key_averages():
                     t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
@@ -191,6 +197,8 @@ def main():
     parser.add_argument("--tree", type=Path, help="root of another checkout whose kernels to time")
     parser.add_argument("--family", choices=FAMILIES, help="one family only (default: both)")
     parser.add_argument("--k56", action="store_true", help="time K5 and K6 instead of K1-K4")
+    parser.add_argument("--shapes", nargs="+", choices=list(SHAPES), default=list(SHAPES),
+                        help="these shapes only (default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -207,9 +215,9 @@ def main():
         k5_k6_times(str(args.tree or "."))
         return 0
     families = (args.family,) if args.family else FAMILIES
-    errors_and_times(G, str(args.tree or "."), families)
+    errors_and_times(G, str(args.tree or "."), families, args.shapes)
     if args.tree is None:
-        passes(G, families)
+        passes(G, families, args.shapes)
     return 0
 
 
