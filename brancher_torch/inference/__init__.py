@@ -1,11 +1,13 @@
 """Inference engines ported so far: SVI and point estimation, vectorized
-NUTS, chain-batched HMC and ChEES, their diagnostics, and the
-single-device particle methods (the bootstrap and streaming filters,
-tempered SMC, PMMH and particle Gibbs).
+NUTS (lockstep or draw-pipelined), chain-batched HMC and ChEES, the
+per-chain NUTS and HMC steps of ``chain_method="vmap"``, dense mass and
+resumed runs, their diagnostics, and the single-device particle methods
+(the bootstrap and streaming filters, tempered SMC, PMMH and particle
+Gibbs).
 
-Counterpart of ``brancher_tpu/inference``.  The per-chain engines, the
-sharded particle filters and SVGD / WVGD are still to port (ROADMAP queue
-1, items 12, 15 and 14).
+Counterpart of ``brancher_tpu/inference``.  Sharded chains and particle
+filters and SVGD / WVGD are still to port (ROADMAP queue 1, items 15 and
+14).
 """
 
 from .svi import (
@@ -31,7 +33,7 @@ from .diagnostics import (
 )
 from .hmc import HMC, hmc_sample
 from .mcmc import MCMCResult, sample
-from .nuts import NUTS
+from .nuts import NUTS, nuts_sample
 from .particle_gibbs import PGResult, particle_gibbs_sample
 from .pmmh import PMMHResult, pmmh_sample
 from .smc import SMCResult, smc_sample

@@ -2,16 +2,19 @@
 
 Counterpart of ``brancher_tpu/inference/adaptation.py`` (lines 25-242):
 ``DualAveragingState``, ``da_init``, ``da_update``, ``da_restart``,
-``build_warmup_schedule`` and ``find_reasonable_step_size_batched``, and
-the chain-batched engines' diagonal-mass update (``diag_mass_update``,
-inline in each JAX engine).
+``build_warmup_schedule``, the Welford estimator, and the step-size
+probes ``find_reasonable_step_size`` (per chain) and
+``find_reasonable_step_size_batched`` (one shared step), and the
+chain-batched engines' diagonal-mass update (``diag_mass_update``, inline
+in each JAX engine).
 
 The dual-averaging state is five 0-d float32 tensors on the run's device,
 updated with the same float32 operations as the JAX package, so the step
 size stays on the device and a warmup iteration needs no host sync.  The
-per-chain engine's ``find_reasonable_step_size`` and the Welford
-estimator are still to port with the per-chain engines (ROADMAP queue 1,
-item 12).
+per-chain pieces work on a whole block of chains at once: where JAX
+``vmap``s a per-chain function, the port's takes a leading chain axis
+(``WelfordState`` with ``batch=(C,)``, ``find_reasonable_step_size``
+over [C, d]) and gives each chain what its own call would.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .hmc import init_chain_state, kinetic_energy, leapfrog
 
 Tensor = torch.Tensor
 
@@ -64,6 +69,36 @@ def da_restart(state: DualAveragingState) -> DualAveragingState:
     return da_init(torch.exp(state.log_step))
 
 
+class WelfordState(NamedTuple):
+    mean: Tensor  # batch + [d]
+    m2: Tensor  # batch + [d]
+    count: Tensor  # batch
+
+
+def welford_init(dim: int, dtype=torch.float32, device=None, batch: Tuple[int, ...] = ()) -> WelfordState:
+    """An empty running-variance estimate of ``dim`` coordinates, one for
+    each index of ``batch`` (JAX ``vmap``s the per-chain one)."""
+    zeros = torch.zeros(tuple(batch) + (dim,), dtype=dtype, device=device)
+    return WelfordState(zeros, zeros.clone(), torch.zeros(tuple(batch), dtype=dtype, device=device))
+
+
+def welford_update(state: WelfordState, x: Tensor) -> WelfordState:
+    count = state.count + 1.0
+    delta = x - state.mean
+    mean = state.mean + delta / count[..., None]
+    m2 = state.m2 + delta * (x - mean)
+    return WelfordState(mean, m2, count)
+
+
+def welford_variance(state: WelfordState, regularize: bool = True) -> Tensor:
+    var = state.m2 / torch.clamp(state.count - 1.0, min=1.0)[..., None]
+    if regularize:
+        # Stan's shrinkage toward unit: n/(n+5) var + 1e-3 * 5/(n+5)
+        n = state.count[..., None]
+        var = (n / (n + 5.0)) * var + 1e-3 * (5.0 / (n + 5.0))
+    return var
+
+
 def build_warmup_schedule(
     num_warmup: int,
     init_buffer: int = 75,
@@ -106,6 +141,52 @@ def diag_mass_update(s1: Tensor, s2: Tensor, n_acc: float) -> Tensor:
     mean = s1 / max(ng, 1.0)
     var = s2 / max(ng, 1.0) - mean * mean
     return (ng / (ng + 5.0)) * var + 1e-3 * (5.0 / (ng + 5.0))
+
+
+def find_reasonable_step_size(
+    value_and_grad_fn,
+    z: Tensor,
+    inv_mass: Tensor,
+    generator: Optional[torch.Generator] = None,
+    init_step: float = 1.0,
+    target: float = 0.8,
+    max_iters: int = 50,
+    noise: Optional[Tensor] = None,
+) -> Tensor:
+    """Hoffman & Gelman alg. 4 for each chain of a [C, d] block: each
+    chain's step is doubled (or halved) until its own one-step accept
+    probability crosses the target, or ``max_iters`` times.  Returns [C].
+
+    ``value_and_grad_fn`` maps [C, d] to (log density [C], its gradient);
+    the arithmetic is JAX's on the potential energy (its negation).  A
+    chain that has crossed keeps its step while the others go on, as under
+    JAX's ``vmap`` of the per-chain ``while_loop``; one host sync an
+    iteration.  ``noise``: the momenta's standard normals (from
+    ``generator`` when None).
+    """
+    if noise is None:
+        noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
+    state = init_chain_state(value_and_grad_fn, z)
+    r = noise / torch.sqrt(inv_mass)
+    h0 = state.pe + kinetic_energy(r, inv_mass)
+
+    def accept_prob(step):
+        _, r1, pe1, _ = leapfrog(value_and_grad_fn, z, r, state.grad, step, inv_mass, 1)
+        h1 = pe1 + kinetic_energy(r1, inv_mass)
+        p = torch.exp(torch.clamp(h0 - h1, -1e3, 0.0))
+        return torch.where(torch.isfinite(h1), p, torch.zeros_like(p))
+
+    step = torch.full(z.shape[:1], init_step, dtype=z.dtype, device=z.device)
+    p = accept_prob(step)
+    up = p > target
+    for _ in range(max_iters):
+        running = ~torch.where(up, p <= target, p >= target)
+        if not bool(running.any()):
+            break
+        new_step = step * torch.where(up, 2.0, 0.5).to(step.dtype)
+        p = torch.where(running, accept_prob(new_step), p)
+        step = torch.where(running, new_step, step)
+    return step
 
 
 def find_reasonable_step_size_batched(

@@ -1,11 +1,21 @@
-"""Hamiltonian Monte Carlo kernel configuration.
+"""Hamiltonian Monte Carlo kernel.
 
-Counterpart of ``brancher_tpu/inference/hmc.py``: the ``HMC`` settings
-that ``sample()`` reads (lines 66-75), ``kinetic_energy`` (line 34) and
-``hmc_sample`` (line 111).  ``sample()`` runs HMC with the chain-batched
-engine ``ops.batched_hmc.hmc_batched``.  The per-chain ``leapfrog``,
-``make_step`` and ``ChainState`` serve only the per-chain ``vmap``
-engines, which are still to port (ROADMAP queue 1, item 12).
+Counterpart of ``brancher_tpu/inference/hmc.py``: ``ChainState``,
+``init_chain_state``, ``kinetic_energy``, the per-chain ``leapfrog``, the
+``HMC`` settings with ``make_step`` (lines 23-108) and ``hmc_sample``
+(line 111).  ``sample(chain_method="vectorized")`` runs HMC with the
+chain-batched engine ``ops.batched_hmc.hmc_batched``;
+``chain_method="vmap"`` runs ``make_step``.
+
+JAX's per-chain step works on one chain and is ``vmap``ped;
+``torch.func.vmap`` refuses data-dependent loops and random draws, so the
+port's step takes the whole [C, d] block and gives each chain what its own
+step would: a chain's jittered step count is its own, and a chain past it
+keeps its state while the others integrate on (JAX's ``vmap`` of a
+``fori_loop`` with a per-chain bound is that masked batch).  Its draws
+come from a source with the methods of ``TorchChainRandom``, so a test
+can feed JAX's per-chain numbers.  It launches no kernel: its value and
+gradient are the vmapped autodiff of the potential, as in JAX.
 
 Also here, shared by the chain-batched HMC and ChEES engines: their
 injectable randomness source (``TorchHMCRandom``) and the loop
@@ -13,7 +23,7 @@ integrator (``loop_leapfrog``).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -21,9 +31,98 @@ Tensor = torch.Tensor
 VG = Callable[[Tensor], Tuple[Tensor, Tensor]]
 
 
+def autodiff_value_and_grad(potential_fn) -> VG:
+    """[C, d] -> (log density [C], its gradient [C, d]) by vmapped autograd
+    of ``potential_fn`` ([d] -> -log density)."""
+    gv = torch.func.vmap(torch.func.grad_and_value(lambda zf: -potential_fn(zf)))
+
+    def vg(z):
+        g, v = gv(z)
+        return v.detach(), g.detach()
+
+    return vg
+
+
+class ChainState(NamedTuple):
+    z: Tensor  # [C, d] flat unconstrained positions
+    pe: Tensor  # [C] potential energy at z
+    grad: Tensor  # [C, d] d pe / dz
+
+
+def init_chain_state(value_and_grad_fn: VG, z: Tensor) -> ChainState:
+    """The state at z from a [C, d] -> (log density, gradient) function."""
+    val, grad = value_and_grad_fn(z)
+    return ChainState(z, -val, -grad)
+
+
 def kinetic_energy(r: torch.Tensor, inv_mass: torch.Tensor) -> torch.Tensor:
     """1/2 r^T M^-1 r for a diagonal inverse mass, over the last axis."""
     return 0.5 * torch.sum(r * r * inv_mass, dim=-1)
+
+
+def _column(step_size: Tensor) -> Tensor:
+    """A per-chain step [C] as a column; a shared 0-d step as it is."""
+    return step_size[:, None] if step_size.dim() == 1 else step_size
+
+
+def leapfrog(value_and_grad_fn: VG, z: Tensor, r: Tensor, grad: Tensor, step_size: Tensor,
+             inv_mass: Tensor, num_steps: Union[int, Tensor]):
+    """``num_steps`` velocity-Verlet steps of each chain on the potential
+    energy: an int, or a [C] tensor (one host sync for its maximum), past
+    which a chain keeps its state.  ``grad`` is d pe / dz; returns (z, r,
+    pe, grad), with pe 0 where no step ran, as in JAX."""
+    st = _column(torch.as_tensor(step_size, dtype=z.dtype, device=z.device))
+    pe = torch.zeros(z.shape[:1], dtype=z.dtype, device=z.device)
+    per_chain = isinstance(num_steps, Tensor)
+    for i in range(int(num_steps.max()) if per_chain else num_steps):
+        r1 = r - 0.5 * st * grad
+        z1 = z + st * inv_mass * r1
+        val, g = value_and_grad_fn(z1)
+        pe1, grad1 = -val, -g
+        r1 = r1 - 0.5 * st * grad1
+        if not per_chain:
+            z, r, pe, grad = z1, r1, pe1, grad1
+            continue
+        on = i < num_steps
+        z, r, grad = (torch.where(on[:, None], a, b) for a, b in ((z1, z), (r1, r), (grad1, grad)))
+        pe = torch.where(on, pe1, pe)
+    return z, r, pe, grad
+
+
+class TorchChainRandom:
+    """The randomness of the per-chain steps (``HMC.make_step``,
+    ``NUTS.make_step``), drawn from a torch.Generator: every chain its own
+    numbers.
+
+    ``momentum(z)``: standard normals shaped like z; ``accept(c, like)``:
+    uniforms [C]; ``num_steps(high, c, device)``: ints [C], uniform in
+    [1, high]; ``tree(depth, c, like)``: for the doubling at ``depth``, (go
+    right [C] bool, merge uniforms [C]); ``leaf(depth, i, c, like)``: the
+    swap uniforms [C] of leaf i of that doubling's subtree.  JAX draws the
+    direction as ``bernoulli(0.5)``, a uniform below one half.
+    """
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def _uniform(self, c: int, like: Tensor) -> Tensor:
+        return torch.rand((c,), generator=self.generator, device=like.device, dtype=like.dtype)
+
+    def momentum(self, z: Tensor) -> Tensor:
+        return torch.randn(z.shape, generator=self.generator, device=z.device, dtype=z.dtype)
+
+    def accept(self, c: int, like: Tensor) -> Tensor:
+        return self._uniform(c, like)
+
+    def num_steps(self, high: int, c: int, device) -> Tensor:
+        return torch.randint(1, high + 1, (c,), generator=self.generator, device=device)
+
+    def tree(self, depth: int, c: int, like: Tensor) -> Tuple[Tensor, Tensor]:
+        u = torch.rand((2, c), generator=self.generator, device=like.device, dtype=like.dtype)
+        return u[0] < 0.5, u[1]
+
+    def leaf(self, depth: int, i: int, c: int, like: Tensor) -> Tensor:
+        return self._uniform(c, like)
 
 
 class TorchHMCRandom:
@@ -82,6 +181,36 @@ class HMC:
         self.jitter_steps = jitter_steps
         self.target_accept = target_accept
         self.max_delta_energy = max_delta_energy
+
+    def make_step(self, potential_fn: Callable, value_and_grad_fn: Optional[VG] = None):
+        """The per-chain transition ``step(rng, state, step_size, inv_mass)
+        -> (state, stats)`` over a [C, d] block.  ``value_and_grad_fn``
+        ([C, d] -> log density, gradient) defaults to the vmapped autodiff
+        of ``potential_fn``; ``rng`` has ``TorchChainRandom``'s methods."""
+        vg = value_and_grad_fn or autodiff_value_and_grad(potential_fn)
+        length, jitter, max_delta = self.num_integration_steps, self.jitter_steps, self.max_delta_energy
+
+        def step(rng, state: ChainState, step_size: Tensor, inv_mass: Tensor):
+            z = state.z
+            c = z.shape[0]
+            r0 = rng.momentum(z) / torch.sqrt(inv_mass)
+            h0 = state.pe + kinetic_energy(r0, inv_mass)
+            n_steps = rng.num_steps(length, c, z.device) if jitter else length
+            z1, r1, pe1, grad1 = leapfrog(vg, z, r0, state.grad, step_size, inv_mass, n_steps)
+            h1 = pe1 + kinetic_energy(r1, inv_mass)
+            delta = h0 - h1
+            delta = torch.where(torch.isnan(delta), -torch.inf, delta)
+            accept_prob = torch.clamp(torch.exp(torch.clamp(delta, max=0.0)), max=1.0)
+            accept = rng.accept(c, state.pe) < accept_prob
+            new = ChainState(*(torch.where(accept[:, None] if a.dim() == 2 else accept, a, b)
+                               for a, b in zip((z1, pe1, grad1), state)))
+            steps = (n_steps if jitter else torch.full((c,), length, device=z.device)).to(torch.int32)
+            stats = {"accept_prob": accept_prob, "diverging": -delta > max_delta,
+                     "energy": h1, "num_steps": steps,
+                     "host_syncs": int(jitter)}  # the step count's maximum
+            return new, stats
+
+        return step
 
 
 def hmc_sample(model, **kwargs):

@@ -1,24 +1,40 @@
 """MCMC entry point: warmup + sampling, diagnostics.
 
 Counterpart of ``brancher_tpu/inference/mcmc.py``: ``MCMCResult``
-(lines 46-91), ``make_potential`` (line 94), the engine dispatch of
-``_run_vectorized`` (lines 250-330) and ``sample()`` for
-``chain_method="vectorized"`` (lines 454-1069).  ``kernel`` picks the
-engine: ``ChEESHMC`` runs ``chees_hmc``, ``HMC`` runs ``hmc_batched``,
-anything else vectorized NUTS.
+(lines 46-91), ``make_potential`` (line 94), ``_run_single_chain`` (lines
+157-230), the engine dispatch of ``_run_vectorized`` (lines 250-330) and
+``sample()`` (lines 454-1069) with ``chain_method`` "vectorized" or
+"vmap", ``mass`` "diag" or "dense", and ``resume_state``.  ``kernel``
+picks the vectorized engine: ``ChEESHMC`` runs ``chees_hmc``, ``HMC``
+runs ``hmc_batched``, anything else vectorized NUTS (draw-pipelined with
+``NUTS(pipelined=True)``).  ``chain_method="vmap"`` runs the kernel's
+per-chain ``make_step`` (NUTS, HMC) in ``_run_single_chain``, as a masked
+batch over the chains (``nuts.py``), with the cross-chain means that JAX
+takes with ``pmean``.
 
-The batched potential ``[C, d] -> ([C], [C, d])`` is, in order of
-preference: the caller's ``value_and_grad_fn``; the fused GLM potential
-that ``ops.glm.recognize_fused_family`` finds in the model (on CUDA its
-hand-written kernel); else autodiff of the compiled log-density,
-``torch.func.vmap(torch.func.grad_and_value(...))``.
+The batched potential ``[C, d] -> ([C], [C, d])`` of the vectorized
+engines is, in order of preference: the caller's ``value_and_grad_fn``;
+the fused GLM potential that ``ops.glm.recognize_fused_family`` finds in
+the model (on CUDA its hand-written kernel); else autodiff of the
+compiled log-density, ``torch.func.vmap(torch.func.grad_and_value(...))``.
+As in the JAX package the per-chain engines use only the autodiff one,
+so they launch no kernel.
+
+``mass="dense"`` whitens the posterior (JAX ``mcmc.py:794-879``): stage A
+runs the vectorized engine with a diagonal mass for part of the warmup
+and a few draws, and stage B runs it again on ``vg_t(zt) = (v, g @ L)``
+with ``(v, g) = vg(mu + zt @ L.T)``, where ``mu`` and ``L L^T`` are stage
+A's mean and covariance: the same value+grad, kernel and all, inside the
+affine map.  ``diagnostics["resume_state"]`` holds what a later
+``sample(resume_state=...)`` needs to go on without warmup.
 
 ``fused_leapfrog=True`` gives the HMC and ChEES engines a whole-
 trajectory integrator built once from the recognized GLM family
 (``FusedFamily.leapfrog``: kernel K5 on CUDA when X passes its size
-gate).  As in the JAX package it has no effect under NUTS or when no
-family is recognized; unlike it, ``diagnostics["fused_leapfrog"]`` says
-whether K5 ran, and ``sample()`` warns when it was asked for and did not.
+gate).  As in the JAX package it has no effect under NUTS, under dense
+mass, on the per-chain engines, or when no family is recognized; unlike
+it, ``diagnostics["fused_leapfrog"]`` says whether K5 ran, and
+``sample()`` warns when it was asked for and did not.
 
 ESS and R-hat run on the host in numpy (``diagnostics_backend="host"``)
 or where the samples are (``"device"``); ``"auto"`` takes the device when
@@ -26,13 +42,13 @@ the samples live on CUDA and pass 16 MB, as JAX's rule does
 (``brancher_tpu/inference/mcmc.py:1003-1009``).  Either way
 ``diagnostics["ess"]`` and ``["r_hat"]`` hold numpy arrays.
 
-Not ported yet, and refused with ``NotImplementedError``: the per-chain
-and sharded chain methods, ``sample(mass="dense")`` (ChEES's own
-``ChEESHMC(mass="dense")`` runs), ``resume_state`` and
-``enumerate_discrete`` (ROADMAP queue 1, items 12, 13 and 15).
+Not ported yet, and refused with ``NotImplementedError``: sharded chains
+(``chain_method="shard_map"``, ``mesh=``) and ``enumerate_discrete``
+(ROADMAP queue 1, items 15 and 13).
 """
 from __future__ import annotations
 
+import copy
 import time
 import warnings
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -43,7 +59,17 @@ import torch
 from ..compiler import CompiledModel
 from ..config import make_generator
 from ..variables import DeterministicVariable
-from .adaptation import find_reasonable_step_size_batched
+from .adaptation import (
+    build_warmup_schedule,
+    da_init,
+    da_restart,
+    da_update,
+    find_reasonable_step_size,
+    find_reasonable_step_size_batched,
+    welford_init,
+    welford_update,
+    welford_variance,
+)
 from .chees import ChEESHMC, chees_hmc
 from .diagnostics import (
     effective_sample_size,
@@ -51,7 +77,7 @@ from .diagnostics import (
     potential_scale_reduction,
     potential_scale_reduction_device,
 )
-from .hmc import HMC
+from .hmc import HMC, TorchChainRandom, autodiff_value_and_grad, init_chain_state
 from .nuts import NUTS
 from .vectorized_nuts import nuts_batched
 
@@ -93,17 +119,6 @@ def make_potential(
     return potential, comp.unravel_z, torch.zeros((comp.dim,), device=comp.device)
 
 
-def autodiff_value_and_grad(potential_fn) -> Callable[[Tensor], Tuple[Tensor, Tensor]]:
-    """[C, d] -> (log density [C], its gradient [C, d]) by vmapped autograd."""
-    gv = torch.func.vmap(torch.func.grad_and_value(lambda zf: -potential_fn(zf)))
-
-    def vg(z):
-        g, v = gv(z)
-        return v.detach(), g.detach()
-
-    return vg
-
-
 class _Counted:
     """Counts the calls of a value-and-grad function."""
 
@@ -118,6 +133,182 @@ class _Counted:
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def _run_vectorized(kernel, vg, z0, num_warmup, num_samples, gen, target_accept,
+                    init_step_size, inv_mass0=None, leapfrog_fn=None, adapt_step_size=True):
+    """One run of the chain-batched engine that ``kernel`` picks: returns
+    (samples [C, S, d], stats {accept_prob, diverging, num_steps} [C, S],
+    info), as JAX's ``_run_vectorized`` (its ``run``/``_run_inner``)."""
+    c, dim = z0.shape
+    dev = z0.device
+    if num_warmup > 0 and adapt_step_size:
+        im0 = torch.ones((dim,), device=dev) if inv_mass0 is None else inv_mass0
+        init_eps = find_reasonable_step_size_batched(vg, z0, im0, gen,
+                                                     init_step=min(init_step_size, 1.0))
+    else:
+        init_eps = init_step_size
+    max_delta = getattr(kernel, "max_delta_energy", 1000.0)
+    if isinstance(kernel, ChEESHMC):
+        res = chees_hmc(
+            vg, z0, num_warmup, num_samples, gen, target_accept=target_accept,
+            init_step_size=float(init_eps),
+            init_trajectory_length=kernel.init_trajectory_length,
+            max_leapfrog=kernel.max_leapfrog, adam_lr=kernel.adam_lr, mass=kernel.mass,
+            inv_mass0=inv_mass0, leapfrog_fn=leapfrog_fn, max_delta_energy=max_delta,
+        )
+        num_steps = res.num_leapfrog.to(torch.int64)[None, :].expand(c, num_samples)
+        info = {"trajectory_length": res.trajectory_length,
+                "warmup_leapfrog": int(res.warmup_leapfrog)}
+    elif isinstance(kernel, HMC):
+        from ..ops.batched_hmc import hmc_batched
+
+        res = hmc_batched(
+            vg, z0, num_warmup, num_samples, gen,
+            num_integration_steps=kernel.num_integration_steps,
+            target_accept=target_accept, init_step_size=float(init_eps),
+            jitter_steps=kernel.jitter_steps, inv_mass0=inv_mass0, leapfrog_fn=leapfrog_fn,
+            max_delta_energy=max_delta,
+        )
+        length = kernel.num_integration_steps
+        num_steps = torch.full((c, num_samples),
+                               (length + 1) // 2 if kernel.jitter_steps else length,
+                               dtype=torch.int64, device=dev)
+        info = {}
+    else:
+        res = nuts_batched(
+            vg, z0, num_warmup, num_samples, gen,
+            max_depth=getattr(kernel, "max_depth", 10),
+            target_accept=target_accept, init_step_size=float(init_eps),
+            max_delta_energy=max_delta, inv_mass0=inv_mass0,
+            pipeline=getattr(kernel, "pipelined", False),
+            lookahead=getattr(kernel, "lookahead", 16),
+        )
+        num_steps = res.num_leapfrog[None, :].expand(c, num_samples)
+        info = {"warmup_leapfrog": res.warmup_leapfrog, "chain_leapfrog": res.chain_leapfrog,
+                "sampling_seconds": res.sampling_seconds}
+    stats = {"accept_prob": res.accept_prob, "diverging": res.diverging, "num_steps": num_steps}
+    info.update(step_size=res.step_size, inv_mass=res.inv_mass, host_syncs=res.host_syncs,
+                used_leapfrog_fn=getattr(res, "used_leapfrog_fn", False))
+    return res.samples, stats, info
+
+
+def _run_single_chain(kernel_step, vg, z0, num_warmup, num_samples, gen, target_accept,
+                      adapt_step_size, adapt_mass, init_step_size):
+    """JAX's per-chain run (``_run_single_chain``) over a [C, d] block:
+    warmup with dual averaging on the mean accept probability over chains,
+    each chain's Welford variance in the slow windows and their mean as
+    the shared diagonal mass at each window end; then the draws.  Where
+    JAX takes ``pmean`` over the chain axis (the probed step, the accept
+    probability, the variance) this takes the mean over chains."""
+    c, dim = z0.shape
+    dtype, dev = z0.dtype, z0.device
+    rng = TorchChainRandom(gen)
+    state = init_chain_state(vg, z0)
+    inv_mass = torch.ones((dim,), dtype=dtype, device=dev)
+    syncs = 0
+    if adapt_step_size and num_warmup > 0:
+        step0 = torch.mean(find_reasonable_step_size(vg, z0, inv_mass, gen, init_step=init_step_size,
+                                                     target=target_accept))
+    else:
+        step0 = torch.tensor(init_step_size, dtype=dtype, device=dev)
+    da = da_init(step0)
+    welford = welford_init(dim, dtype, dev, batch=(c,))
+    in_slow, window_end = build_warmup_schedule(num_warmup)
+    for i in range(num_warmup):
+        state, stats = kernel_step(rng, state, torch.exp(da.log_step), inv_mass)
+        syncs += stats.pop("host_syncs")
+        da = da_update(da, torch.mean(stats["accept_prob"]), target_accept=target_accept)
+        if adapt_mass:
+            if in_slow[i]:
+                welford = welford_update(welford, state.z)
+            if window_end[i]:
+                inv_mass = torch.mean(welford_variance(welford), dim=0)
+                welford = welford_init(dim, dtype, dev, batch=(c,))
+        if window_end[i]:
+            da = da_restart(da)
+    step_final = torch.exp(da.log_step_avg) if num_warmup > 0 and adapt_step_size else step0
+
+    zs = torch.empty((num_samples, c, dim), dtype=dtype, device=dev)
+    draws = []
+    for s in range(num_samples):
+        state, stats = kernel_step(rng, state, step_final, inv_mass)
+        syncs += stats.pop("host_syncs")
+        zs[s] = state.z
+        draws.append(stats)
+    stats = {k: torch.stack([st[k] for st in draws], dim=1) for k in (draws[0] if draws else ())}
+    info = {"step_size": step_final.expand(c), "inv_mass": inv_mass.expand(c, dim),
+            "host_syncs": syncs}
+    return zs.transpose(0, 1), stats, info
+
+
+def dense_statistics(zs_a: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Stage A's draws [C, S, d] -> (mu [d], cov [d, d], L [d, d]): their
+    mean, covariance (ddof 1, as ``jnp.cov``) plus 1e-6 I, and its
+    Cholesky factor (JAX ``mcmc.py:826-832``)."""
+    flat = zs_a.reshape(-1, zs_a.shape[-1])
+    dim = flat.shape[-1]
+    mu = torch.mean(flat, dim=0)
+    cov = torch.cov(flat.T).reshape(dim, dim) + 1e-6 * torch.eye(dim, dtype=flat.dtype, device=flat.device)
+    return mu, cov, torch.linalg.cholesky(cov)
+
+
+def whiten(vg, mu: Tensor, chol: Tensor):
+    """The stage-B value+grad over whitened zt, z = mu + zt @ L.T: (v, g @ L)
+    with (v, g) = vg(z) (JAX ``mcmc.py:839-846``)."""
+
+    def vg_t(zt):
+        v, g = vg(mu[None, :] + zt @ chol.T)
+        return v, g @ chol
+
+    return vg_t
+
+
+def whitened(z: Tensor, mu: Tensor, chol: Tensor) -> Tensor:
+    """zt with z = mu + zt @ L.T, for z [C, d]."""
+    return torch.linalg.solve_triangular(chol, (z - mu[None, :]).T, upper=False).T
+
+
+def _run_dense(kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init_step_size,
+               adapt_step_size, dense_warmup_fraction, dense_resume, inv_mass0):
+    """``mass="dense"`` (JAX ``mcmc.py:794-879``): stage A, a diagonal-mass
+    run of part of the warmup and a few draws, estimates the posterior's
+    mean and covariance, unless ``dense_resume`` carries them; stage B runs
+    the same engine on the whitened value+grad.  Returns (samples, stats,
+    info, the resume payload's dense part, stage A's line or None)."""
+    dev = z0.device
+    stage_a = None
+    if dense_resume is not None:
+        mu = torch.as_tensor(dense_resume["dense_mu"], dtype=torch.float32, device=dev)
+        chol = torch.as_tensor(dense_resume["dense_L"], dtype=torch.float32, device=dev)
+        dim = mu.shape[0]
+        cov = torch.as_tensor(dense_resume["inv_mass"], dtype=torch.float32, device=dev).reshape(dim, dim)
+        z_last, warm_a = z0, 0
+    else:
+        warm_a = min(max(int(num_warmup * dense_warmup_fraction), 50), num_warmup)
+        draws_a = max(min(num_samples, 200), 50)
+        calls = vg.calls
+        zs_a, stats_a, info_a = _run_vectorized(
+            kernel, vg, z0, warm_a, draws_a, gen, target_accept, init_step_size,
+            inv_mass0=inv_mass0, adapt_step_size=adapt_step_size)
+        mu, cov, chol = dense_statistics(zs_a)
+        z_last = zs_a[:, -1]
+        stage_a = {"num_warmup": warm_a, "num_samples": draws_a,
+                   "warmup_leapfrog": info_a.get("warmup_leapfrog"),
+                   "sampling_leapfrog": int(stats_a["num_steps"][0].sum()),
+                   "value_and_grad_calls": vg.calls - calls,
+                   "host_syncs": info_a["host_syncs"]}
+    zs_t, stats, info = _run_vectorized(
+        kernel, whiten(vg, mu, chol), whitened(z_last, mu, chol), num_warmup - warm_a,
+        num_samples, gen, target_accept, init_step_size,
+        inv_mass0=inv_mass0 if dense_resume is not None else None,
+        adapt_step_size=adapt_step_size)
+    zs = mu[None, None, :] + torch.einsum("csd,ed->cse", zs_t, chol)
+    ckpt = {"dense_mu": mu, "dense_L": chol, "dense_inner_inv_mass": info["inv_mass"]}
+    info["inv_mass"] = cov  # report the dense metric actually used
+    if stage_a is not None:
+        info["host_syncs"] += stage_a["host_syncs"]
+    return zs, stats, info, ckpt, stage_a
 
 
 def sample(
@@ -166,26 +357,29 @@ def sample(
     in the fused potential (a slightly perturbed density); "off" skips
     the recognizer.
 
-    adapt_mass is read only by the per-chain engines, as in the JAX
-    package: the vectorized engine always adapts a diagonal mass.
+    chain_method: "vectorized" (the chain-batched engines) or "vmap" (the
+    kernel's per-chain ``make_step``, NUTS or HMC; launches no kernel and
+    ignores ``value_and_grad_fn``, as in the JAX package).  adapt_mass is
+    read only by the per-chain engines: the vectorized ones always adapt a
+    diagonal mass.  mass="dense" (vectorized only) whitens the posterior
+    with stage A's covariance, ``dense_warmup_fraction`` of the warmup;
+    with no warmup and no resume it samples with diagonal mass, as JAX
+    does.  resume_state: a run's ``diagnostics["resume_state"]`` (through
+    ``torch.save``/``torch.load`` if need be); the resumed run has no
+    warmup and starts from its draws, step size and mass (and ChEES's
+    trajectory length).
     jit_runner and given_key exist in the JAX package to avoid retracing
     and re-hashing; there is no trace step here, so they are accepted and
     do nothing.  ``diagnostics["sampler_seconds"]`` is the wall time of the
     engine, ended by a device synchronize.
     """
-    del jit_runner, given_key, adapt_mass, chain_axis, dense_warmup_fraction
-    if chain_method != "vectorized":
-        if chain_method in ("vmap", "shard_map"):
-            _not_ported(f"chain_method={chain_method!r}", "ROADMAP queue 1, items 12 and 15")
+    del jit_runner, given_key, chain_axis
+    if chain_method not in ("vectorized", "vmap", "shard_map"):
         raise ValueError(f"unknown chain_method {chain_method!r}")
+    if chain_method == "shard_map" or mesh is not None:
+        _not_ported("sharding chains over a mesh", "ROADMAP queue 1, item 15")
     if mass not in ("diag", "dense"):
         raise ValueError(f"unknown mass {mass!r}")
-    if mass == "dense":
-        _not_ported("mass='dense'", "ROADMAP queue 1, item 12")
-    if resume_state is not None:
-        _not_ported("resume_state", "ROADMAP queue 1, item 12")
-    if mesh is not None:
-        _not_ported("sharding chains over a mesh", "ROADMAP queue 1, item 15")
     if enumerate_discrete:
         _not_ported("enumerate_discrete", "ROADMAP queue 1, item 13")
     if fused_potential not in ("auto", "bf16", "off"):
@@ -208,10 +402,11 @@ def sample(
     if params is None:
         params = comp.initial_params
     potential_fn, unravel, _ = make_potential(comp, params, given)
+    per_chain = chain_method == "vmap"
 
     # -- fused-potential upgrade (cached per compiled model) ---------------
     fam_name, bf16_active, leapfrog_fn = None, False, None
-    if (value_and_grad_fn is None and fused_potential in ("auto", "bf16")
+    if (value_and_grad_fn is None and not per_chain and fused_potential in ("auto", "bf16")
             and params is comp.initial_params and not given):
         if not hasattr(comp, "_fused_family_cache"):
             from ..ops.glm import recognize_fused_family
@@ -233,17 +428,54 @@ def sample(
         warnings.warn(
             "fused_potential='bf16' was requested but the bf16 fused "
             "potential is not in use (the GLM probe failed, or a "
-            "precondition — default params, no given, no explicit "
-            "value_and_grad_fn — does not hold); sampling proceeds with "
-            "the f32 path.", stacklevel=2,
+            "precondition — chain_method='vectorized', default params, no "
+            "given, no explicit value_and_grad_fn — does not hold); sampling "
+            "proceeds with the f32 path.", stacklevel=2,
         )
-    if value_and_grad_fn is None:
+    if value_and_grad_fn is None or per_chain:
         value_and_grad_fn = autodiff_value_and_grad(potential_fn)
     vg = _Counted(value_and_grad_fn)
+    if per_chain and not hasattr(kernel, "make_step"):
+        raise ValueError(f"kernel {type(kernel).__name__} requires chain_method='vectorized'")
+
+    # -- resume from a checkpointed sampler state (skips warmup) -----------
+    inv_mass0, dense_resume = None, None
+    if resume_state is not None:
+        if chain_method != "vectorized":
+            raise ValueError("resume_state is supported with chain_method='vectorized'")
+        num_warmup = 0
+        init_step_size = float(resume_state["step_size"])
+        adapt_step_size = False
+        if mass == "dense":
+            # the checkpoint carries the affine map and the inner engine's
+            # whitened-space diagonal mass: stage B resumes as it was
+            if "dense_mu" not in resume_state or "dense_L" not in resume_state:
+                raise ValueError(
+                    "mass='dense' resume requires a resume_state produced "
+                    "by a mass='dense' run (missing dense_mu/dense_L)")
+            dense_resume = resume_state
+            inv_mass0 = resume_state["dense_inner_inv_mass"]
+        else:
+            if "dense_mu" in resume_state:
+                # its inv_mass is the [d, d] covariance, not a diagonal mass
+                raise ValueError(
+                    "resume_state was produced by a mass='dense' run — "
+                    "pass mass='dense' to resume it")
+            inv_mass0 = resume_state["inv_mass"]
+        inv_mass0 = torch.as_tensor(inv_mass0, dtype=torch.float32, device=dev)
+        if "trajectory_length" in resume_state and hasattr(kernel, "init_trajectory_length"):
+            # ChEES resumes its adapted length (a copy: the caller's kernel
+            # may be reused)
+            kernel = copy.copy(kernel)
+            kernel.init_trajectory_length = float(resume_state["trajectory_length"])
 
     # -- initial positions -------------------------------------------------
     dim = comp.dim
-    if init_values is not None:
+    if resume_state is not None:
+        z0 = torch.as_tensor(resume_state["z"], dtype=torch.float32, device=dev)
+        if z0.shape[0] != num_chains:
+            raise ValueError(f"resume_state has {z0.shape[0]} chains, expected {num_chains}")
+    elif init_values is not None:
         z_init = comp.ravel_z(comp.unconstrain(params, init_values))
         z0 = z_init.to(torch.float32).expand(num_chains, dim).contiguous()
     elif init_strategy == "uniform":
@@ -256,68 +488,41 @@ def sample(
         z0 = comp.ravel_z(z_tree).to(torch.float32).contiguous()
     else:
         raise ValueError(f"unknown init_strategy {init_strategy!r}")
+    if mass == "dense" and chain_method != "vectorized":
+        raise ValueError("mass='dense' requires chain_method='vectorized'")
 
     # -- the engine --------------------------------------------------------
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_engine = time.perf_counter()
-    if num_warmup > 0 and adapt_step_size:
-        init_eps = find_reasonable_step_size_batched(
-            vg, z0, torch.ones((dim,), device=dev), gen,
-            init_step=min(init_step_size, 1.0),
-        )
+    dense_ckpt, stage_a = None, None
+    if per_chain:
+        zs, stats, info = _run_single_chain(
+            kernel.make_step(potential_fn, vg), vg, z0, num_warmup, num_samples, gen,
+            target_accept, adapt_step_size, adapt_mass, init_step_size)
+    elif mass == "dense" and (num_warmup > 0 or dense_resume is not None):
+        zs, stats, info, dense_ckpt, stage_a = _run_dense(
+            kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init_step_size,
+            adapt_step_size, dense_warmup_fraction, dense_resume, inv_mass0)
     else:
-        init_eps = init_step_size
-    max_delta = getattr(kernel, "max_delta_energy", 1000.0)
-    extra: Dict[str, Any] = {}
-    if isinstance(kernel, ChEESHMC):
-        res = chees_hmc(
-            vg, z0, num_warmup, num_samples, gen, target_accept=target_accept,
-            init_step_size=float(init_eps),
-            init_trajectory_length=kernel.init_trajectory_length,
-            max_leapfrog=kernel.max_leapfrog, adam_lr=kernel.adam_lr, mass=kernel.mass,
-            leapfrog_fn=leapfrog_fn, max_delta_energy=max_delta,
-        )
-        num_steps = res.num_leapfrog.to(torch.int64)[None, :].expand(num_chains, num_samples)
-        extra = {"trajectory_length": res.trajectory_length,
-                 "warmup_leapfrog": int(res.warmup_leapfrog)}
-    elif isinstance(kernel, HMC):
-        from ..ops.batched_hmc import hmc_batched
-
-        res = hmc_batched(
-            vg, z0, num_warmup, num_samples, gen,
-            num_integration_steps=kernel.num_integration_steps,
-            target_accept=target_accept, init_step_size=float(init_eps),
-            jitter_steps=kernel.jitter_steps, leapfrog_fn=leapfrog_fn,
-            max_delta_energy=max_delta,
-        )
-        length = kernel.num_integration_steps
-        num_steps = torch.full((num_chains, num_samples),
-                               (length + 1) // 2 if kernel.jitter_steps else length,
-                               dtype=torch.int64, device=dev)
-    else:
-        res = nuts_batched(
-            vg, z0, num_warmup, num_samples, gen,
-            max_depth=getattr(kernel, "max_depth", 10),
-            target_accept=target_accept, init_step_size=float(init_eps),
-            max_delta_energy=max_delta,
-        )
-        num_steps = res.num_leapfrog[None, :].expand(num_chains, num_samples)
-        extra = {"warmup_leapfrog": res.warmup_leapfrog, "chain_leapfrog": res.chain_leapfrog}
+        zs, stats, info = _run_vectorized(
+            kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init_step_size,
+            inv_mass0=inv_mass0, leapfrog_fn=leapfrog_fn, adapt_step_size=adapt_step_size)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     sampler_seconds = time.perf_counter() - t_engine
-    # K5 ran when the engine integrated with leapfrog_fn (NUTS takes none;
-    # ChEES drops it under dense mass) and that is K5's wrapper on the card
-    k5_ran = (getattr(res, "used_leapfrog_fn", False)
+    # K5 ran when the engine integrated with leapfrog_fn (NUTS, the
+    # per-chain engines and dense mass take none; ChEES drops it under its
+    # own dense mass) and that is K5's wrapper on the card
+    k5_ran = (info.get("used_leapfrog_fn", False)
               and getattr(leapfrog_fn, "uses_kernel", False))
     if fused_leapfrog and not k5_ran:
         warnings.warn(
             "fused_leapfrog=True was requested but the fused leapfrog kernel "
-            "did not run (the engine is not HMC/ChEES with diagonal mass, no "
-            "GLM family was recognized, X fails the kernel's size gate, or "
-            "the run is on the CPU); the engine integrated with a loop of "
-            "value+grad calls.", stacklevel=2,
+            "did not run (the engine is not vectorized HMC/ChEES with diagonal "
+            "mass, no GLM family was recognized, X fails the kernel's size "
+            "gate, or the run is on the CPU); the engine integrated with a "
+            "loop of value+grad calls.", stacklevel=2,
         )
 
     # -- constrain + collect -----------------------------------------------
@@ -325,7 +530,6 @@ def sample(
     if collect_deterministic:
         names_out += [v.name for v in comp.order
                       if isinstance(v, DeterministicVariable) and v.parents]
-    zs = res.samples
     c, s = zs.shape[0], zs.shape[1]
 
     def one(zf):
@@ -336,21 +540,17 @@ def sample(
         flat_vals = torch.func.vmap(one)(zs.reshape(c * s, dim))
     samples = {k: v.reshape((c, s) + tuple(v.shape[1:])) for k, v in flat_vals.items()}
 
-    stats = {
-        "accept_prob": res.accept_prob,
-        "diverging": res.diverging,
-        "num_steps": num_steps,
-    }
     diagnostics: Dict[str, Any] = {
-        "num_divergences": int(res.diverging.sum()),
-        "mean_accept_prob": float(res.accept_prob.mean()),
-        "step_size": res.step_size,
-        "inv_mass": res.inv_mass,
+        "num_divergences": int(stats["diverging"].sum()),
+        "mean_accept_prob": float(stats["accept_prob"].mean()),
+        "step_size": info["step_size"],
+        "inv_mass": info["inv_mass"],
         "sampler_seconds": sampler_seconds,
-        **extra,
-        "total_leapfrog_steps": int(num_steps.sum()),
+        **{k: info[k] for k in ("trajectory_length", "warmup_leapfrog", "chain_leapfrog",
+                                "sampling_seconds") if k in info},
+        "total_leapfrog_steps": int(stats["num_steps"].sum()),
         "value_and_grad_calls": vg.calls,
-        "host_syncs": res.host_syncs,
+        "host_syncs": info["host_syncs"],
         "fused_family": fam_name,
         "fused_dtype": ("bf16" if bf16_active else "f32") if fam_name else None,
         "fused_leapfrog": k5_ran,
@@ -391,4 +591,13 @@ def sample(
         diagnostics["diagnostics_backend"] = mode
         diagnostics["ess"] = ess
         diagnostics["r_hat"] = rhat
+    if stage_a is not None:
+        diagnostics["dense_stage_a"] = stage_a
+    # checkpointable sampler state: feed back via sample(resume_state=...)
+    resume = {"z": zs[:, -1], "step_size": info["step_size"], "inv_mass": info["inv_mass"]}
+    if "trajectory_length" in info:  # ChEES: the adapted length resumes too
+        resume["trajectory_length"] = info["trajectory_length"]
+    if dense_ckpt is not None:
+        resume.update(dense_ckpt)
+    diagnostics["resume_state"] = resume
     return MCMCResult(samples, stats, diagnostics)

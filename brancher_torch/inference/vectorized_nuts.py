@@ -1,9 +1,9 @@
-"""Vectorized (chain-batched) NUTS: all chains advance in lockstep.
+"""Vectorized (chain-batched) NUTS: all chains advance in lockstep, or
+draw-pipelined in the sampling phase.
 
 Counterpart of ``brancher_tpu/inference/vectorized_nuts.py``:
-``nuts_transition_batched`` (lines 100-311) and ``nuts_batched``
-(lines 729-839), lockstep only.  The draw-pipelined engine
-(``_pipelined_sampling``) is still to port (ROADMAP queue 1, item 12).
+``nuts_transition_batched`` (lines 100-311), ``_pipelined_sampling``
+(lines 314-728) and ``nuts_batched`` (lines 729-839).
 
 The tree's doubling schedule is deterministic and shared by every chain:
 leaf n belongs to doubling floor(log2 n) at in-subtree position
@@ -14,15 +14,26 @@ Python ints and the schedule's branches are Python ``if``s.  Only the
 per-chain direction, proposal swaps and stopping are tensors.  The loop
 condition ``any(active)`` costs one host sync per leaf.
 
+The pipelined sampling phase (``NUTS(pipelined=True)``) gives each chain
+its own leaf index, so the schedule is per chain there: [C] tensors, with
+popcount and floor(log2) read from small tables.  A chain refreshes its
+momentum and starts its next draw in the iteration after its U-turn; a
+chain ``lookahead`` draws ahead of the slowest idles (JAX's ring
+backpressure, kept as a counter: the ring itself only dodged XLA's
+scatter copies inside a while loop, so each completed draw is written
+straight into the output by index).  One host sync an iteration.
+
 Randomness is injectable: a transition reads its momenta and, per leaf,
 its direction, swap and take draws from a source object with the
 methods of ``TorchNutsRandom``, so a test can replay JAX's stream
-(``k_mom`` normals; per leaf ``fold_in(k_loop, n)`` split in three) and
-hold one transition to the JAX one.
+(``k_mom`` normals; per leaf ``fold_in(k_loop, n)`` split in three; per
+pipelined iteration ``fold_in(key, it)`` split in four) and hold one
+transition to the JAX one.
 """
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -52,6 +63,13 @@ class TorchNutsRandom:
         u = torch.rand((3, c), generator=self.generator, device=like.device, dtype=like.dtype)
         return u[0] < 0.5, u[1], u[2]
 
+    def iteration(self, it: int, z: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """Pipelined iteration ``it``: (momentum normals like z, direction
+        is +1 [C] bool, swap uniforms [C], take uniforms [C])."""
+        c = z.shape[0]
+        u = torch.rand((3, c), generator=self.generator, device=z.device, dtype=z.dtype)
+        return self.momentum(z), u[0] < 0.5, u[1], u[2]
+
 
 class Transition(NamedTuple):
     z: Tensor
@@ -68,12 +86,13 @@ class VectorizedNUTSResult(NamedTuple):
     samples: Tensor  # [C, S, d]
     accept_prob: Tensor  # [C, S]
     diverging: Tensor  # [C, S]
-    num_leapfrog: Tensor  # [S] loop iterations per draw
+    num_leapfrog: Tensor  # [S] loop iterations per draw (pipelined: amortised)
     step_size: Tensor
     inv_mass: Tensor
     warmup_leapfrog: int  # loop iterations during warmup
     chain_leapfrog: Tensor  # [S] mean per-chain live leapfrogs per draw
     host_syncs: int  # device->host syncs of the whole run
+    sampling_seconds: float  # host clock of the draws' loop (it ends at a host sync)
 
 
 def _ke(r: Tensor, inv_mass: Tensor) -> Tensor:
@@ -235,6 +254,196 @@ def nuts_transition_batched(
                       n - 1, torch.mean(cnt), syncs)
 
 
+def _pipelined_sampling(
+    value_and_grad_fn: VG,
+    z: Tensor,
+    val: Tensor,
+    grad: Tensor,
+    eps: Tensor,
+    inv_mass: Tensor,
+    rng,
+    num_samples: int,
+    max_depth: int,
+    max_delta_energy: float,
+    lookahead: int = 16,
+):
+    """The sampling phase with per-chain draw pipelining: each chain
+    refreshes its momentum and starts its next draw in the iteration after
+    its U-turn, so the iterations approach S times the mean tree instead
+    of the sum over draws of the deepest chain's tree.
+
+    A chain that is ``B = max(2, min(lookahead, S))`` draws ahead of the
+    row all chains have passed (``flushed``, which moves at most one row an
+    iteration, as JAX's ring flush does) idles; the slowest chain never
+    does.  ``rng.iteration(it, z)`` gives iteration ``it``'s numbers.
+    Returns (samples [C, S, d], accept [C, S], diverging [C, S],
+    iterations, mean live leapfrogs a draw [S], host syncs).
+
+    Points are stacked [3, C, d] tensors of (z, grad, r), so that one
+    select moves a whole point (the host issues every op of an iteration;
+    fewer, larger ops cost it less): ``ends`` [2, 3, C, d] holds the left
+    and right ends, ``mov`` the subtree's moving end, ``prop`` and ``sp``
+    the (z, grad) of the tree's and the subtree's proposals, ``cur`` the
+    chain's position."""
+    c, d = z.shape
+    dtype, dev = z.dtype, z.device
+    kdim = max_depth + 1
+    max_n = 2**max_depth
+    s_len = num_samples
+    ring = max(2, min(int(lookahead), s_len))
+    # popcount and floor(log2) of every leaf index a tree reaches
+    popcount = torch.tensor([bin(i).count("1") for i in range(max_n + 1)], device=dev)
+    log2 = torch.tensor([max(i, 1).bit_length() - 1 for i in range(max_n + 1)], device=dev)
+    slots = torch.arange(kdim, device=dev)[:, None]
+    chains = torch.arange(c, device=dev)
+    false_c = torch.zeros((c,), dtype=torch.bool, device=dev)
+
+    def col(mask):  # a [C] mask over stacked [k, C, d] points
+        return mask[:, None]
+
+    draw = torch.zeros((c,), dtype=torch.int64, device=dev)
+    n = torch.zeros_like(draw)  # 0: start a fresh draw
+    flushed = torch.zeros((), dtype=torch.int64, device=dev)
+    cur = torch.stack([z, grad])
+    point = torch.stack([z, grad, torch.zeros_like(z)])
+    ends = torch.stack([point, point])
+    mov = point
+    prop, sp = cur, cur
+    prop_val, sp_val = val, val
+    h0 = torch.zeros_like(val)
+    lw, r_sum = torch.zeros_like(val), torch.zeros_like(z)
+    s_lw, s_cum = torch.full_like(val, -math.inf), torch.zeros_like(z)
+    s_failed = false_c
+    # checkpoint stacks, depth-major; row kdim takes the writes of chains
+    # that store nothing this iteration
+    r_ck = torch.zeros((kdim + 1, c, d), dtype=dtype, device=dev)
+    rs_ck = torch.zeros_like(r_ck)
+    dirn = torch.ones_like(val)
+    active, dvg_draw = false_c, false_c
+    sum_acc, cnt = torch.zeros_like(val), torch.zeros_like(val)
+    # outputs; column s_len takes the writes of chains that finish nothing
+    zs = torch.zeros((c, s_len + 1, d), dtype=dtype, device=dev)
+    aps = torch.zeros((c, s_len + 1), dtype=dtype, device=dev)
+    dvgs = torch.zeros((c, s_len + 1), dtype=torch.bool, device=dev)
+    cnts = torch.zeros((c, s_len + 1), dtype=dtype, device=dev)
+    it = 0
+    syncs = 0
+    while True:
+        working = draw < s_len  # chains with draws left
+        syncs += 1
+        if not bool(working.any()):
+            break
+        mom, dir_pos, swap_u, take_u = rng.iteration(it, z)
+
+        # --- per-chain draw start: refresh momentum, reset the tree ------
+        starting = (n == 0) & working & (draw - flushed < ring)
+        r0 = mom / torch.sqrt(inv_mass)[None, :]
+        h0 = torch.where(starting, -val + _ke(r0, inv_mass), h0)
+        ends = torch.where(col(starting), torch.cat([cur, r0[None]])[None], ends)
+        prop = torch.where(col(starting), cur, prop)
+        prop_val = torch.where(starting, val, prop_val)
+        lw = torch.where(starting, 0.0, lw)
+        r_sum = _sel(starting, r0, r_sum)
+        active = active | starting
+        dvg_draw = dvg_draw & ~starting
+        sum_acc = torch.where(starting, 0.0, sum_acc)
+        cnt = torch.where(starting, 0.0, cnt)
+        n = torch.where(starting, 1, n)  # leaf 1 runs this iteration
+
+        # --- per-chain schedule ------------------------------------------
+        n_safe = torch.clamp(n, min=1)
+        depth = log2[n_safe]
+        m = n_safe - (1 << depth)
+        is_start = m == 0
+        is_end = m == (1 << depth) - 1
+        pc = popcount[m]
+        lo = pc - popcount[(m ^ (m + 1)) >> 1]
+        even = m % 2 == 0
+
+        # --- subtree start: per-chain direction + moving end + reset ------
+        dirn = torch.where(is_start, torch.where(dir_pos, 1.0, -1.0).to(dtype), dirn)
+        take_right = dirn > 0
+        mov = torch.where(col(is_start), torch.where(col(take_right), ends[1], ends[0]), mov)
+        s_lw = torch.where(is_start, -math.inf, s_lw)
+        s_cum = torch.where(is_start[:, None], 0.0, s_cum)
+        s_failed = s_failed & ~is_start
+
+        # --- one batched leapfrog from the moving end ---------------------
+        eps_c = (eps * dirn)[:, None]
+        r_half = mov[2] + 0.5 * eps_c * mov[1]
+        z_new = mov[0] + eps_c * inv_mass[None, :] * r_half
+        val_new, grad_new = value_and_grad_fn(z_new)
+        r_new = r_half + 0.5 * eps_c * grad_new
+        leaf = torch.stack([z_new, grad_new, r_new])
+        h = -val_new + _ke(r_new, inv_mass)
+        h = torch.where(torch.isnan(h), math.inf, h)
+        lw_leaf = h0 - h
+        dvg = (h - h0) > max_delta_energy
+        live = active & ~s_failed & working
+        sum_acc = sum_acc + torch.where(live, torch.exp(torch.clamp(lw_leaf, max=0.0)), 0.0)
+        cnt = cnt + live.to(cnt.dtype)
+
+        # --- checkpoints: slot popcount(m) of even leaves -----------------
+        slot = torch.where(even & live, pc, kdim)
+        r_ck[slot, chains] = r_new
+        rs_ck[slot, chains] = s_cum
+
+        # --- progressive multinomial within the subtree -------------------
+        s_cum_new = s_cum + r_new
+        s_lw_new = torch.logaddexp(s_lw, lw_leaf)
+        swap = live & (swap_u < torch.exp(lw_leaf - s_lw_new))
+        sp = torch.where(col(swap), leaf[:2], sp)
+        sp_val = torch.where(swap, val_new, sp_val)
+
+        # --- U-turn checks vs the slots [lo, pc) (odd leaves) -------------
+        rho = s_cum_new[None] - rs_ck[:kdim]
+        dot_a = torch.sum(rho * (r_ck[:kdim] * inv_mass), -1)
+        dot_b = torch.sum(rho * (r_new * inv_mass[None, :])[None], -1)
+        in_range = (slots >= lo[None]) & (slots < pc[None])
+        turn_sub = (((dot_a <= 0.0) | (dot_b <= 0.0)) & in_range).any(0) & ~even
+        new_fail = live & (dvg | turn_sub)
+        s_failed = s_failed | new_fail
+        dvg_draw = dvg_draw | (live & dvg)
+
+        upd = live & ~new_fail
+        s_lw = torch.where(upd, s_lw_new, s_lw)
+        s_cum = _sel(upd, s_cum_new, s_cum)
+        mov = torch.where(col(upd), leaf, mov)
+
+        # --- subtree end: merge into the global tree ----------------------
+        merging = is_end & upd
+        take = merging & (take_u < torch.exp(torch.clamp(s_lw - lw, max=0.0)))
+        prop = torch.where(col(take), sp, prop)
+        prop_val = torch.where(take, sp_val, prop_val)
+        sides = torch.stack([merging & ~take_right, merging & take_right])
+        ends = torch.where(sides[:, None, :, None], mov[None], ends)
+        r_sum = _sel(merging, r_sum + s_cum, r_sum)
+        lw = torch.where(merging, torch.logaddexp(lw, s_lw), lw)
+        full_turn = _turning(r_sum, ends[0, 2], ends[1, 2], inv_mass)
+        active = active & ~(is_end & s_failed) & ~new_fail & ~(merging & full_turn)
+
+        # --- a finished chain writes its draw and restarts at n = 0 -------
+        # (a stalled chain, n == 0, is in no tree: it neither advances nor
+        # finishes)
+        in_tree = working & (n > 0)
+        n = torch.where(in_tree, n + 1, n)
+        finished = in_tree & (~active | (n >= max_n))
+        row = torch.where(finished, draw, s_len)
+        zs[chains, row] = prop[0]
+        aps[chains, row] = sum_acc / torch.clamp(cnt, min=1.0)
+        dvgs[chains, row] = dvg_draw
+        cnts[chains, row] = cnt
+        draw = draw + finished.to(draw.dtype)
+        flushed = flushed + (draw.min() > flushed).to(flushed.dtype)
+        cur = torch.where(col(finished), prop, cur)
+        val = torch.where(finished, prop_val, val)
+        n = torch.where(finished, 0, n)
+        active = active & ~finished
+        it += 1
+    return (zs[:, :s_len], aps[:, :s_len], dvgs[:, :s_len], it,
+            torch.mean(cnts[:, :s_len], dim=0), syncs)
+
+
 def nuts_batched(
     value_and_grad_fn: VG,
     z0: Tensor,
@@ -246,10 +455,16 @@ def nuts_batched(
     init_step_size: float = 0.1,
     max_delta_energy: float = 1000.0,
     rng=None,
+    inv_mass0: Optional[Tensor] = None,
+    pipeline: bool = False,
+    lookahead: int = 16,
 ) -> VectorizedNUTSResult:
     """Full vectorized-NUTS run with shared warmup adaptation: dual-averaged
     step size on the mean accept probability over chains, and a diagonal
-    mass from cross-chain moments at each window end."""
+    mass from cross-chain moments at each window end, starting from
+    ``inv_mass0`` (ones when None).  Warmup is lockstep; with ``pipeline``
+    the draws come from ``_pipelined_sampling``, whose per-draw iteration
+    count is reported as the amortised iterations a draw."""
     c, d = z0.shape
     dtype, dev = z0.dtype, z0.device
     rng = TorchNutsRandom(generator) if rng is None else rng
@@ -263,7 +478,8 @@ def nuts_batched(
         )
 
     da = da_init(torch.tensor(init_step_size, dtype=dtype, device=dev))
-    inv_mass = torch.ones((d,), dtype=dtype, device=dev)
+    inv_mass = (torch.ones((d,), dtype=dtype, device=dev) if inv_mass0 is None
+                else torch.as_tensor(inv_mass0, dtype=dtype, device=dev))
     s1 = torch.zeros((d,), dtype=dtype, device=dev)
     s2 = torch.zeros_like(s1)
     n_acc = 0
@@ -286,6 +502,20 @@ def nuts_batched(
     eps_final = (torch.exp(da.log_step_avg) if num_warmup > 0
                  else torch.tensor(init_step_size, dtype=dtype, device=dev))
 
+    t_sampling = time.perf_counter()
+    if pipeline:
+        zs, aps, dvgs, iters, c_leaps, pipe_syncs = _pipelined_sampling(
+            value_and_grad_fn, z, val, grad, eps_final, inv_mass, rng, num_samples,
+            max_depth, max_delta_energy, lookahead=lookahead,
+        )
+        return VectorizedNUTSResult(
+            samples=zs, accept_prob=aps, diverging=dvgs,
+            num_leapfrog=torch.full((num_samples,), -(-iters // max(num_samples, 1)), dtype=torch.int64),
+            step_size=eps_final, inv_mass=inv_mass, warmup_leapfrog=warmup_leapfrog,
+            chain_leapfrog=c_leaps, host_syncs=syncs + pipe_syncs,
+            sampling_seconds=time.perf_counter() - t_sampling,
+        )
+
     zs = torch.empty((num_samples, c, d), dtype=dtype, device=dev)
     aps = torch.empty((num_samples, c), dtype=dtype, device=dev)
     dvgs = torch.empty((num_samples, c), dtype=torch.bool, device=dev)
@@ -307,4 +537,5 @@ def nuts_batched(
         warmup_leapfrog=warmup_leapfrog,
         chain_leapfrog=c_leaps,
         host_syncs=syncs,
+        sampling_seconds=time.perf_counter() - t_sampling,
     )

@@ -77,15 +77,28 @@ Phases (each prints one or more JSON lines tagged "phase"):
      128 particles, 8 chains, 200 + 400) and particle Gibbs (32 particles)
      against the Kalman grid posterior of a; each with the limits of its
      JAX test, its wall time and the filters' particle-steps per second;
- 13. the {"kernels": [...]} summary (K3 once for each of its four paths,
-     K4 for each of its three, K5 for each of its four),
-     the card's name and power limit, and
-     the last line {"ok": true, "device": {...}}.
+ 13. the remaining MCMC modes at full width: phase 11's AR(2) under
+     mass="dense" (stage A and the whitened stage B both on K3), resumed
+     for 400 draws from its resume_state after a torch.save/torch.load
+     round trip, and under NUTS(max_depth=8, pipelined=True) (K3); phase
+     3's floor under the pipelined engine (K1); phase 11's AR(1) ChEES
+     run resumed for 400 draws with fused_leapfrog=True (K5 once a
+     transition); chain_method="vmap" (no kernel) at the floor (1024
+     chains, 200 + 200) and on the conjugate model (64 chains, 500 +
+     1000); and phase 8's ARD under the pipelined engine (500 + ARD13_DRAWS
+     draws), its iterations a draw and ms an iteration beside phase 8's
+     lockstep leaves.  Each against its phase's reference (least squares,
+     MCSE, closed form) with R-hat;
+ 14. the {"kernels": [...]} summary (K1 for its main paths and for the
+     pipelined floor, K3 once for each of its six paths, K4 for each of
+     its three, K5 for each of its five), the card's name and power
+     limit, and the last line {"ok": true, "device": {...}}.
 
 Every launch counter is set to 0 just before each sample() or
 perform_inference() run and read just after it; a run whose kernels did
 not launch as expected (the value+grad kernel once per value+grad call,
-K5 once per transition, none on the paths of phases 8-10 and 12) fails
+K5 once per transition, none on the paths of phases 8-10 and 12 and on
+phase 13's vmap and ARD runs) fails
 the script.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
 brancher_torch package beside it, it exits 2 at once.
@@ -126,21 +139,25 @@ SOURCES = ("glm_vg", "leapfrog")
 # each value+grad kernel's shape on its main path (phase 3 and 6 for K1,
 # K2 and K6)
 MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor", "logreg_f32": "floor"}
-# K3 runs on four main paths and K4 on three, one entry each in the summary:
-# (section and run of RESULTS, phase-2 shape)
-NORMAL_PATHS = {"glm_normal_f32": ((("conjugate", "auto"), "conjugate"),
-                                   (("mxu_linreg", "auto"), "linreg"),
-                                   (("ar1", "auto"), "ar1"), (("ar2", "auto"), "ar2")),
-                "glm_normal_bf16": ((("conjugate", "bf16"), "conjugate"),
-                                    (("mxu_linreg", "bf16"), "linreg"),
-                                    (("ar1", "bf16"), "ar1"))}
-# K5 runs on four main paths, one entry each in the summary: (section and
+# K3 runs on six main paths and K4 on three, one entry each in the summary,
+# and K1 has an entry for the pipelined floor beside its own: (section and
+# run of RESULTS, phase-2 shape)
+VG_PATHS = {"glm_bernoulli_f32": ((("floor_pipelined", "auto"), "floor"),),
+            "glm_normal_f32": ((("conjugate", "auto"), "conjugate"),
+                               (("mxu_linreg", "auto"), "linreg"),
+                               (("ar1", "auto"), "ar1"), (("ar2", "auto"), "ar2"),
+                               (("ar2_dense", "auto"), "ar2"), (("ar2_pipelined", "auto"), "ar2")),
+            "glm_normal_bf16": ((("conjugate", "bf16"), "conjugate"),
+                                (("mxu_linreg", "bf16"), "linreg"),
+                                (("ar1", "bf16"), "ar1"))}
+# K5 runs on five main paths, one entry each in the summary: (section and
 # run of RESULTS, phase-2 shape, family, phase-2 step count; None: the one
 # nearest the run's leapfrogs per draw)
 LEAPFROG_PATHS = ((("chees", "fused"), "floor", "bernoulli_logit", None),
                   (("hmc_conjugate", "fused"), "conjugate", "normal_learned", None),
                   (("hmc_floor", "fused"), "floor", "bernoulli_logit", 32),
-                  (("ar1_chees", "fused"), "ar1", "normal_learned", None))
+                  (("ar1_chees", "fused"), "ar1", "normal_learned", None),
+                  (("ar1_chees", "resume"), "ar1", "normal_learned", None))
 HMC_FLOOR_STEPS = 32
 # Limit on max|kernel - plain| / max(max|plain|, 1), for val and grad.  The
 # kernel and its plain version differ only in summation order: the worst
@@ -606,11 +623,21 @@ def _run_sample(model, tag, kernel_name, transition_kernel=None, **kw):
         "host_syncs": d["host_syncs"], "host_syncs_per_draw": d["host_syncs"] / transitions,
         "sampler_ms_per_vg_call": d["sampler_seconds"] * 1e3 / max(calls, 1),
         "divergences": d["num_divergences"], "mean_accept": d["mean_accept_prob"],
-        "step_size": float(d["step_size"]),
+        "step_size": float(torch.as_tensor(d["step_size"]).flatten()[0]),  # vmap: one a chain, all equal
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     if "trajectory_length" in d:
         info["trajectory_length"] = float(d["trajectory_length"])
+    if "dense_stage_a" in d:  # mass="dense": stage A's leaves apart from stage B's
+        a = dict(d["dense_stage_a"])
+        a["warmup_leaves_per_transition"] = (a["warmup_leapfrog"] or 0) / max(a["num_warmup"], 1)
+        a["leaves_per_draw"] = a["sampling_leapfrog"] / a["num_samples"]
+        info["stage_a"] = a
+    if kw.get("chain_method") == "vmap":  # each leaf of the masked batch is one call
+        info["value_and_grad_calls_per_transition"] = calls / max(transitions, 1)
+    if "sampling_seconds" in d:  # NUTS: the draws' loop alone
+        info["sampling_seconds"] = d["sampling_seconds"]
+        info["sampling_ms_per_iteration"] = d["sampling_seconds"] * 1e3 / max(steps, 1)
     return res, info
 
 
@@ -643,31 +670,43 @@ def _floor_model():
     return x, y, logistic_regression_model(x, y)
 
 
-def phase_floor():
+def _floor_run(section, tag, kname, phase, draws, warmup=500, **kw):
+    """One sample() run on the floor model (1024 chains): its line with
+    min-ESS, min-ESS/s and R-hat over w; fails unless R-hat < 1.01 and the
+    means are finite, and (after phase 3) holds the means within 5 MCSE of
+    phase 3's "auto" run.  Returns (means, sds, ESS)."""
     import numpy as np
-    from brancher_torch.inference import NUTS
 
     _, _, model = _floor_model()
-    base = dict(kernel=NUTS(max_depth=8), num_warmup=500, num_chains=1024, key=0)
+    res, info = _run_sample(model, f"{section}/{tag}", kname, num_warmup=warmup,
+                            num_samples=draws, num_chains=1024, key=0, **kw)
+    mean, sd, ess, rhat = _post_stats(res, "w")
+    info.update({
+        "phase": phase, "num_warmup": warmup, "num_samples": draws, "min_ess": float(ess.min()),
+        "ess_per_second": float(ess.min()) / info["sampler_seconds"],
+        "max_rhat": float(rhat.max()),
+    })
+    emit(info)
+    RESULTS.setdefault(section, {})[tag] = info
+    if kname is not None:
+        check(info["fused_family"] == "bernoulli_logit", f"{section}/{tag}: family {info['fused_family']}")
+    check(info["max_rhat"] < 1.01, f"{section}/{tag}: max R-hat {info['max_rhat']}")
+    check(bool(np.isfinite(mean).all()) and mean.shape == (32,), f"{section}/{tag}: bad means")
+    if "floor_auto_moments" in RESULTS:  # phase 3 ran
+        _mcse_compare(phase, f"{section}/{tag} vs floor/auto", RESULTS["floor_auto_moments"],
+                      (mean, sd, ess), section)
+    return mean, sd, ess
+
+
+def phase_floor():
+    from brancher_torch.inference import NUTS
+
     runs = {}
     for tag, fp, kname, draws in (("auto", "auto", "glm_bernoulli_f32", 1000),
                                   ("bf16", "bf16", "glm_bernoulli_bf16", 250),
                                   ("off", "off", None, 250)):
-        res, info = _run_sample(model, f"floor/{tag}", kname, fused_potential=fp,
-                                num_samples=draws, **base)
-        mean, sd, ess, rhat = _post_stats(res, "w")
-        info.update({
-            "phase": 3, "num_samples": draws, "min_ess": float(ess.min()),
-            "ess_per_second": float(ess.min()) / info["sampler_seconds"],
-            "max_rhat": float(rhat.max()),
-        })
-        if fp != "off":
-            check(info["fused_family"] == "bernoulli_logit", f"floor/{tag}: family {info['fused_family']}")
-        check(info["max_rhat"] < 1.01, f"floor/{tag}: max R-hat {info['max_rhat']}")
-        check(bool(np.isfinite(mean).all()) and mean.shape == (32,), f"floor/{tag}: bad means")
-        runs[tag] = (mean, sd, ess)
-        emit(info)
-        RESULTS.setdefault("floor", {})[tag] = info
+        runs[tag] = _floor_run("floor", tag, kname, 3, draws, kernel=NUTS(max_depth=8),
+                               fused_potential=fp)
     for tag in ("auto", "bf16"):
         _mcse_compare(3, f"{tag} vs off", runs["off"], runs[tag], "floor")
     RESULTS["floor_auto_moments"] = runs["auto"]
@@ -686,7 +725,7 @@ def phase_conjugate():
         RESULTS.setdefault("conjugate", {})[tag] = run
 
 
-def _check_conjugate(res, run, info, phase, tag):
+def _check_conjugate(res, run, info, phase, tag, family="normal_learned"):
     import numpy as np
 
     mean, sd, ess, rhat = _post_stats(res, "mu")
@@ -697,10 +736,11 @@ def _check_conjugate(res, run, info, phase, tag):
         "mean_diff_in_mcse": abs(float(mean) - float(info["post_mean"])) / mcse,
         "post_var": float(sd**2), "closed_form_var": float(info["post_var"]),
         "var_rel_err": var_rel, "var_rel_tol": float(5 * np.sqrt(2.0 / ess)),
-        "ess": float(ess), "max_rhat": float(rhat),
+        "ess": float(ess), "ess_per_second": float(ess) / run["sampler_seconds"],
+        "max_rhat": float(rhat),
     })
     emit(run)
-    check(run["fused_family"] == "normal_learned", f"{tag}: family {run['fused_family']}")
+    check(run["fused_family"] == family, f"{tag}: family {run['fused_family']}")
     check(run["mean_diff_in_mcse"] < 5.0, f"{tag}: mean off by {run['mean_diff_in_mcse']:.2f} MCSE")
     check(abs(var_rel) < run["var_rel_tol"], f"{tag}: variance off by {var_rel:.4f}")
 
@@ -1035,21 +1075,23 @@ def phase_vae():
     RESULTS["vae"] = {"adam": info}
 
 
-def _ar_run(model, section, tag, kname, trans=None, **kw):
-    """One phase-11 sample() run on an AR model (AR_CHAINS chains,
-    AR_WARMUP + AR_DRAWS): the run's line with min-ESS, min-ESS/s and
+def _ar_run(model, section, tag, kname, trans=None, phase=11, **kw):
+    """One sample() run on an AR model (AR_CHAINS chains, AR_WARMUP +
+    AR_DRAWS unless given): the run's line with min-ESS, min-ESS/s and
     R-hat over [coefficients, noise scale]; fails unless R-hat < 1.01, the
     draws are finite and a fused run recognized normal_learned.  Returns
     (means, sds, ESS) for the MCSE comparisons."""
     import numpy as np
 
+    kw = {"num_warmup": AR_WARMUP, "num_samples": AR_DRAWS, **kw}
     res, info = _run_sample(model, f"{section}/{tag}", kname, transition_kernel=trans,
-                            num_warmup=AR_WARMUP, num_samples=AR_DRAWS, num_chains=AR_CHAINS,
-                            **kw)
+                            num_chains=AR_CHAINS, **kw)
+    RESULTS.setdefault("resume_states", {})[f"{section}/{tag}"] = res.diagnostics["resume_state"]
     parts = [_post_stats(res, n) for n in ("coeffs", "noise_scale")]
     mean, sd, ess, rhat = (np.concatenate([np.ravel(p[i]) for p in parts]) for i in range(4))
     info.update({
-        "phase": 11, "chains": AR_CHAINS, "num_warmup": AR_WARMUP, "num_samples": AR_DRAWS,
+        "phase": phase, "chains": AR_CHAINS, "num_warmup": kw["num_warmup"],
+        "num_samples": kw["num_samples"],
         "post_mean": mean.tolist(), "post_sd": sd.tolist(), "min_ess": float(ess.min()),
         "ess_per_second": float(ess.min()) / info["sampler_seconds"],
         "max_rhat": float(rhat.max()),
@@ -1088,6 +1130,7 @@ def phase_ar():
                             fused_potential=fp, key=11)
     for tag in ("auto", "bf16"):
         _mcse_compare(11, f"ar1/{tag} vs off", runs["off"], runs[tag], "ar1")
+    RESULTS["ar1_off_moments"] = runs["off"]
     chees = _ar_run(model, "ar1_chees", "fused", "glm_normal_f32", trans="leapfrog_f32",
                     kernel=ChEESHMC(), fused_leapfrog=True, key=12)
     _mcse_compare(11, "ar1_chees/fused vs ar1/off", runs["off"], chees, "ar1_chees")
@@ -1097,8 +1140,9 @@ def phase_ar():
     # pull and the noise scale's O(1/T) offset)
     length, coeffs = AR_DATA[2]
     data = make_ar_data(length, coeffs, AR_NOISE, seed=0)
-    mean, sd, _ = _ar_run(ar_model(data, 2), "ar2", "auto", "glm_normal_f32",
-                          kernel=NUTS(max_depth=8), fused_potential="auto", key=13)
+    mean, sd, ess = _ar_run(ar_model(data, 2), "ar2", "auto", "glm_normal_f32",
+                            kernel=NUTS(max_depth=8), fused_potential="auto", key=13)
+    RESULTS["ar2_auto_moments"] = (mean, sd, ess)
     lsq = _ar_least_squares(data, 2)
     line = {"phase": 11, "compare": "ar2/auto vs least squares", "least_squares": lsq.tolist(),
             "max_diff_in_post_sd": float(np.max(np.abs(mean - lsq) / sd)), "limit": 0.5}
@@ -1106,6 +1150,126 @@ def phase_ar():
     RESULTS["ar2"]["vs least squares"] = line
     check(line["max_diff_in_post_sd"] < 0.5,
           f"ar2: posterior means {line['max_diff_in_post_sd']:.2f} sd from least squares")
+
+
+# phase 13's ARD run under the pipelined engine: phase 8's model, chains and
+# warmup, its draws cut from phase 8's ARD_DRAWS for time (printed as
+# "reduced" in its line): with 500 draws the whole script took 967 s on an
+# H100, too near its 1200 s limit for a slower host (PERF.md)
+ARD13_DRAWS = 300
+
+
+def _roundtrip(state):
+    """A resume_state through torch.save and torch.load."""
+    import io
+    import torch
+
+    buf = io.BytesIO()
+    torch.save(state, buf)
+    buf.seek(0)
+    return torch.load(buf)
+
+
+def _lsq_check(section, tag, mean, sd, lsq):
+    import numpy as np
+
+    line = {"phase": 13, "compare": f"{section}/{tag} vs least squares",
+            "least_squares": lsq.tolist(),
+            "max_diff_in_post_sd": float(np.max(np.abs(mean - lsq) / sd)), "limit": 0.5}
+    emit(line)
+    RESULTS[section][f"{tag} vs least squares"] = line
+    check(line["max_diff_in_post_sd"] < 0.5,
+          f"{section}/{tag}: posterior means {line['max_diff_in_post_sd']:.2f} sd from least squares")
+
+
+def phase_modes():
+    import numpy as np
+    from brancher_torch.inference import NUTS, ChEESHMC
+    from brancher_torch.models import ar_model, conjugate_normal_model, make_ar_data
+
+    # AR(2) under dense mass: stage A (diagonal) and the whitened stage B,
+    # both on K3; then resumed from its checkpoint with no warmup
+    length, coeffs = AR_DATA[2]
+    data = make_ar_data(length, coeffs, AR_NOISE, seed=0)
+    ar2 = ar_model(data, 2)
+    lsq = _ar_least_squares(data, 2)
+    mean, sd, _ = _ar_run(ar2, "ar2_dense", "auto", "glm_normal_f32", phase=13,
+                          kernel=NUTS(max_depth=8), mass="dense", key=14)
+    _lsq_check("ar2_dense", "auto", mean, sd, lsq)
+    rs = _roundtrip(RESULTS["resume_states"]["ar2_dense/auto"])
+    mean, sd, _ = _ar_run(ar2, "ar2_dense", "resume", "glm_normal_f32", phase=13,
+                          kernel=NUTS(max_depth=8), mass="dense", resume_state=rs, num_warmup=0,
+                          num_samples=400, key=15)
+    _lsq_check("ar2_dense", "resume", mean, sd, lsq)
+    run = RESULTS["ar2_dense"]["resume"]
+    check(run["warmup_leaf_iterations"] == 0 and "stage_a" not in run,
+          "ar2_dense/resume: the resumed run warmed up")
+    check(run["mean_accept"] > 0.5, f"ar2_dense/resume: mean accept {run['mean_accept']}")
+
+    # the draw-pipelined engine on AR(2) (K3) and the floor (K1)
+    mean, sd, ess = _ar_run(ar2, "ar2_pipelined", "auto", "glm_normal_f32", phase=13,
+                            kernel=NUTS(max_depth=8, pipelined=True), key=16)
+    _lsq_check("ar2_pipelined", "auto", mean, sd, lsq)
+    if "ar2_auto_moments" in RESULTS:  # phase 11 ran
+        _mcse_compare(13, "ar2_pipelined/auto vs ar2/auto", RESULTS["ar2_auto_moments"],
+                      (mean, sd, ess), "ar2_pipelined")
+    _floor_run("floor_pipelined", "auto", "glm_bernoulli_f32", 13, 1000,
+               kernel=NUTS(max_depth=8, pipelined=True))
+
+    # AR(1) ChEES resumed with K5, its adapted trajectory length carried
+    length, coeffs = AR_DATA[1]
+    ar1 = ar_model(make_ar_data(length, coeffs, AR_NOISE, seed=0), 1)
+    chees = dict(kernel=ChEESHMC(), fused_leapfrog=True)
+    if "ar1_chees/fused" not in RESULTS.get("resume_states", {}):  # phase 11 did not run
+        _ar_run(ar1, "ar1_chees", "fused", "glm_normal_f32", trans="leapfrog_f32", phase=13,
+                key=12, **chees)
+    rs = _roundtrip(RESULTS["resume_states"]["ar1_chees/fused"])
+    moments = _ar_run(ar1, "ar1_chees", "resume", "glm_normal_f32", trans="leapfrog_f32",
+                      phase=13, resume_state=rs, num_warmup=0, num_samples=400, key=17, **chees)
+    run = RESULTS["ar1_chees"]["resume"]
+    traj = float(rs["trajectory_length"])
+    run["trajectory_length_rel_diff"] = abs(run["trajectory_length"] / traj - 1.0)
+    check(run["trajectory_length_rel_diff"] <= 1e-6,
+          f"ar1_chees/resume: trajectory length {run['trajectory_length']} against {traj}")
+    if "ar1_off_moments" in RESULTS:  # phase 11 ran
+        _mcse_compare(13, "ar1_chees/resume vs ar1/off", RESULTS["ar1_off_moments"], moments,
+                      "ar1_chees")
+
+    # the per-chain engines (no kernel): the floor, depth cut for time, and
+    # the conjugate model against its closed form
+    _floor_run("floor_vmap", "auto", None, 13, 200, warmup=200, kernel=NUTS(max_depth=8),
+               chain_method="vmap")
+    model, info = conjugate_normal_model()
+    res, run = _run_sample(model, "conjugate_vmap/auto", None, kernel=NUTS(max_depth=8),
+                           chain_method="vmap", num_warmup=500, num_samples=1000, num_chains=64,
+                           key=1)
+    RESULTS["conjugate_vmap"] = {"auto": run}
+    _check_conjugate(res, run, info, 13, "conjugate_vmap/auto", family=None)
+    check(run["max_rhat"] < 1.01, f"conjugate_vmap/auto: R-hat {run['max_rhat']}")
+
+    # phase 8's ARD under the pipelined engine (no kernel)
+    model, fused = _ard_model_and_potential()
+    res, run = _run_sample(model, "ard_pipelined/fused", None,
+                           kernel=NUTS(max_depth=8, pipelined=True), num_warmup=ARD_WARMUP,
+                           num_samples=ARD13_DRAWS, num_chains=1024, key=6, target_accept=0.95,
+                           value_and_grad_fn=fused, ess_vars=["w", "tau"])
+    d = res.diagnostics
+    ess = np.concatenate([np.ravel(d["ess"][n]) for n in ("w", "tau")])
+    rhat = np.concatenate([np.ravel(d["r_hat"][n]) for n in ("w", "tau")])
+    run.update({
+        "phase": 13, "chains": 1024, "num_warmup": ARD_WARMUP, "num_samples": ARD13_DRAWS,
+        "min_ess": float(ess.min()), "ess_cap": float(1024 * ARD13_DRAWS),
+        "ess_per_second": float(ess.min()) / run["sampler_seconds"], "max_rhat": float(rhat.max()),
+        "mean_live_leapfrogs_per_draw": float(d["chain_leapfrog"].mean()),
+        **({"reduced": {"num_samples": [ARD_DRAWS, ARD13_DRAWS]}} if ARD13_DRAWS != ARD_DRAWS else {}),
+    })
+    if "ard" in RESULTS:  # phase 8 ran: its lockstep leaves and ms a leaf beside these
+        lock = RESULTS["ard"]["fused"]
+        run["lockstep"] = {k: lock[k] for k in ("leaves_per_draw", "sampling_ms_per_iteration",
+                                                "sampler_ms_per_vg_call", "ess_per_second")}
+    emit(run)
+    RESULTS["ard_pipelined"] = {"fused": run}
+    check(run["max_rhat"] < 1.01, f"ard_pipelined: max R-hat {run['max_rhat']}")
 
 
 def _lgssm_ssm_of_theta(theta):
@@ -1272,7 +1436,8 @@ def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
     for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate",
                     "hmc_floor", "ard", "svi_floor", "vae", "ar1", "ar1_chees", "ar2",
-                    "particles"):
+                    "particles", "ar2_dense", "ar2_pipelined", "floor_pipelined", "floor_vmap",
+                    "conjugate_vmap", "ard_pipelined"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -1302,13 +1467,13 @@ def summary_line():
             main = next(r for r in rows if r["shape"] == MAIN_SHAPE[name])
             out.append(_summary_entry(name, k, rows, main, main_launches[name],
                                       ("val_max_abs", "grad_max_abs")))
-            continue
-        if name in NORMAL_PATHS:  # K3/K4: one entry per path, its run's launches
-            for (section, tag), shape in NORMAL_PATHS[name]:
-                main = next(r for r in rows if r["shape"] == shape)
-                out.append(_summary_entry(f"{name}/{section}", k, rows, main,
-                                          RESULTS[section][tag]["launches"][name],
-                                          ("val_max_abs", "grad_max_abs")))
+        # K3/K4, and K1's pipelined floor: one entry per path, its run's launches
+        for (section, tag), shape in VG_PATHS.get(name, ()):
+            main = next(r for r in rows if r["shape"] == shape)
+            out.append(_summary_entry(f"{name}/{section}", k, rows, main,
+                                      RESULTS[section][tag]["launches"][name],
+                                      ("val_max_abs", "grad_max_abs")))
+        if name in MAIN_SHAPE or name in VG_PATHS:
             continue
         # K5: one entry per path, its launches from that path's run and its
         # row at that path's shape and family, at the path's step count (or
@@ -1319,19 +1484,20 @@ def summary_line():
             path_rows = [r for r in rows if r["shape"] == shape and r["family"] == family]
             want = run["leaves_per_draw"] if steps is None else steps
             main = min(path_rows, key=lambda r: abs(r["n_steps"] - want))
-            out.append(_summary_entry(f"{name}/{section}", k, path_rows, main,
-                                      run["launches"][name], ("max_abs",)))
+            label = f"{name}/{section}" + ("" if tag == "fused" else f"/{tag}")
+            out.append(_summary_entry(label, k, path_rows, main, run["launches"][name],
+                                      ("max_abs",)))
     return {"kernels": out}
 
 
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
          5: phase_mxu, 6: phase_chees, 7: phase_hmc, 8: phase_ard, 9: phase_svi_floor,
-         10: phase_vae, 11: phase_ar, 12: phase_particles}
+         10: phase_vae, 11: phase_ar, 12: phase_particles, 13: phase_modes}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="", help="comma-separated subset of 1-12 (default: all)")
+    parser.add_argument("--phases", default="", help="comma-separated subset of 1-13 (default: all)")
     args = parser.parse_args()
     try:
         import torch
@@ -1358,7 +1524,7 @@ def main() -> int:
         STEPS[num]()
         RESULTS.setdefault("phase_seconds", {})[num] = time.perf_counter() - t
     RESULTS["total_seconds"] = time.perf_counter() - t0
-    emit({"phase": 13, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    emit({"phase": 14, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
     if chosen != sorted(STEPS):
         return 0  # a subset: no summary, no "ok" line
     emit(summary_line())

@@ -305,3 +305,57 @@ def test_logreg_at_the_mxu_shape(cuda, d):
     v2, g2 = TLR.logreg_value_and_grad(w, x, y, 1.5)
     assert TLR._LAST.data is data and TLR.LOGREG.launches == before + 2
     assert torch.equal(v, v2) and torch.equal(g, g2)
+
+
+def _floor_family(device):
+    """The floor's family (chip_smoke.py phase 3): make_logreg_data(1000, 32)."""
+    from brancher_torch.models import logistic_regression_model, make_logreg_data
+
+    x, y, _ = make_logreg_data(1000, 32, seed=0)
+    comp = logistic_regression_model(x, y).compiled(device)
+    fam = G.recognize_fused_family(comp, comp.initial_params)
+    assert fam is not None and fam.family == "bernoulli_logit"
+    z = 0.3 * torch.randn((1024, 32), generator=torch.Generator(device=device).manual_seed(6),
+                          device=device)
+    return fam, z
+
+
+# mass="dense": stage B runs the value+grad kernel inside the whitened
+# wrapper (v, g @ L) at mu + zt @ L.T; K3 on AR(2), K1 at the floor, each
+# against the same wrapper around its plain version
+@pytest.mark.parametrize("path", ["ar2", "floor"])
+def test_whitened_wrapper_around_the_kernel(cuda, path):
+    from brancher_torch.inference.mcmc import dense_statistics, whiten, whitened
+
+    fam, z = _ar_family(2, 1000, cuda) if path == "ar2" else _floor_family(cuda)
+    c, d = z.shape
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    mix = torch.eye(d, device=cuda) + 0.4 * torch.randn((d, d), generator=gen, device=cuda) / d**0.5
+    zs_a = z[:, None, :] + 0.02 * torch.randn((c, 4, d), generator=gen, device=cuda) @ mix.T
+    mu, _, chol = dense_statistics(zs_a)
+    zt = whitened(z, mu, chol)
+    kernel = G.kernel_for(fam.family, "f32")
+    before = kernel.launches
+    v, g = whiten(fam.value_and_grad("f32"), mu, chol)(zt)
+    v_ref, g_ref = whiten(fam.plain, mu, chol)(zt)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _close(v, v_ref, TOL)
+    _close(g, g_ref, TOL)
+
+
+# NUTS(pipelined=True): the value+grad kernel runs once an iteration, and
+# the counted calls are the launches
+def test_pipelined_run_launches_once_a_call(cuda):
+    from brancher_torch.inference import NUTS, sample
+    from brancher_torch.models import ar_model, make_ar_data
+
+    model = ar_model(make_ar_data(1000, (0.5, 0.2), 0.3, seed=0), 2)
+    kernel = G.kernel_for("normal_learned", "f32")
+    before = kernel.launches
+    res = sample(model, kernel=NUTS(max_depth=6, pipelined=True), num_warmup=60, num_samples=40,
+                 num_chains=64, key=0, device="cuda")
+    d = res.diagnostics
+    assert d["fused_family"] == "normal_learned"
+    assert kernel.launches - before == d["value_and_grad_calls"] > 0
+    assert bool(torch.isfinite(res.samples["coeffs"]).all())
