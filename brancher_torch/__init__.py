@@ -20,5 +20,13 @@ from .variables import (
 )
 from .standard_variables import *  # noqa: F401,F403
 from .compiler import CompiledModel
+from .stochastic_processes import ARProcess, GaussianProcess, MarkovProcess
+from .model_comparison import compare, loo, waic
+from .transformations import (
+    PlanarFlow,
+    Sigmoid as SigmoidFlow,
+    TransformedVariable,
+    TriangularLinear,
+)
 
 __version__ = "0.1.0"

@@ -4,8 +4,11 @@ The JAX package's state arrives as numpy arrays (``np.asarray`` of its
 jax arrays); these functions turn it into the port's state on a chosen
 device, so that both packages compute the same function in the parity
 tests: the ``params`` dict of a compiled model (flax module variables
-included, as the port's module params), the fields of a ``FusedFamily``,
-flat ``z`` batches and step-size / inverse-mass arrays.  Nothing here
+included, as the port's module params; a flow's learnable leaves, which
+are plain entries ``{name}__flow{i}_{param}``), SVI results (WVGD/SVGD's
+``particles_z`` too), the fields of a ``FusedFamily`` or a
+``CategoricalFusedFamily``, flat ``z`` batches and step-size /
+inverse-mass arrays.  Nothing here
 imports JAX or ``brancher_tpu``.
 """
 from __future__ import annotations
@@ -67,14 +70,29 @@ def params_to_torch(params: Mapping[str, Any], device=None) -> Dict[str, Any]:
 
 
 FUSED_FIELDS = ("family", "x", "y", "b", "u", "c0", "prior_mean", "prior_inv_var", "ll_scale")
+CATEGORICAL_FIELDS = ("x", "y_onehot", "c", "cols", "ks", "prior_mean", "prior_inv_var",
+                      "ll_scale")
 
 
 def fused_family_from_numpy(fields: Mapping[str, Any], device=None):
     """A port ``FusedFamily`` from the fields of a JAX one
-    (``{name: np.asarray(getattr(fam, name))}``)."""
-    from .ops.glm import FusedFamily
+    (``{name: np.asarray(getattr(fam, name))}``), or a
+    ``CategoricalFusedFamily`` from a JAX one's (``CATEGORICAL_FIELDS``;
+    its ``cols`` and ``ks`` become int64 index tensors)."""
+    from .ops.glm import CategoricalFusedFamily, FusedFamily
 
     dev = resolve_device(device)
+    if "cols" in fields:
+        return CategoricalFusedFamily(
+            x=to_tensor(fields["x"], dev).contiguous(),
+            y_onehot=to_tensor(fields["y_onehot"], dev).contiguous(),
+            c=to_tensor(fields["c"], dev).contiguous(),
+            cols=to_tensor(fields["cols"], dev, dtype=torch.int64).reshape(-1),
+            ks=to_tensor(fields["ks"], dev, dtype=torch.int64).reshape(-1),
+            prior_mean=to_tensor(fields["prior_mean"], dev).reshape(-1),
+            prior_inv_var=to_tensor(fields["prior_inv_var"], dev).reshape(-1),
+            ll_scale=float(fields["ll_scale"]),
+        )
     u = fields.get("u")
     return FusedFamily(
         family=str(fields["family"]),

@@ -15,6 +15,8 @@ frozen DAG in topological order and evaluates, for ONE sample:
     constrained-space densities SVI's guides and estimators use (lines
     383-411, 1955), over the walks ``_walk_log_prob`` and ``_walk_mean``
     (lines 292-314, 355-369)
+  * ``pointwise_log_likelihood`` — the per-datapoint log-likelihood of
+    each observed variable, for WAIC and PSIS-LOO (lines 413-445)
   * ``data_loader_names`` / ``sample_subgraph_one`` — the minibatch draw
     SVI makes every step (lines 1877-1911)
 
@@ -25,6 +27,12 @@ with ``torch.func.vmap`` by the caller.  The walks therefore avoid
 Flat latents follow ``jax.flatten_util.ravel_pytree`` of the JAX
 package: the continuous latents in SORTED name order, each flattened
 row-major (``ravel_z`` / ``unravel_z``).
+
+A plate over an event-valued distribution (MVN, Dirichlet, Concrete)
+broadcasts each parameter's batch prefix and keeps its event suffix
+(``param_event_ndims``).  A flow-transformed variable
+(``transformations.TransformedDistribution``) is drawn with its density
+in one pass (``sample_and_log_prob``), as in the JAX walk.
 
 A variable's ``log_prob_mask`` (missing data, set by
 ``stochastic_processes.observe_timeseries``) multiplies its elementwise
@@ -62,8 +70,6 @@ class CompiledModel:
 
     def __init__(self, model: ProbabilisticModel, device=None):
         dev = resolve_device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         self.model = model
         self.order: List[Variable] = ancestral_closure(model.output_variables)
@@ -116,14 +122,20 @@ class CompiledModel:
     def _expand_plate(self, v: RandomVariable, params: Dict[str, Tensor]) -> Dict[str, Tensor]:
         if not v.plate_shape:
             return params
-        if v.distribution.event_ndim != 0:
-            raise NotImplementedError(
-                "plates over event-valued distributions come with those "
-                "distributions (ROADMAP queue 1, item 14)"
-            )
-        shape = torch.broadcast_shapes(*(p.shape for p in params.values())) if params else ()
-        target = tuple(v.plate_shape) + tuple(shape)
-        return {k: torch.broadcast_to(p, target) for k, p in params.items()}
+        dist = v.distribution
+        plate = tuple(v.plate_shape)
+        if dist.event_ndim == 0:
+            shape = torch.broadcast_shapes(*(p.shape for p in params.values())) if params else ()
+            return {k: torch.broadcast_to(p, plate + tuple(shape)) for k, p in params.items()}
+        # event-valued distributions (MVN, Dirichlet, Concrete): each
+        # parameter keeps its own event suffix (``param_event_ndims``), the
+        # batch prefixes broadcast to a common shape, and everything tiles
+        # across the plate (JAX compiler.py:216-240)
+        evr = dict(dist.param_event_ndims or {})
+        ranks = {k: evr.get(k, dist.event_ndim) for k in params}
+        common = torch.broadcast_shapes(*(p.shape[:p.dim() - ranks[k]] for k, p in params.items()))
+        return {k: torch.broadcast_to(p, plate + tuple(common) + tuple(p.shape[p.dim() - ranks[k]:]))
+                for k, p in params.items()}
 
     def _rv_log_prob(self, v: RandomVariable, value, dist_params, store: ParamStore) -> Tensor:
         lp = v.distribution.log_prob(value, **dist_params)
@@ -169,10 +181,21 @@ class CompiledModel:
                 values[v.name] = v.compute(values, store)
                 continue
             p = self._params(v, values, store)
+            dist = v.distribution
+            if hasattr(dist, "sample_and_log_prob"):
+                # a flow-transformed variable: its density accumulates along
+                # the sampling direction (JAX compiler.py:280-284)
+                if v.name in noise:
+                    value, lp = dist.from_noise_and_log_prob(noise[v.name], **p)
+                else:
+                    value, lp = dist.sample_and_log_prob(generator, **p)
+                values[v.name] = value
+                logp = logp + (v.log_prob_scale * lp if v.log_prob_scale != 1.0 else lp)
+                continue
             if v.name in noise:
-                value = v.distribution.from_noise(noise[v.name], **p)
+                value = dist.from_noise(noise[v.name], **p)
             else:
-                value = v.distribution.sample(generator, **p)
+                value = dist.sample(generator, **p)
             values[v.name] = value
             logp = logp + self._rv_log_prob(v, value, p, store)
         return values, logp
@@ -291,6 +314,40 @@ class CompiledModel:
             else:
                 raise ValueError(f"latent {v.name!r} missing from values")
         return lp
+
+    def pointwise_log_likelihood(self, params, values: Dict[str, Tensor],
+                                 given: Optional[Dict[str, Tensor]] = None) -> Dict[str, Tensor]:
+        """Elementwise log-likelihood of each OBSERVED variable at the
+        constrained latent ``values``: the per-datapoint terms WAIC and
+        PSIS-LOO read (``model_comparison.py``).  ``log_prob_scale`` and the
+        missing-data mask multiply elementwise (a masked point reads 0; the
+        caller drops it)."""
+        store = self._as_store(params)
+        given = {k: store.const(torch.as_tensor(g)) for k, g in (given or {}).items()}
+        walk_values: Dict[str, Tensor] = dict(given)
+        out: Dict[str, Tensor] = {}
+        for v in self.order:
+            if v.name in given:
+                continue
+            if isinstance(v, DeterministicVariable):
+                walk_values[v.name] = v.compute(walk_values, store)
+                continue
+            p = self._params(v, walk_values, store)
+            if v.is_observed and v.name not in values:
+                value = self._observed_value(v, walk_values, store)
+                walk_values[v.name] = value
+                lp = v.distribution.log_prob(value, **p)
+                mask = getattr(v, "log_prob_mask", None)
+                if mask is not None:
+                    lp = lp * store.const(mask)
+                if v.log_prob_scale != 1.0:
+                    lp = v.log_prob_scale * lp
+                out[v.name] = lp
+            elif v.name in values:
+                walk_values[v.name] = values[v.name]
+            else:
+                raise ValueError(f"latent {v.name!r} missing from values")
+        return out
 
     def log_prob(self, params, values: Dict[str, Tensor]) -> Tensor:
         """Joint log-density over a leading batch axis of ``values``

@@ -40,7 +40,9 @@ config = RuntimeConfig()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """The device an entry point runs on: ``device`` or the default.
+    """The device an entry point runs on: ``device`` or the default, a bare
+    "cuda" resolved to the current card ("cuda:0"), so that every cache keyed
+    by the device agrees.
 
     Raises when the result is a CUDA device and CUDA is not available, so
     that no run falls back to the CPU without being asked to.
@@ -52,6 +54,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             f"{config.device!r}) but CUDA is not available; pass "
             "device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -1,4 +1,5 @@
-"""Inference engines ported so far: SVI and point estimation, vectorized
+"""Inference engines: SVI and point estimation, Wasserstein and Stein
+variational gradient descent (``particle_inference_tools``), vectorized
 NUTS (lockstep or draw-pipelined), chain-batched HMC and ChEES, the
 per-chain NUTS and HMC steps of ``chain_method="vmap"``, dense mass and
 resumed runs, their diagnostics, and the single-device particle methods
@@ -6,8 +7,7 @@ resumed runs, their diagnostics, and the single-device particle methods
 Gibbs).
 
 Counterpart of ``brancher_tpu/inference``.  Sharded chains and particle
-filters and SVGD / WVGD are still to port (ROADMAP queue 1, items 15 and
-14).
+filters are still to port (ROADMAP queue 1, item 15).
 """
 
 from .svi import (
@@ -38,4 +38,5 @@ from .particle_gibbs import PGResult, particle_gibbs_sample
 from .pmmh import PMMHResult, pmmh_sample
 from .smc import SMCResult, smc_sample
 from .streaming_smc import StreamingResult, StreamingSMC, streaming_particle_filter
+from .particle_inference_tools import run_svgd, run_wvgd
 from .tempered_smc import TemperedSMCResult, smc_posterior_sample, tempered_smc

@@ -74,7 +74,9 @@ class DSLGuide:
         """Standard-normal draws for every variable the walk samples, or None
         where one of them has no noise form (``from_noise``)."""
         sampled = self._sampled(given)
-        if not sampled or not all(hasattr(v.distribution, "from_noise") for v in sampled):
+        if not sampled or not all(hasattr(v.distribution, "from_noise")
+                                  or hasattr(v.distribution, "from_noise_and_log_prob")
+                                  for v in sampled):
             return None
         return {v.name: torch.randn((n,) + self.comp.shapes[v.name], generator=generator,
                                     device=self.comp.device) for v in sampled}

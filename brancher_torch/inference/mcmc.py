@@ -16,9 +16,13 @@ The batched potential ``[C, d] -> ([C], [C, d])`` of the vectorized
 engines is, in order of preference: the caller's ``value_and_grad_fn``;
 the fused GLM potential that ``ops.glm.recognize_fused_family`` finds in
 the model (on CUDA its hand-written kernel); else autodiff of the
-compiled log-density, ``torch.func.vmap(torch.func.grad_and_value(...))``.
+compiled log-density (``hmc.autodiff_value_and_grad``).
 As in the JAX package the per-chain engines use only the autodiff one,
-so they launch no kernel.
+so they launch no kernel, and a family that is not ``auto_upgradable``
+(the softmax ``CategoricalFusedFamily``) leaves the model on autodiff;
+``fused_potential="bf16"`` on it samples in f32 and warns.  A discrete
+latent that is neither given nor enumerated raises the compiler's
+``ValueError``, as in JAX.
 
 ``mass="dense"`` whitens the posterior (JAX ``mcmc.py:794-879``): stage A
 runs the vectorized engine with a diagonal mass for part of the warmup
@@ -413,6 +417,11 @@ def sample(
 
             comp._fused_family_cache = recognize_fused_family(comp, params)
         fam = comp._fused_family_cache
+        if fam is not None and not getattr(fam, "auto_upgradable", True):
+            fam = None  # the softmax family: autodiff, as in JAX (mcmc.py:640-641)
+        if fam is not None and fused_potential == "bf16" and fam.family not in (
+                "bernoulli_logit", "normal_learned"):
+            fam = None  # bf16 covers the two dense-matmul families
         if fam is not None:
             dtype = "bf16" if fused_potential == "bf16" else "f32"
             built = comp.__dict__.setdefault("_fused_vg_built", {})
@@ -427,8 +436,8 @@ def sample(
     if fused_potential == "bf16" and not bf16_active:
         warnings.warn(
             "fused_potential='bf16' was requested but the bf16 fused "
-            "potential is not in use (the GLM probe failed, or a "
-            "precondition — chain_method='vectorized', default params, no "
+            "potential is not in use (the GLM probe failed, the family "
+            "is unsupported, or a precondition — chain_method='vectorized', default params, no "
             "given, no explicit value_and_grad_fn — does not hold); sampling "
             "proceeds with the f32 path.", stacklevel=2,
         )

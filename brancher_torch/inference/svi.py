@@ -15,20 +15,35 @@ A loss is ``loss_fn(opt_params, generator, num_samples, draws=None)``;
 ``draws`` = {"data": the loaders' values, "noise": the guide's noise}
 replays given numbers instead of drawing (the parity tests feed JAX's).
 
-Not ported yet, and refused with ``NotImplementedError``: WVGD and SVGD
-(ROADMAP queue 1, item 14), ``mesh=`` (item 15),
-``ReverseKL(enumerate_discrete=True)`` (item 13) and a ``matmul_precision``
-other than None or "highest" (item 14).  ``scan_unroll`` and
-``batch_axis`` are accepted and do nothing: there is no scan to unroll
-and no mesh.
+``WassersteinVariationalGradientDescent`` and
+``SteinVariationalGradientDescent`` dispatch to the particle engines of
+``particle_inference_tools.py``, as in the JAX package.
+
+``matmul_precision`` follows what JAX does on its accelerator, inside the
+run only (``matmul_precision_scope``): "bfloat16" ("default", "fastest")
+rounds both operands of every product in the loss (``matmul``, ``@``,
+``mm``, ``bmm``, ``einsum``, ``tensordot``, ``linear``, so ``BF.matmul``,
+``BF.einsum`` and the ``nn.Linear`` layers of ``BF.BrancherFunction``) to
+bf16 and multiplies them in f32, which is exact, with f32 accumulation;
+"high" ("tensorfloat32", "bfloat16_3x") runs f32 products as TF32; None,
+"highest" or "float32" keep full f32.  The previous state is restored on
+exit.  JAX's CPU backend ignores the setting, so the port's bf16 loss has
+no CPU reference there (ROADMAP queue 3).
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh=`` (item
+15) and ``ReverseKL(enumerate_discrete=True)`` (item 13).  ``scan_unroll``
+and ``batch_axis`` are accepted and do nothing: there is no scan to
+unroll and no mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from ..compiler import CompiledModel
 from ..config import make_generator
@@ -133,8 +148,10 @@ class MAP(InferenceMethod):
 
 
 class WassersteinVariationalGradientDescent(InferenceMethod):
-    """Wasserstein VGD (``brancher_tpu/inference/svi.py:160``): not ported
-    yet; ``perform_inference`` refuses it (ROADMAP queue 1, item 14)."""
+    """Wasserstein VGD by semi-discrete optimal transport of a particle
+    ensemble: ``method="sinkhorn"`` (an entropic plan, default) or
+    ``"exact"`` (Laguerre-cell dual ascent at rate ``psi_lr``); see
+    ``particle_inference_tools.run_wvgd``."""
 
     def __init__(self, number_particles: int = 50, number_samples: int = 512,
                  proposal_scale: float = 1.0, psi_lr: float = 1.0,
@@ -148,8 +165,8 @@ class WassersteinVariationalGradientDescent(InferenceMethod):
 
 
 class SteinVariationalGradientDescent(InferenceMethod):
-    """SVGD (``brancher_tpu/inference/svi.py:179``): not ported yet;
-    ``perform_inference`` refuses it (ROADMAP queue 1, item 14)."""
+    """Kernelized particle flow (the SVGD update rule), its own method
+    apart from WVGD; see ``particle_inference_tools.run_svgd``."""
 
     def __init__(self, number_particles: int = 50, kernel_bandwidth: Optional[float] = None):
         self.number_particles = number_particles
@@ -166,6 +183,59 @@ class InferenceResult:
     def __repr__(self):
         final = float(self.loss_curve[-1]) if len(self.loss_curve) else float("nan")
         return f"<InferenceResult iterations={len(self.loss_curve)} final_loss={final:.4f}>"
+
+
+_PRODUCTS = frozenset({"matmul", "__matmul__", "__rmatmul__", "mm", "bmm", "einsum",
+                       "tensordot", "linear", "dot", "mv"})
+
+
+class _Bf16Products(TorchFunctionMode):
+    """bf16 operands, f32 accumulation for every product called in scope:
+    each floating f32 operand is rounded to bf16 and back before an f32
+    product (the product of two bf16 values is exact in f32)."""
+
+    @staticmethod
+    def _round(a):
+        if isinstance(a, torch.Tensor) and a.dtype == torch.float32:
+            return a.to(torch.bfloat16).to(torch.float32)
+        if isinstance(a, (list, tuple)):
+            return type(a)(_Bf16Products._round(x) for x in a)
+        return a
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if getattr(func, "__name__", None) in _PRODUCTS:
+            args = self._round(args)
+            kwargs = {k: self._round(v) for k, v in kwargs.items()}
+        return func(*args, **kwargs)
+
+
+_PRECISIONS = {None: "float32", "highest": "float32", "float32": "float32",
+               "bfloat16": "bfloat16", "default": "bfloat16", "fastest": "bfloat16",
+               "high": "tensorfloat32", "tensorfloat32": "tensorfloat32",
+               "bfloat16_3x": "tensorfloat32"}
+
+
+@contextlib.contextmanager
+def matmul_precision_scope(matmul_precision: Optional[str]):
+    """The products of the block at ``matmul_precision`` (module
+    docstring), and the previous state back on exit."""
+    if matmul_precision not in _PRECISIONS:
+        raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
+    mode = _PRECISIONS[matmul_precision]
+    previous = torch.get_float32_matmul_precision()
+    try:
+        if mode == "tensorfloat32":
+            torch.set_float32_matmul_precision("high")
+        elif mode == "bfloat16":
+            torch.set_float32_matmul_precision("highest")
+        if mode == "bfloat16":
+            with _Bf16Products():
+                yield
+        else:
+            yield
+    finally:
+        torch.set_float32_matmul_precision(previous)
 
 
 def _sync(dev: torch.device) -> None:
@@ -204,7 +274,8 @@ def perform_inference(
     "adamw", "sgd", "rmsprop", "adagrad", each with optax's update rule), a
     ``torch.optim.Optimizer`` class, or a factory params -> optimizer.
     ``matmul_precision`` None or "highest" runs every product in f32: TF32
-    stays as PyTorch's default leaves it, off.  With
+    stays as PyTorch's default leaves it, off; "bfloat16" and "high" are
+    scoped to the run (module docstring).  With
     ``perform_inference._benchmark`` set, the step loop runs three more
     times from the same start and ``perform_inference._last_run_seconds``
     is the best of them, ended by a device synchronize.
@@ -212,14 +283,27 @@ def perform_inference(
     del batch_axis, scan_unroll
     if inference_method is None:
         inference_method = ReverseKL()
-    if isinstance(inference_method, WassersteinVariationalGradientDescent):
-        _not_ported("WassersteinVariationalGradientDescent", "item 14")
-    if isinstance(inference_method, SteinVariationalGradientDescent):
-        _not_ported("SteinVariationalGradientDescent", "item 14")
     if mesh is not None:
         _not_ported("perform_inference(mesh=...)", "item 15")
-    if matmul_precision not in (None, "highest"):
-        _not_ported(f"matmul_precision={matmul_precision!r}", "item 14")
+    if matmul_precision not in _PRECISIONS:
+        raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
+    if isinstance(inference_method, WassersteinVariationalGradientDescent):
+        from .particle_inference_tools import run_wvgd
+
+        return run_wvgd(
+            joint_model, number_iterations=number_iterations,
+            number_particles=inference_method.number_particles,
+            lr=inference_method.step_size, key=key,
+            number_samples=inference_method.number_samples,
+            proposal_scale=inference_method.proposal_scale,
+            psi_lr=inference_method.psi_lr, method=inference_method.method, device=device)
+    if isinstance(inference_method, SteinVariationalGradientDescent):
+        from .particle_inference_tools import run_svgd
+
+        return run_svgd(
+            joint_model, number_iterations=number_iterations,
+            number_particles=inference_method.number_particles, optimizer=optimizer, lr=lr,
+            key=key, kernel_bandwidth=inference_method.kernel_bandwidth, device=device)
 
     p_comp: CompiledModel = joint_model.compiled(device)
     dev = p_comp.device
@@ -250,7 +334,8 @@ def perform_inference(
         opt = make_optimizer(leaves)
         losses = torch.empty((number_iterations,), device=dev)
         for i in range(number_iterations):
-            loss = loss_fn(params, gen, number_samples)
+            with matmul_precision_scope(matmul_precision):
+                loss = loss_fn(params, gen, number_samples)
             set_grads(loss, leaves)
             opt.step()
             losses[i] = loss.detach()

@@ -3,11 +3,21 @@
 Counterpart of ``brancher_tpu/ops``.  Ported: the fused GLM value+grad
 (``glm.py``, kernels K1-K4), the fused leapfrog (``leapfrog.py``, K5),
 the whole-X logistic-regression value+grad (``logreg.py``, K6) and the
-chain-batched HMC engine (``batched_hmc.py``).  ``resampling`` is still
-to port (ROADMAP queue 1, item 11).  Importing builds nothing.
+chain-batched HMC engine (``batched_hmc.py``); the softmax family
+(``CategoricalFusedFamily``) has no kernel in either package.
+``resampling`` is still to port (ROADMAP queue 1, item 15).  Importing
+builds nothing.
 """
 
-from .glm import KERNELS, FusedFamily, build_glm_vg, kernel_for, recognize_fused_family
+from .glm import (
+    KERNELS,
+    CategoricalFusedFamily,
+    FusedFamily,
+    build_glm_vg,
+    categorical_vg_reference,
+    kernel_for,
+    recognize_fused_family,
+)
 from .leapfrog import LEAPFROG, build_fused_leapfrog, reference_leapfrog
 from .logreg import (
     LOGREG,

@@ -22,9 +22,14 @@ that the z-space prior is a diagonal Gaussian, extracts the affine design
 of the observed likelihood's parameters, and self-checks the assembled
 potential against the autodiff log-density before trusting it.  It
 probes on the model's device.  An observed AR(p) series is the
-normal_learned family over its lag matrix.  The Categorical branch of the
-JAX recognizer is still to port (ROADMAP queue 1, item 14): those models
-are not recognized yet.  A series observed with a ``log_prob_mask``
+normal_learned family over its lag matrix.  An observed Categorical with
+affine logits is the softmax family (``CategoricalFusedFamily``: each
+latent coordinate scattered into one (feature, class) cell of a weight
+matrix, ``categorical_vg_reference``).  The JAX package has no Pallas
+kernel for it, only two einsums, so neither has the port: its value+grad
+is plain PyTorch (``torch.einsum`` and ``scatter_add``) on every device,
+and it is not ``auto_upgradable``: ``sample()`` keeps a softmax model on
+autodiff, as JAX does.  A series observed with a ``log_prob_mask``
 (missing data) fails the self-check, as in the JAX package, since the
 family counts every row.
 """
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..distributions import Bernoulli, Normal, softplus
+from ..distributions import Bernoulli, Categorical, Normal, softplus
 from ..stochastic_processes import AutoRegressive
 
 Tensor = torch.Tensor
@@ -109,6 +114,30 @@ def normal_vg_reference_bf16(z, x16, y, b, u, c0, prior_mean, prior_inv_var, ll_
     g_loc = e2[:, None] * _bf16_matmul(resid, x16)
     g_s = e2 * rss - n
     grad = ll_scale * (g_loc + g_s[:, None] * u[None, :]) - dz * prior_inv_var[None, :]
+    return val, grad
+
+
+def categorical_vg_reference(z, x, y_onehot, c, cols, ks, prior_mean, prior_inv_var,
+                             ll_scale=1.0):
+    """Structure-preserving softmax potential: z [C,D] -> (val [C], grad
+    [C,D]) (JAX ``pallas_glm.py:145-172``).
+
+    Each flat latent coordinate j is one (feature, class) cell (cols[j],
+    ks[j]) of an effective weight matrix W [m, K], with design x [N, m]
+    and logit offsets c [N, K]: logits = x @ W(z) + c.  Batched 3-D
+    products, O(C N K m) operations instead of O(C N K D)."""
+    ch, d = z.shape
+    m, k = x.shape[1], y_onehot.shape[1]
+    cell = (cols * k + ks).to(torch.int64)  # [D] flat (feature, class) index
+    w = torch.zeros((ch, m * k), dtype=z.dtype, device=z.device).scatter_add(
+        1, cell.expand(ch, d), z).reshape(ch, m, k)
+    logits = torch.einsum("nm,cmk->cnk", x, w) + c[None]  # [C, N, K]
+    ll = torch.sum(torch.sum(y_onehot[None] * logits, -1) - torch.logsumexp(logits, -1), dim=-1)
+    dz = z - prior_mean[None, :]
+    val = ll_scale * ll - 0.5 * torch.sum(dz * dz * prior_inv_var[None, :], dim=-1)
+    resid = y_onehot[None] - torch.softmax(logits, dim=-1)  # [C, N, K]
+    gw = torch.einsum("nm,cnk->cmk", x, resid).reshape(ch, m * k)
+    grad = ll_scale * gw[:, cell] - dz * prior_inv_var[None, :]
     return val, grad
 
 
@@ -301,6 +330,81 @@ class FusedFamily(NamedTuple):
             return fn(z, self.x, self.y, self.b, *common)
         fn = normal_vg_reference_bf16 if bf16 else normal_vg_reference
         return fn(z, self.x, self.y, self.b, self.u, self.c0, *common)
+
+
+class CategoricalFusedFamily(NamedTuple):
+    """The softmax GLM: logits = x @ W(z) + c, each latent coordinate
+    scattered into one (feature, class) cell (JAX ``pallas_glm.py:679-716``).
+
+    Not auto-upgraded (``auto_upgradable``): in the JAX package, autodiff
+    of the DSL's own ``matmul(x, w)`` already gives the structure-preserving
+    batched products and measured faster on its chip; the family stays
+    available, verified against autodiff by the recognizer, for graphs that
+    hide the product.  It has no kernel: its value+grad is the plain
+    version on every device."""
+
+    auto_upgradable = False  # class attribute, not a field
+    family = "categorical"
+
+    x: Tensor  # [N, m] effective design
+    y_onehot: Tensor  # [N, K]
+    c: Tensor  # [N, K] logit offsets
+    cols: Tensor  # [D] feature index of each latent coordinate
+    ks: Tensor  # [D] class index of each latent coordinate
+    prior_mean: Tensor
+    prior_inv_var: Tensor
+    ll_scale: float
+
+    def value_and_grad(self, dtype: str = "f32") -> Callable[[Tensor], Tuple[Tensor, Tensor]]:
+        if dtype != "f32":
+            raise ValueError("dtype='bf16' supports the bernoulli_logit and normal_learned "
+                             "families, not 'categorical'")
+        return self.plain
+
+    def leapfrog(self):
+        from .leapfrog import reference_leapfrog
+
+        return reference_leapfrog(self.value_and_grad())
+
+    def plain(self, z: Tensor) -> Tuple[Tensor, Tensor]:
+        return categorical_vg_reference(z, self.x, self.y_onehot, self.c, self.cols, self.ks,
+                                        self.prior_mean, self.prior_inv_var, self.ll_scale)
+
+
+def _extract_categorical(a_mat: np.ndarray, b_vec: np.ndarray, y_int: np.ndarray, n: int,
+                         num_classes: int, dim: int, prior_mean, prior_inv_var, ll_scale,
+                         device) -> Optional[CategoricalFusedFamily]:
+    """The Kronecker (feature x class) structure of the affine logit map A
+    [N*K, D] as a CategoricalFusedFamily, or None (JAX ``pallas_glm.py:
+    719-756``, the same numpy arithmetic on the host)."""
+    a3 = a_mat.reshape(n, num_classes, dim)
+    tol = 1e-5 * max(float(np.abs(a3).max()), 1.0)
+    patterns: list = []
+    cols = np.zeros(dim, np.int64)
+    ks_arr = np.zeros(dim, np.int64)
+    for j in range(dim):
+        aj = a3[:, :, j]  # [N, K]
+        nz = np.nonzero(np.abs(aj).max(axis=0) > tol)[0]
+        if len(nz) == 0:
+            v, k_j = np.zeros(n, np.float32), 0
+        elif len(nz) == 1:
+            k_j = int(nz[0])
+            v = aj[:, k_j].astype(np.float32)
+        else:
+            return None  # the coordinate feeds several classes: not Kronecker
+        for mi, pv in enumerate(patterns):
+            if np.allclose(v, pv, atol=tol):
+                col = mi
+                break
+        else:
+            patterns.append(v)
+            col = len(patterns) - 1
+        cols[j], ks_arr[j] = col, k_j
+    as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return CategoricalFusedFamily(
+        as_t(np.stack(patterns, axis=1)), as_t(np.eye(num_classes, dtype=np.float32)[y_int]),
+        as_t(b_vec.reshape(n, num_classes).astype(np.float32)), as_t(cols), as_t(ks_arr),
+        prior_mean, prior_inv_var, ll_scale)
 
 
 class GlmTiles(NamedTuple):
@@ -779,8 +883,29 @@ def _recognize(comp, params, given) -> Optional[FusedFamily]:
 
         fam = _extract_normal_learned(f_loc, f_logscale, y_val, dim, dev,
                                       prior_mean, prior_inv_var, ll_scale)
+    elif isinstance(dist, Categorical):
+        if "logits" not in obs_var.links:
+            return None
+        y_int = obs_var._observed.to(torch.int64).reshape(-1).cpu().numpy()
+        n = int(y_int.shape[0])
+        with torch.no_grad():
+            num_classes = int(obs_params_f(torch.zeros(dim, device=dev))["logits"].shape[-1])
+        if n * num_classes * dim > 5e7:
+            return None  # the probe matrix would not fit comfortably
+
+        def f_logits_flat(zf):
+            lg = obs_params_f(zf)["logits"]
+            if lg.numel() not in (num_classes, n * num_classes):
+                raise _NotAGlm(f"logits of shape {tuple(lg.shape)} over {n} rows")
+            return torch.broadcast_to(lg, (n, num_classes)).reshape(-1)
+
+        ab = _affine_probe(f_logits_flat, dim, dev)
+        if ab is None:
+            return None
+        fam = _extract_categorical(ab[0].cpu().numpy(), ab[1].cpu().numpy(), y_int, n,
+                                   num_classes, dim, prior_mean, prior_inv_var, ll_scale, dev)
     else:
-        return None  # Categorical: ROADMAP queue 1, item 14
+        return None
     if fam is None:
         return None
 
@@ -824,5 +949,6 @@ __all__ = [
     "GlmKernel", "GlmScratch", "KERNELS", "kernel_for", "build_glm_data",
     "GlmTiles", "GLM_TILES", "GlmPlan", "plan_glm", "ROW_BYTES", "align_rows", "x_row_aligned",
     "build_glm_vg", "FusedFamily", "recognize_fused_family",
+    "categorical_vg_reference", "CategoricalFusedFamily",
     "glm_flops", "glm_bytes",
 ]

@@ -5,9 +5,10 @@ the reference's positional style, e.g. ``NormalVariable(mu, sigma, "x")``,
 and accept numbers, arrays, tensors, variables or expressions in every
 parameter position.
 
-Ported so far: NormalVariable, LogNormalVariable, BernoulliVariable,
-NonCenteredNormalVariable and the data loaders EmpiricalVariable and
-RandomIndices; the rest of the zoo is ROADMAP queue 1, item 14.
+One constructor per distribution of ``distributions.py``, with
+``NonCenteredNormalVariable``, the data loaders ``EmpiricalVariable`` and
+``RandomIndices``, and ``MixtureVariable`` (a marginalised finite
+mixture).
 """
 from __future__ import annotations
 
@@ -17,9 +18,15 @@ from . import distributions as D
 from .variables import DeterministicVariable, PartialLink, RandomVariable, Variable
 
 __all__ = [
-    "NormalVariable", "LogNormalVariable", "BernoulliVariable",
-    "NonCenteredNormalVariable", "DeterministicVariable", "EmpiricalVariable",
-    "RandomIndices",
+    "NormalVariable", "LogNormalVariable", "HalfNormalVariable",
+    "CauchyVariable", "HalfCauchyVariable", "LaplaceVariable",
+    "LogisticVariable", "StudentTVariable", "UniformVariable", "TruncatedNormalVariable",
+    "GammaVariable", "InverseGammaVariable", "ExponentialVariable",
+    "Chi2Variable", "BetaVariable", "BernoulliVariable", "BinomialVariable",
+    "PoissonVariable", "GeometricVariable", "CategoricalVariable",
+    "ConcreteVariable", "MultivariateNormalVariable", "DirichletVariable", "MixtureVariable",
+    "DeterministicVariable", "EmpiricalVariable", "RandomIndices",
+    "NonCenteredNormalVariable",
 ]
 
 
@@ -41,8 +48,106 @@ def LogNormalVariable(loc, scale, name=None, plate_shape=(), log_prob_scale=1.0,
     return _rv(D.LogNormal(), {"loc": loc, "scale": scale}, name, plate_shape, log_prob_scale, observed)
 
 
+def HalfNormalVariable(scale, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.HalfNormal(), {"scale": scale}, name, plate_shape, log_prob_scale, observed)
+
+
+def CauchyVariable(loc, scale, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Cauchy(), {"loc": loc, "scale": scale}, name, plate_shape, log_prob_scale, observed)
+
+
+def HalfCauchyVariable(scale, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.HalfCauchy(), {"scale": scale}, name, plate_shape, log_prob_scale, observed)
+
+
+def LaplaceVariable(loc, scale, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Laplace(), {"loc": loc, "scale": scale}, name, plate_shape, log_prob_scale, observed)
+
+
+def LogisticVariable(loc, scale, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Logistic(), {"loc": loc, "scale": scale}, name, plate_shape, log_prob_scale, observed)
+
+
+def StudentTVariable(df, loc, scale, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.StudentT(), {"df": df, "loc": loc, "scale": scale}, name, plate_shape,
+               log_prob_scale, observed)
+
+
+def TruncatedNormalVariable(loc, scale, low, high, name=None, plate_shape=(), log_prob_scale=1.0,
+                            observed=None):
+    return _rv(D.TruncatedNormal(), {"loc": loc, "scale": scale, "low": low, "high": high},
+               name, plate_shape, log_prob_scale, observed)
+
+
+def UniformVariable(low, high, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Uniform(), {"low": low, "high": high}, name, plate_shape, log_prob_scale, observed)
+
+
+def GammaVariable(concentration, rate, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Gamma(), {"concentration": concentration, "rate": rate}, name, plate_shape,
+               log_prob_scale, observed)
+
+
+def InverseGammaVariable(concentration, scale, name=None, plate_shape=(), log_prob_scale=1.0,
+                         observed=None):
+    return _rv(D.InverseGamma(), {"concentration": concentration, "scale": scale}, name,
+               plate_shape, log_prob_scale, observed)
+
+
+def ExponentialVariable(rate, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Exponential(), {"rate": rate}, name, plate_shape, log_prob_scale, observed)
+
+
+def Chi2Variable(df, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Chi2(), {"df": df}, name, plate_shape, log_prob_scale, observed)
+
+
+def BetaVariable(alpha, beta, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Beta(), {"alpha": alpha, "beta": beta}, name, plate_shape, log_prob_scale, observed)
+
+
 def BernoulliVariable(probs=None, name=None, logits=None, plate_shape=(), log_prob_scale=1.0, observed=None):
     return _rv(D.Bernoulli(), {"probs": probs, "logits": logits}, name, plate_shape, log_prob_scale, observed)
+
+
+def BinomialVariable(total_count, probs=None, name=None, logits=None, plate_shape=(),
+                     log_prob_scale=1.0, observed=None):
+    return _rv(D.Binomial(), {"total_count": total_count, "probs": probs, "logits": logits},
+               name, plate_shape, log_prob_scale, observed)
+
+
+def PoissonVariable(rate, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Poisson(), {"rate": rate}, name, plate_shape, log_prob_scale, observed)
+
+
+def GeometricVariable(probs=None, name=None, logits=None, plate_shape=(), log_prob_scale=1.0,
+                      observed=None):
+    return _rv(D.Geometric(), {"probs": probs, "logits": logits}, name, plate_shape,
+               log_prob_scale, observed)
+
+
+def CategoricalVariable(probs=None, name=None, logits=None, plate_shape=(), log_prob_scale=1.0,
+                        observed=None):
+    return _rv(D.Categorical(), {"probs": probs, "logits": logits}, name, plate_shape,
+               log_prob_scale, observed)
+
+
+def ConcreteVariable(temperature, logits, name=None, plate_shape=(), log_prob_scale=1.0,
+                     observed=None):
+    return _rv(D.Concrete(), {"temperature": temperature, "logits": logits}, name, plate_shape,
+               log_prob_scale, observed)
+
+
+def MultivariateNormalVariable(loc, name=None, covariance_matrix=None, scale_tril=None,
+                               plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.MultivariateNormal(),
+               {"loc": loc, "covariance_matrix": covariance_matrix, "scale_tril": scale_tril},
+               name, plate_shape, log_prob_scale, observed)
+
+
+def DirichletVariable(concentration, name=None, plate_shape=(), log_prob_scale=1.0, observed=None):
+    return _rv(D.Dirichlet(), {"concentration": concentration}, name, plate_shape,
+               log_prob_scale, observed)
 
 
 def EmpiricalVariable(dataset, name=None, indices=None, batch_size=None):
@@ -98,3 +203,14 @@ def NonCenteredNormalVariable(loc, scale, name=None, shape=None, plate_shape=(),
     out = DeterministicVariable(loc + scale * raw, name=name)
     out.raw = raw
     return out
+
+
+def MixtureVariable(component_dist, probs=None, name=None, logits=None, plate_shape=(),
+                    log_prob_scale=1.0, observed=None, **component_params):
+    """Marginalised finite mixture (no discrete assignment latent, so it
+    works under HMC/NUTS).  Component parameters carry a leading K axis::
+
+        x = MixtureVariable(D.Normal(), probs=[0.3, 0.7], loc=mus, scale=sigs, name="x")
+    """
+    links = {"probs": probs, "logits": logits, **component_params}
+    return _rv(D.Mixture(component_dist), links, name, plate_shape, log_prob_scale, observed)

@@ -1,8 +1,9 @@
-"""Time-series variables: Markov chains and AR(p) series.
+"""Time-series variables and Gaussian processes.
 
-Counterpart of ``brancher_tpu/stochastic_processes.py`` (lines 28-192 and
-264-309): ``MarkovSeries``, ``AutoRegressive``, ``ARProcess``,
-``MarkovProcess``, ``observe_timeseries`` and ``Timeseries``.  A whole
+Counterpart of ``brancher_tpu/stochastic_processes.py`` (lines 28-309):
+``MarkovSeries``, ``AutoRegressive``, ``ARProcess``, ``MarkovProcess``,
+``observe_timeseries`` and ``Timeseries``, and the GP sugar
+``rbf_kernel``, ``matern32_kernel`` and ``GaussianProcess``.  A whole
 series is one random variable.  Its log-density is vectorized over time:
 the transition density of x[t] depends only on the x[t-1..t-p] before it,
 so all T terms evaluate at once from lagged views of the series and one
@@ -14,19 +15,24 @@ A series' parameters may carry leading batch axes (its values are then
 ``batch + (T,)``); the compiler draws one series per walk, with 0-d or
 [p] parameters.
 
-``rbf_kernel``, ``GaussianProcess`` and the HMMs (lines 200-262 and
-312-583) need ``MultivariateNormal`` and discrete enumeration, and wait
-for them (ROADMAP queue 1, items 14 and 13).
+A Gaussian process is one ``MultivariateNormal`` variable over its
+function values at fixed inputs: the Gram matrix plus ``jitter`` I, built
+inside the walk from the kernel's hyperparameters, which may be variables
+(hyperpriors flow through the links).
+
+The HMMs (lines 312-583) need discrete enumeration and wait for it
+(ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from .distributions import REAL, Distribution, Normal
-from .variables import RandomVariable
+from .distributions import REAL, Distribution, MultivariateNormal, Normal
+from .variables import PartialLink, RandomVariable, to_tensor, var2link
 
 Tensor = torch.Tensor
 
@@ -172,6 +178,55 @@ def MarkovProcess(length: int, transition_dist: Distribution,
         all_links[f"init_{k}"] = v
     return RandomVariable(MarkovSeries(length, transition_dist, transition_fn, init_dist),
                           name=name, links=all_links)
+
+
+def _as_columns(x) -> Tensor:
+    x = torch.as_tensor(x)
+    return x[:, None] if x.dim() == 1 else x
+
+
+def rbf_kernel(x, lengthscale, variance) -> Tensor:
+    """RBF (squared-exponential) Gram matrix of inputs x [N] or [N, D]."""
+    x = _as_columns(x)
+    d2 = torch.sum((x[:, None, :] - x[None, :, :]) ** 2, dim=-1)
+    return variance * torch.exp(-0.5 * d2 / lengthscale**2)
+
+
+def matern32_kernel(x, lengthscale, variance) -> Tensor:
+    """Matern-3/2 Gram matrix of inputs x [N] or [N, D]."""
+    x = _as_columns(x)
+    d = torch.sqrt(torch.sum((x[:, None, :] - x[None, :, :]) ** 2, dim=-1) + 1e-12)
+    s = math.sqrt(3.0) * d / lengthscale
+    return variance * (1.0 + s) * torch.exp(-s)
+
+
+_KERNELS = {"rbf": rbf_kernel, "matern32": matern32_kernel}
+
+
+def GaussianProcess(inputs, lengthscale, variance, name: Optional[str] = None,
+                    kernel: str = "rbf", mean=0.0, jitter: float = 1e-5) -> RandomVariable:
+    """GP prior over the function values at fixed inputs: f ~ N(mean, K).
+
+    ``lengthscale``, ``variance`` and ``mean`` take numbers, variables or
+    expressions (a hyperprior composes; NUTS then samples it with f).  The
+    Gram matrix is built in the walk, one [N, N] kernel and Cholesky an
+    evaluation."""
+    kfn = _KERNELS[kernel]
+    x = to_tensor(np.asarray(inputs, np.float32))
+    n = x.shape[0]
+    ls_link, var_link, mean_link = var2link(lengthscale), var2link(variance), var2link(mean)
+
+    def cov_fn(values, params):
+        k = kfn(params.const(x), ls_link.fn(values, params), var_link.fn(values, params))
+        return k + jitter * torch.eye(n, dtype=k.dtype, device=k.device)
+
+    def loc_fn(values, params):
+        return torch.broadcast_to(mean_link.fn(values, params), (n,))
+
+    cov = PartialLink(tuple(ls_link.vars) + tuple(var_link.vars), cov_fn)
+    loc = PartialLink(tuple(mean_link.vars), loc_fn)
+    return RandomVariable(MultivariateNormal(), name=name,
+                          links={"loc": loc, "covariance_matrix": cov})
 
 
 def observe_timeseries(series_var: RandomVariable, data) -> None:

@@ -404,7 +404,7 @@ class ProbabilisticModel:
         from .compiler import CompiledModel  # local import avoids a cycle
         from .config import resolve_device
 
-        dev = resolve_device(device)
+        dev = resolve_device(device)  # "cuda" is "cuda:0" here, as in the CompiledModel
         self._refresh_structure()
         key = (self._version_key(), str(dev))
         if key not in self._compiled_cache:

@@ -89,7 +89,18 @@ Phases (each prints one or more JSON lines tagged "phase"):
      draws), its iterations a draw and ms an iteration beside phase 8's
      lockstep leaves.  Each against its phase's reference (least squares,
      MCSE, closed form) with R-hat;
- 14. the {"kernels": [...]} summary (K1 for its main paths and for the
+ 14. the model zoo, no kernel on any run: softmax classification at
+     scripts/exp_categorical_speedup.py:26-34's full width (N=2000, d=32,
+     K=10, D=330; 256 chains, NUTS(max_depth=7), fused_potential="auto",
+     which keeps it on autodiff; warmup and draws in ZOO_RUNS) with the
+     recognized CategoricalFusedFamily held to autodiff and both timed;
+     WAIC and PSIS-LOO on phase 3's "auto" draws (a [1000, 1000] pointwise
+     matrix); eight schools (HalfCauchy), GP regression and a two-
+     component GMM at their JAX tests' runs and limits (ZOO_RUNS; a cut
+     prints "reduced"); WVGD and SVGD on the conjugate model; flow VI
+     (TriangularLinear + Shift); and phase 9's floor SVI with
+     matmul_precision="bfloat16";
+ 15. the {"kernels": [...]} summary (K1 for its main paths and for the
      pipelined floor, K3 once for each of its six paths, K4 for each of
      its three, K5 for each of its five), the card's name and power
      limit, and the last line {"ok": true, "device": {...}}.
@@ -97,9 +108,8 @@ Phases (each prints one or more JSON lines tagged "phase"):
 Every launch counter is set to 0 just before each sample() or
 perform_inference() run and read just after it; a run whose kernels did
 not launch as expected (the value+grad kernel once per value+grad call,
-K5 once per transition, none on the paths of phases 8-10 and 12 and on
-phase 13's vmap and ARD runs) fails
-the script.  Any failed check raises: the script then exits
+K5 once per transition, none on the paths of phases 8-10, 12 and 14 and
+on phase 13's vmap and ARD runs) fails the script.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
 brancher_torch package beside it, it exits 2 at once.
 """
@@ -680,6 +690,8 @@ def _floor_run(section, tag, kname, phase, draws, warmup=500, **kw):
     _, _, model = _floor_model()
     res, info = _run_sample(model, f"{section}/{tag}", kname, num_warmup=warmup,
                             num_samples=draws, num_chains=1024, key=0, **kw)
+    if (section, tag) == ("floor", "auto"):  # phase 14's WAIC and PSIS-LOO read these draws
+        RESULTS["floor_auto_samples"] = {"w": res.samples["w"].cpu()}
     mean, sd, ess, rhat = _post_stats(res, "w")
     info.update({
         "phase": phase, "num_warmup": warmup, "num_samples": draws, "min_ess": float(ess.min()),
@@ -1432,12 +1444,322 @@ def phase_particles():
                 float(res.accept_rate), grid, (0.05, 0.9))
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the model zoo (no kernel on any of its runs).  The softmax model
+# at scripts/exp_categorical_speedup.py:26-34's full width and depth; the
+# small models (eight schools, GP, GMM) at their JAX tests' chains, with the
+# warmup and draws of eight schools and the GP cut for time (printed as
+# "reduced"): the whole script read 988.6 s with 800 + 800 and 200 + 100 on
+# an H100 (700 W), against its 1000 s, and the GP fills NUTS's tree (131
+# leaves a transition), so its 400 + 400 alone would cost about 85 s of the
+# phase's 180 (PERF.md §6).
+SOFTMAX_N, SOFTMAX_D, SOFTMAX_K = 2000, 32, 10
+ZOO_RUNS = {  # tag: (chains, max_depth, warmup, draws, the reference's (warmup, draws))
+    "softmax": (256, 7, 300, 500, (300, 500)),
+    "eight_schools": (16, 9, 400, 400, (800, 800)),
+    "gp": (8, 8, 150, 50, (400, 400)),
+    "gmm": (8, 7, 400, 300, (400, 300)),
+}
+
+
+def _zoo_line(info: dict, tag: str) -> dict:
+    """A phase-14 line: the card beside the run's seconds, and any cut."""
+    info.update({"phase": 14, "nvidia_smi": RESULTS["environment"]["nvidia_smi"]})
+    if tag in ZOO_RUNS:
+        chains, depth, warmup, draws, ref = ZOO_RUNS[tag]
+        info.update({"chains": chains, "max_depth": depth, "num_warmup": warmup,
+                     "num_samples": draws})
+        if (warmup, draws) != ref:
+            info["reduced"] = {"num_warmup": [ref[0], warmup], "num_samples": [ref[1], draws]}
+    return info
+
+
+def _zoo_sample(model, tag, **kw):
+    """A phase-14 sample() run: no kernel may launch (the zoo's models are
+    not recognized GLMs, or are not auto-upgraded)."""
+    import numpy as np
+    from brancher_torch.inference import NUTS
+
+    if tag in ZOO_RUNS:
+        chains, depth, warmup, draws, _ = ZOO_RUNS[tag]
+        kw.update(kernel=NUTS(max_depth=depth), num_chains=chains, num_warmup=warmup,
+                  num_samples=draws)
+    res, info = _run_sample(model, f"zoo/{tag}", None, key=0, **kw)
+    check(info["fused_family"] is None, f"zoo/{tag}: sampled on family {info['fused_family']}")
+    rhat = max(float(np.max(v)) for v in res.diagnostics["r_hat"].values())
+    ess = min(float(np.min(v)) for v in res.diagnostics["ess"].values())
+    info.update({"max_rhat": rhat, "min_ess": ess, "ess_per_second": ess / info["sampler_seconds"]})
+    RESULTS.setdefault("zoo", {})[tag] = info
+    return res, _zoo_line(info, tag)
+
+
+def _softmax_data():
+    import numpy as np
+    rng = np.random.RandomState(0)
+    x = rng.normal(0, 1, size=(SOFTMAX_N, SOFTMAX_D)).astype(np.float32)
+    w_true = rng.normal(0, 1.0, size=(SOFTMAX_D, SOFTMAX_K)).astype(np.float32)
+    y = np.argmax(x @ w_true + rng.gumbel(size=(SOFTMAX_N, SOFTMAX_K)), -1).astype(np.int32)
+    return x, w_true, y
+
+
+def _zoo_softmax():
+    """Softmax classification at exp_categorical_speedup.py's full width,
+    fused_potential="auto": the recognizer finds the CategoricalFusedFamily
+    and sample() keeps the model on autodiff, as JAX does."""
+    import numpy as np
+    import torch
+    import brancher_torch as BT
+    import brancher_torch.functions as BF
+    from brancher_torch.inference.hmc import autodiff_value_and_grad
+    from brancher_torch.inference.mcmc import make_potential
+    from brancher_torch.ops.glm import CategoricalFusedFamily
+
+    x, w_true, y = _softmax_data()
+    w = BT.NormalVariable(np.zeros((SOFTMAX_D, SOFTMAX_K), np.float32),
+                          np.ones((SOFTMAX_D, SOFTMAX_K), np.float32), "w")
+    b = BT.NormalVariable(np.zeros(SOFTMAX_K, np.float32), 2.0 * np.ones(SOFTMAX_K, np.float32), "b")
+    yv = BT.CategoricalVariable(logits=BF.matmul(x, w) + b, name="y")
+    yv.observe(y)
+    model = BT.ProbabilisticModel([yv])
+    res, info = _zoo_sample(model, "softmax", fused_potential="auto")
+    comp = model.compiled("cuda")
+    fam = comp._fused_family_cache
+    check(isinstance(fam, CategoricalFusedFamily), f"softmax: recognizer found {type(fam).__name__}")
+    # the family's value+grad against autodiff at three random z, then both
+    # timed at the run's chain count
+    potential, _, _ = make_potential(comp, comp.initial_params, None)
+    auto_vg = autodiff_value_and_grad(potential)  # replayed from a CUDA graph, as in sample()
+    eager_vg = auto_vg.fn
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    z3 = torch.randn((3, comp.dim), generator=gen, device="cuda")
+    with torch.no_grad():
+        v_f, g_f = fam.plain(z3)
+    v_a, g_a = auto_vg(z3)
+    v_e, g_e = eager_vg(z3)
+    dv = v_f - v_a
+    val_rel = float((dv - dv[0]).abs().max()) / max(float(v_a.abs().max()), 1.0)
+    grad_rel = _rel(g_f, g_a)
+    graph_rel = max(_rel(v_a, v_e), _rel(g_a, g_e))
+    zc = torch.randn((ZOO_RUNS["softmax"][0], comp.dim), generator=gen, device="cuda")
+    with torch.no_grad():
+        fam_ms = time_ms(lambda: fam.plain(zc))
+    auto_ms = time_ms(lambda: auto_vg(zc))
+    eager_ms = time_ms(lambda: eager_vg(zc))
+    wm = res.samples["w"].double().mean(dim=(0, 1)).cpu().numpy()
+    bm = res.samples["b"].double().mean(dim=(0, 1)).cpu().numpy()
+    acc_post = float(np.mean(np.argmax(x @ wm + bm, -1) == y))
+    acc_true = float(np.mean(np.argmax(x @ w_true, -1) == y))
+    info.update({
+        "N": SOFTMAX_N, "d": SOFTMAX_D, "K": SOFTMAX_K, "D": comp.dim,
+        "family_found": type(fam).__name__, "family_x_shape": list(fam.x.shape),
+        "family_vs_autodiff": {"val_max_rel": val_rel, "grad_max_rel": grad_rel, "limit": 1e-4},
+        "family_vg_ms": fam_ms, "autodiff_vg_ms": auto_ms, "autodiff_eager_vg_ms": eager_ms,
+        "autodiff_graph_vs_eager_max_rel": graph_rel,
+        "train_accuracy_posterior_mean": acc_post, "train_accuracy_w_true": acc_true,
+    })
+    emit(info)
+    check(info["max_rhat"] < 1.01, f"softmax: max R-hat {info['max_rhat']}")
+    check(val_rel < 1e-4 and grad_rel < 1e-4,
+          f"softmax: family vs autodiff {val_rel:.2e} / {grad_rel:.2e}")
+    check(graph_rel < 1e-6, f"softmax: graphed autodiff {graph_rel:.2e} from eager")
+    check(abs(acc_post - acc_true) < 0.03, f"softmax: accuracy {acc_post} vs w_true's {acc_true}")
+
+
+def _zoo_waic():
+    """WAIC and PSIS-LOO on phase 3's floor "auto" draws (1024 chains x 1000,
+    thinned to 1000), with the limits of tests/test_model_comparison.py."""
+    import numpy as np
+    import torch
+    from brancher_torch.inference import NUTS
+    from brancher_torch.model_comparison import loo, pointwise_log_likelihood, waic
+
+    if "floor_auto_samples" not in RESULTS:  # phase 3 did not run: its run, here
+        _floor_run("floor", "auto", "glm_bernoulli_f32", 14, 1000, kernel=NUTS(max_depth=8),
+                   fused_potential="auto")
+    draws = RESULTS["floor_auto_samples"]
+    _, _, model = _floor_model()
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll = pointwise_log_likelihood(model, draws, max_draws=1000, device="cuda")
+    matrix_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w = waic(model, draws, max_draws=1000, device="cuda")
+    waic_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lo = loo(model, draws, max_draws=1000, device="cuda")
+    loo_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in _all_kernels().items()}
+    dim = draws["w"].shape[-1]
+    info = _zoo_line({
+        "run": "zoo/waic_loo", "launches": launches, "matrix_shape": list(ll.shape),
+        "matrix_seconds": matrix_s, "waic_seconds": waic_s, "loo_seconds": loo_s,
+        "elpd_waic": w.elpd, "se_waic": w.se, "p_eff_waic": w.p_eff,
+        "elpd_loo": lo.elpd, "se_loo": lo.se, "p_eff_loo": lo.p_eff,
+        "pareto_k_below_0.7": float(np.mean(lo.pareto_k < 0.7)), "pareto_k_max": float(np.max(lo.pareto_k)),
+        "latent_dim": dim,
+    }, "waic_loo")
+    RESULTS.setdefault("zoo", {})["waic_loo"] = info
+    emit(info)
+    check(not any(launches.values()), f"waic_loo: a kernel launched: {launches}")
+    check(ll.shape == (1000, 1000) and bool(np.isfinite(ll).all()), f"waic_loo: matrix {ll.shape}")
+    check(abs(w.elpd - lo.elpd) < max(0.2 * w.se, 2.0), f"waic_loo: elpd {w.elpd} vs {lo.elpd}")
+    check(info["pareto_k_below_0.7"] > 0.95, f"waic_loo: k < 0.7 on {info['pareto_k_below_0.7']}")
+    for name, p_eff in (("waic", w.p_eff), ("loo", lo.p_eff)):
+        check(0.5 * dim <= p_eff <= 2.0 * dim, f"waic_loo: p_eff ({name}) {p_eff} for dim {dim}")
+
+
+def _zoo_small_models():
+    """Eight schools, GP regression and a two-component GMM, each at its
+    JAX test's run and limits."""
+    import numpy as np
+    import brancher_torch as BT
+    import brancher_torch.distributions as D
+    from brancher_torch.stochastic_processes import GaussianProcess
+
+    # eight schools: examples/07_eight_schools.py:15-26, tests/test_eight_schools.py:33-45
+    y_obs = np.asarray([28., 8., -3., 7., -1., 1., 18., 12.], np.float32)
+    sigma = np.asarray([15., 10., 16., 11., 9., 11., 10., 18.], np.float32)
+    mu = BT.NormalVariable(0., 5., "mu")
+    tau = BT.HalfCauchyVariable(5., "tau")
+    theta_raw = BT.NormalVariable(np.zeros(8, np.float32), np.ones(8, np.float32), "theta_raw")
+    theta = BT.DeterministicVariable(mu + tau * theta_raw, "theta")
+    y = BT.NormalVariable(theta, sigma, "y")
+    y.observe(y_obs)
+    res, info = _zoo_sample(BT.ProbabilisticModel([y]), "eight_schools")
+    mu_s, tau_s = res.samples["mu"].double(), res.samples["tau"].double()
+    per_chain_tau = tau_s.mean(dim=1)
+    info.update({"mu_mean": float(mu_s.mean()), "tau_mean": float(tau_s.mean()),
+                 "tau_sd": float(tau_s.std(unbiased=False)),
+                 "max_chain_tau_mean": float(per_chain_tau.max()),
+                 "stan_reference": {"mu": [4.4, 3.3], "tau": [3.6, 3.2]}})
+    emit(info)
+    check(abs(info["mu_mean"] - 4.4) < 1.0, f"eight_schools: mu mean {info['mu_mean']}")
+    check(abs(info["tau_mean"] - 3.6) < 1.2, f"eight_schools: tau mean {info['tau_mean']}")
+    check(abs(info["tau_sd"] - 3.2) < 2.0, f"eight_schools: tau sd {info['tau_sd']}")
+    check(info["max_chain_tau_mean"] < 20.0, f"eight_schools: a chain's tau {info['max_chain_tau_mean']}")
+    check(info["divergences"] < 0.02 * tau_s.numel(), f"eight_schools: {info['divergences']} divergences")
+
+    # GP regression: tests/test_gp.py:24-38
+    rng = np.random.RandomState(0)
+    xs = np.linspace(0, 2, 15).astype(np.float32)
+    f_true = np.sin(2 * xs)
+    y_gp = (f_true + 0.1 * rng.normal(size=len(xs))).astype(np.float32)
+    f = GaussianProcess(xs, lengthscale=0.5, variance=1.0, name="f")
+    yg = BT.NormalVariable(f, 0.1, "y")
+    yg.observe(y_gp)
+    res, info = _zoo_sample(BT.ProbabilisticModel([yg]), "gp")
+    err = float(np.max(np.abs(res.samples["f"].double().mean(dim=(0, 1)).cpu().numpy() - f_true)))
+    info.update({"max_abs_err_to_f_true": err, "limit": 0.35})
+    emit(info)
+    check(err < 0.35, f"gp: posterior mean {err} from sin(2x)")
+
+    # two-component GMM: tests/test_mixture.py:37-52
+    rng = np.random.RandomState(0)
+    data = np.concatenate([rng.normal(-2, 0.5, 150), rng.normal(2.0, 0.5, 350)]).astype(np.float32)
+    mus = BT.NormalVariable(np.zeros(2, np.float32), 5.0 * np.ones(2, np.float32), "mus")
+    x = BT.MixtureVariable(D.Normal(), probs=np.asarray([0.3, 0.7], np.float32), loc=mus,
+                           scale=0.5, name="x")
+    x.observe(data)
+    res, info = _zoo_sample(BT.ProbabilisticModel([x]), "gmm")
+    per_chain = np.sort(res.samples["mus"].double().mean(dim=1).cpu().numpy(), axis=1)
+    dev = [float(np.max(np.abs(per_chain[:, 0] + 1.94))), float(np.max(np.abs(per_chain[:, 1] - 1.96)))]
+    info.update({"per_chain_sorted_means": per_chain.tolist(), "max_abs_dev": dev,
+                 "reference": [-1.94, 1.96], "limit": 0.15})
+    emit(info)
+    check(max(dev) < 0.15, f"gmm: per-chain means off by {dev}")
+
+
+def _zoo_svi():
+    """WVGD and SVGD on the conjugate model (tests/test_particles.py:18-53),
+    flow VI (tests/test_transformations.py:67-80) and floor SVI with
+    matmul_precision="bfloat16" (phase 9's config)."""
+    import numpy as np
+    import torch
+    import brancher_torch as BT
+    from brancher_torch.inference import ReverseKL
+    from brancher_torch.inference.guides import AutoMeanField
+    from brancher_torch.inference.svi import (
+        SteinVariationalGradientDescent, WassersteinVariationalGradientDescent,
+        matmul_precision_scope,
+    )
+    from brancher_torch.models import conjugate_normal_model
+    from brancher_torch.transformations import Shift, TransformedVariable, TriangularLinear
+
+    zoo = RESULTS.setdefault("zoo", {})
+    for tag, method, iters, lr in (
+            ("wvgd", WassersteinVariationalGradientDescent(number_particles=64), 600, 0.15),
+            ("svgd", SteinVariationalGradientDescent(number_particles=64), 400, 0.05)):
+        model, truth = conjugate_normal_model(num_obs=20)
+        res, info = _run_svi(f"zoo/{tag}", model, iters, False, inference_method=method, lr=lr,
+                             key=0)
+        particles = res.extras["particles"]["mu"].double().cpu().numpy()
+        info.update({"particles": 64, "mean": float(particles.mean()), "var": float(particles.var()),
+                     "post_mean": float(truth["post_mean"]), "post_var": float(truth["post_var"]),
+                     "limits": {"mean": 0.1, "var": 0.04}})
+        zoo[tag] = _zoo_line(info, tag)
+        emit(info)
+        check(abs(info["mean"] - info["post_mean"]) < 0.1, f"{tag}: mean {info['mean']}")
+        check(abs(info["var"] - info["post_var"]) < 0.04, f"{tag}: var {info['var']}")
+
+    model, truth = conjugate_normal_model(num_obs=15)
+    qmu = TransformedVariable("mu", dim=1, flows=[TriangularLinear(), Shift()])
+    model.set_posterior_model(BT.ProbabilisticModel([qmu]))
+    res, info = _run_svi("zoo/flow_vi", model, 1500, False, number_samples=16, lr=0.02, key=0)
+    post = model.get_posterior_sample_dict(2000, key=5, device="cuda")["mu"].double()
+    info.update({"mean": float(post.mean()), "var": float(post.var(unbiased=False)),
+                 "post_mean": float(truth["post_mean"]), "post_var": float(truth["post_var"]),
+                 "limits": {"mean": 0.1, "var": 0.05}})
+    zoo["flow_vi"] = _zoo_line(info, "flow_vi")
+    emit(info)
+    check(abs(info["mean"] - info["post_mean"]) < 0.1, f"flow_vi: mean {info['mean']}")
+    check(abs(info["var"] - info["post_var"]) < 0.05, f"flow_vi: var {info['var']}")
+
+    # floor SVI with bf16 products (TF32 off, phase 1): the first loss at
+    # fixed draws differs from the f32 loss, so the scope took effect
+    _, _, model = _floor_model()
+    res, info = _run_svi("zoo/svi_floor_bf16", model, 1500, False, number_samples=16, lr=0.02,
+                         key=7, matmul_precision="bfloat16")
+    comp = model.compiled("cuda")
+    guide = AutoMeanField(comp)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = {"p": comp.initial_params, "q": guide.init_params(gen)}
+    noise = torch.randn((16, comp.dim), generator=gen, device="cuda")
+    loss_fn = ReverseKL().make_loss(comp, guide)
+    with torch.no_grad():
+        loss32 = float(loss_fn(params, None, 16, draws={"noise": noise}))
+        with matmul_precision_scope("bfloat16"):
+            loss16 = float(loss_fn(params, None, 16, draws={"noise": noise}))
+    loc = res.guide.posterior_moments(res.params["q"])[0].cpu().numpy()
+    info.update({"matmul_precision": "bfloat16", "loss_f32_at_fixed_draws": loss32,
+                 "loss_bf16_at_fixed_draws": loss16,
+                 "precision_after": torch.get_float32_matmul_precision()})
+    if "floor_auto_moments" in RESULTS:  # phase 3 ran
+        info["max_abs_diff_to_nuts_mean"] = float(np.abs(loc - RESULTS["floor_auto_moments"][0]).max())
+        info["tolerance"] = 0.15
+    zoo["svi_floor_bf16"] = _zoo_line(info, "svi_floor_bf16")
+    emit(info)
+    check(loss16 != loss32 and abs(loss16 - loss32) < 1e-2 * abs(loss32),
+          f"svi_floor_bf16: bf16 loss {loss16} against f32 {loss32}")
+    check(info["precision_after"] == "highest", "svi_floor_bf16: precision not restored")
+    if "tolerance" in info:
+        check(info["max_abs_diff_to_nuts_mean"] < 0.15,
+              f"svi_floor_bf16: loc {info['max_abs_diff_to_nuts_mean']:.3f} from the NUTS means")
+
+
+def phase_zoo():
+    _zoo_softmax()
+    _zoo_waic()
+    _zoo_small_models()
+    _zoo_svi()
+
+
 def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
     for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate",
                     "hmc_floor", "ard", "svi_floor", "vae", "ar1", "ar1_chees", "ar2",
                     "particles", "ar2_dense", "ar2_pipelined", "floor_pipelined", "floor_vmap",
-                    "conjugate_vmap", "ard_pipelined"):
+                    "conjugate_vmap", "ard_pipelined", "zoo"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -1492,12 +1814,12 @@ def summary_line():
 
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
          5: phase_mxu, 6: phase_chees, 7: phase_hmc, 8: phase_ard, 9: phase_svi_floor,
-         10: phase_vae, 11: phase_ar, 12: phase_particles, 13: phase_modes}
+         10: phase_vae, 11: phase_ar, 12: phase_particles, 13: phase_modes, 14: phase_zoo}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="", help="comma-separated subset of 1-13 (default: all)")
+    parser.add_argument("--phases", default="", help="comma-separated subset of 1-14 (default: all)")
     args = parser.parse_args()
     try:
         import torch
@@ -1524,7 +1846,7 @@ def main() -> int:
         STEPS[num]()
         RESULTS.setdefault("phase_seconds", {})[num] = time.perf_counter() - t
     RESULTS["total_seconds"] = time.perf_counter() - t0
-    emit({"phase": 14, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    emit({"phase": 15, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
     if chosen != sorted(STEPS):
         return 0  # a subset: no summary, no "ok" line
     emit(summary_line())

@@ -22,7 +22,10 @@ def test_import_loads_no_jax_and_builds_nothing():
         "brancher_torch.inference.smc, brancher_torch.inference.tempered_smc, "
         "brancher_torch.inference.streaming_smc, brancher_torch.inference.pmmh, "
         "brancher_torch.inference.particle_gibbs, brancher_torch.models.autoregressive, "
-        "brancher_torch.models.state_space;"
+        "brancher_torch.models.state_space, brancher_torch.distributions, "
+        "brancher_torch.transforms, brancher_torch.standard_variables, "
+        "brancher_torch.transformations, brancher_torch.model_comparison, "
+        "brancher_torch.inference.particle_inference_tools;"
         "print(json.dumps({'jax': 'jax' in sys.modules, "
         "'tpu': any(m.startswith('brancher_tpu') for m in sys.modules), "
         "'loaded': sorted(brancher_torch.ops.cuda_build._loaded)}))"
@@ -53,5 +56,7 @@ def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
                    "inference/gradient_estimators.py", "models/vae.py", "stochastic_processes.py",
                    "inference/smc.py", "inference/tempered_smc.py", "inference/streaming_smc.py",
                    "inference/pmmh.py", "inference/particle_gibbs.py", "models/autoregressive.py",
-                   "models/state_space.py"):
+                   "models/state_space.py", "distributions.py", "transforms.py",
+                   "standard_variables.py", "transformations.py", "model_comparison.py",
+                   "inference/particle_inference_tools.py"):
         assert (PORT / module).exists()

@@ -359,3 +359,63 @@ def test_pipelined_run_launches_once_a_call(cuda):
     assert d["fused_family"] == "normal_learned"
     assert kernel.launches - before == d["value_and_grad_calls"] > 0
     assert bool(torch.isfinite(res.samples["coeffs"]).all())
+
+
+# The autodiff value+grad of sample()'s autodiff paths (no kernel of the
+# port's) replays a CUDA graph on the card: the eager call's numbers at
+# every replay, new inputs copied in; a function that waits on the card
+# cannot be captured and runs eagerly at that shape
+def _eight_schools():
+    import brancher_torch as BT
+
+    mu, tau = BT.NormalVariable(0.0, 5.0, "mu"), BT.HalfCauchyVariable(5.0, "tau")
+    raw = BT.NormalVariable(np.zeros(8, np.float32), np.ones(8, np.float32), "theta_raw")
+    y = BT.NormalVariable(BT.DeterministicVariable(mu + tau * raw, "theta"),
+                          np.float32([15, 10, 16, 11, 9, 11, 10, 18]), "y")
+    y.observe(np.float32([28, 8, -3, 7, -1, 1, 18, 12]))
+    return BT.ProbabilisticModel([y])
+
+
+def _gp():
+    import brancher_torch as BT
+    from brancher_torch.stochastic_processes import GaussianProcess
+
+    xs = np.linspace(0, 2, 15).astype(np.float32)
+    f = GaussianProcess(xs, lengthscale=0.5, variance=1.0, name="f")
+    y = BT.NormalVariable(f, 0.1, "y")
+    y.observe(np.sin(2 * xs).astype(np.float32))
+    return BT.ProbabilisticModel([y])
+
+
+@pytest.mark.parametrize("make_model", [_eight_schools, _gp], ids=["eight_schools", "gp"])
+def test_graphed_autodiff_matches_eager(cuda, make_model):
+    from brancher_torch.inference.hmc import autodiff_value_and_grad
+    from brancher_torch.inference.mcmc import make_potential
+
+    comp = make_model().compiled(cuda)
+    pot, _, _ = make_potential(comp, comp.initial_params)
+    graphed = autodiff_value_and_grad(pot)
+    eager = graphed.fn
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(4):
+        z = torch.randn((16, comp.dim), generator=gen, device=cuda)
+        v, g = graphed(z)
+        v_ref, g_ref = eager(z)
+        torch.testing.assert_close(v, v_ref, rtol=0, atol=0)
+        torch.testing.assert_close(g, g_ref, rtol=0, atol=0)
+    assert len(graphed.graphs) + len(graphed.eager_shapes) == 1
+
+
+def test_a_value_and_grad_that_waits_on_the_card_runs_eagerly(cuda):
+    from brancher_torch.inference.hmc import GraphedValueAndGrad
+
+    def waits(z):
+        s = float(z.sum())  # a read back: no capture
+        return z.sum(-1) * 0 + s, z * 2
+
+    graphed = GraphedValueAndGrad(waits)
+    z = torch.ones((4, 3), device=cuda)
+    v, g = graphed(z)
+    assert graphed.eager_shapes and not graphed.graphs
+    torch.testing.assert_close(v, torch.full((4,), 12.0, device=cuda))
+    torch.testing.assert_close(g, z * 2)

@@ -336,14 +336,10 @@ def test_maximum_likelihood_uses_observed_data():
     assert np.corrcoef(res.params["p"]["w"].numpy(), w_true)[0, 1] > 0.9
 
 
-@pytest.mark.parametrize("kw", [
-    {"inference_method": TS.WassersteinVariationalGradientDescent()},
-    {"inference_method": TS.SteinVariationalGradientDescent()},
-    {"mesh": object()}, {"matmul_precision": "bfloat16"},
-], ids=["wvgd", "svgd", "mesh", "matmul_precision"])
+@pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
 def test_unported_options_raise_naming_the_roadmap(kw):
     model, _ = conjugate_normal_model()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1[45]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
         TS.perform_inference(model, number_iterations=2, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 13"):
         TS.ReverseKL(enumerate_discrete=True)
