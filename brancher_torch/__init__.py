@@ -19,8 +19,14 @@ from .variables import (
     var2link,
 )
 from .standard_variables import *  # noqa: F401,F403
-from .compiler import CompiledModel
-from .stochastic_processes import ARProcess, GaussianProcess, MarkovProcess
+from .compiler import CompiledModel, compile_model
+from .stochastic_processes import (
+    ARProcess,
+    EmissionHMMVariable,
+    GaussianProcess,
+    HMMVariable,
+    MarkovProcess,
+)
 from .model_comparison import compare, loo, waic
 from .transformations import (
     PlanarFlow,

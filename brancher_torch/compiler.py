@@ -1,4 +1,4 @@
-"""DAG -> tensor-function compiler: the core without enumeration.
+"""DAG -> tensor-function compiler.
 
 Counterpart of ``brancher_tpu/compiler.py``.  ``CompiledModel`` walks the
 frozen DAG in topological order and evaluates, for ONE sample:
@@ -38,8 +38,11 @@ A variable's ``log_prob_mask`` (missing data, set by
 ``stochastic_processes.observe_timeseries``) multiplies its elementwise
 log-prob before the sum, as in the JAX compiler (lines 243-253).
 
-The discrete-enumeration stack of the JAX compiler (compiler.py:528-1848)
-is still to port (ROADMAP queue 1, item 13).
+The discrete-enumeration stack of the JAX compiler (compiler.py:526-1848),
+which sums Bernoulli and Categorical latents out of ``log_density_z``, is
+mixed in from ``enumeration.py`` under JAX's method names
+(``enum_log_density_fn`` dispatches); without it a discrete latent that is
+not ``given`` raises in ``_latent_value``, as in JAX.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .config import make_generator, resolve_device
+from .enumeration import EnumerationMixin
 from .transforms import transform_for
 from .variables import (
     DeterministicVariable,
@@ -64,7 +68,7 @@ from .variables import (
 Tensor = torch.Tensor
 
 
-class CompiledModel:
+class CompiledModel(EnumerationMixin):
     """Frozen lowering of a ProbabilisticModel onto one device (default
     ``config.device``, as for every entry point)."""
 
@@ -496,3 +500,10 @@ class CompiledModel:
             g = {k: (mapped[k][i] if k in mapped else v) for k, v in given.items()}
             draws.append(self._walk_sample(store, gen, g)[0])
         return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+
+
+def compile_model(model: ProbabilisticModel, device=None, **kwargs) -> CompiledModel:
+    """``CompiledModel(model, device)``; other keywords are accepted and
+    ignored, as in the JAX package (``compiler.py:1962``)."""
+    del kwargs
+    return CompiledModel(model, device=device)

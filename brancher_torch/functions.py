@@ -132,7 +132,9 @@ def _squeeze(x, axis=None):
 def _take(a, indices, axis=None):
     indices = indices.long()
     if axis is None:
-        return torch.take(a, indices)
+        # indexing the flattened array, not torch.take: take has no batching
+        # rule under torch.func.vmap (an enumerated index is batched)
+        return a.reshape(-1)[indices]
     axis = axis % a.dim()
     out = torch.index_select(a, axis, indices.reshape(-1))
     return out.reshape(a.shape[:axis] + indices.shape + a.shape[axis + 1:])

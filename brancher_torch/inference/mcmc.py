@@ -46,9 +46,16 @@ the samples live on CUDA and pass 16 MB, as JAX's rule does
 (``brancher_tpu/inference/mcmc.py:1003-1009``).  Either way
 ``diagnostics["ess"]`` and ``["r_hat"]`` hold numpy arrays.
 
+``enumerate_discrete=True`` sums the Bernoulli and Categorical latents out
+of the potential (``compiled.enum_log_density_fn``, JAX ``mcmc.py:598-624``):
+every engine then samples the marginal of the continuous latents on the
+autodiff value+grad (``fused_potential`` is forced "off", so the GLM
+recognizer is not asked), and the discrete latents are pinned to zeros for
+``constrain`` so that their deterministic descendants stay defined.  The
+potential is cached on the compiled model (``_enum_potential_cache``).
+
 Not ported yet, and refused with ``NotImplementedError``: sharded chains
-(``chain_method="shard_map"``, ``mesh=``) and ``enumerate_discrete``
-(ROADMAP queue 1, items 15 and 13).
+(``chain_method="shard_map"``, ``mesh=``; ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -81,7 +88,7 @@ from .diagnostics import (
     potential_scale_reduction,
     potential_scale_reduction_device,
 )
-from .hmc import HMC, TorchChainRandom, autodiff_value_and_grad, init_chain_state
+from .hmc import HMC, GraphedValueAndGrad, TorchChainRandom, autodiff_value_and_grad, init_chain_state
 from .nuts import NUTS
 from .vectorized_nuts import nuts_batched
 
@@ -121,6 +128,30 @@ def make_potential(
         return -comp.log_density_z(params, comp.unravel_z(z_flat), given)
 
     return potential, comp.unravel_z, torch.zeros((comp.dim,), device=comp.device)
+
+
+def _given_key(given) -> Optional[tuple]:
+    """A key for ``given``'s content (names, shapes, dtypes and bytes),
+    read once a ``sample()`` call: what the potential caches are keyed by,
+    as JAX keys them (``mcmc.py:572-590``)."""
+    if not given:
+        return ()
+    key = []
+    for k in sorted(given):
+        a = np.ascontiguousarray(torch.as_tensor(given[k]).detach().cpu().numpy())
+        key.append((k, a.shape, str(a.dtype), hash(a.tobytes())))
+    return tuple(key)
+
+
+def make_enum_potential(comp: CompiledModel, params, given, unravel) -> Callable[[Tensor], Tensor]:
+    """The flat potential with the discrete latents summed out:
+    ``-enum_fn(params, unravel(z), given)`` over the dispatched density."""
+    enum_fn = comp.enum_log_density_fn(params, given)
+
+    def enum_potential(z_flat: Tensor) -> Tensor:
+        return -enum_fn(params, unravel(z_flat), given)
+
+    return enum_potential
 
 
 class _Counted:
@@ -384,8 +415,6 @@ def sample(
         _not_ported("sharding chains over a mesh", "ROADMAP queue 1, item 15")
     if mass not in ("diag", "dense"):
         raise ValueError(f"unknown mass {mass!r}")
-    if enumerate_discrete:
-        _not_ported("enumerate_discrete", "ROADMAP queue 1, item 13")
     if fused_potential not in ("auto", "bf16", "off"):
         raise ValueError(f"unknown fused_potential {fused_potential!r}")
     if diagnostics_backend not in ("auto", "host", "device", "none"):
@@ -407,6 +436,18 @@ def sample(
         params = comp.initial_params
     potential_fn, unravel, _ = make_potential(comp, params, given)
     per_chain = chain_method == "vmap"
+    if enumerate_discrete:
+        # the discrete latents summed out inside the potential: every engine
+        # samples the marginal on the autodiff value+grad (JAX mcmc.py:598-624)
+        gck = _given_key(given) if params is comp.initial_params else None
+        cache = comp.__dict__.setdefault("_enum_potential_cache", {})
+        if gck is not None and gck in cache:
+            potential_fn = cache[gck]
+        else:
+            potential_fn = make_enum_potential(comp, params, given, unravel)
+            if gck is not None:
+                cache[gck] = potential_fn
+        fused_potential = "off"
 
     # -- fused-potential upgrade (cached per compiled model) ---------------
     fam_name, bf16_active, leapfrog_fn = None, False, None
@@ -541,8 +582,18 @@ def sample(
                       if isinstance(v, DeterministicVariable) and v.parents]
     c, s = zs.shape[0], zs.shape[1]
 
+    given_c = given
+    if enumerate_discrete:
+        # the discrete latents are not in the chain state: pinned to zeros,
+        # so that the constrain walk and their deterministic descendants
+        # stay defined (JAX mcmc.py:962-969)
+        given_c = dict(given or {})
+        for n in comp.discrete_latent_names:
+            if n not in given_c:
+                given_c[n] = torch.zeros(comp.shapes[n], dtype=torch.int64, device=dev)
+
     def one(zf):
-        vals = comp.constrain(params, unravel(zf), given)
+        vals = comp.constrain(params, unravel(zf), given_c)
         return {n: vals[n] for n in names_out}
 
     with torch.no_grad():
@@ -563,6 +614,9 @@ def sample(
         "fused_family": fam_name,
         "fused_dtype": ("bf16" if bf16_active else "f32") if fam_name else None,
         "fused_leapfrog": k5_ran,
+        # the autodiff value+grad replayed a CUDA graph (None: not autodiff)
+        "value_and_grad_graphed": (bool(value_and_grad_fn.graphs)
+                                   if isinstance(value_and_grad_fn, GraphedValueAndGrad) else None),
         "device": str(dev),
     }
     mode = diagnostics_backend

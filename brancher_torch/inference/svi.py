@@ -30,10 +30,14 @@ bf16 and multiplies them in f32, which is exact, with f32 accumulation;
 exit.  JAX's CPU backend ignores the setting, so the port's bf16 loss has
 no CPU reference there (ROADMAP queue 3).
 
+``ReverseKL(enumerate_discrete=True)`` sums the Bernoulli and Categorical
+latents out of log p with an unconstrained-space guide: the compiled
+model's dispatched enumerated density (``enum_log_density_fn``, the one
+``sample(enumerate_discrete=True)`` uses) mapped over the guide's samples.
+
 Not ported yet, and refused with ``NotImplementedError``: ``mesh=`` (item
-15) and ``ReverseKL(enumerate_discrete=True)`` (item 13).  ``scan_unroll``
-and ``batch_axis`` are accepted and do nothing: there is no scan to
-unroll and no mesh.
+15).  ``scan_unroll`` and ``batch_axis`` are accepted and do nothing:
+there is no scan to unroll and no mesh.
 """
 from __future__ import annotations
 
@@ -76,18 +80,24 @@ class ReverseKL(InferenceMethod):
 
     Every step draws the target's data loaders once and feeds the draw to
     the target and to the guide as ``given`` (an amortised guide reads the
-    same minibatch), then evaluates log p of each guide sample."""
+    same minibatch), then evaluates log p of each guide sample.
+
+    enumerate_discrete: with an unconstrained-space guide, sum the
+    Bernoulli and Categorical latents out of log p exactly (the compiled
+    model's enumeration) instead of asking the guide to sample them."""
 
     def __init__(self, gradient_estimator: Optional[GradientEstimator] = None,
                  enumerate_discrete: bool = False):
-        if enumerate_discrete:
-            _not_ported("ReverseKL(enumerate_discrete=True)", "item 13")
         self.estimator = gradient_estimator or PathwiseDerivativeEstimator()
+        self.enumerate_discrete = enumerate_discrete
 
     def make_loss(self, p_comp: CompiledModel, guide):
         est = self.estimator
         latent_set = set(p_comp.latent_names)
         loaders = tuple(p_comp.data_loader_names)
+        # the dispatch of sample(enumerate_discrete=True), made once here
+        enum_density = (p_comp.enum_log_density_fn(p_comp.initial_params)
+                        if self.enumerate_discrete else None)
 
         def loss_fn(opt_params, generator, num_samples: int, draws=None):
             draws = draws or {}
@@ -101,6 +111,9 @@ class ReverseKL(InferenceMethod):
                 latents = {k: v for k, v in values.items() if k in latent_set}
                 log_p = torch.func.vmap(
                     lambda s: p_comp.log_prob_one(p_params, {**s, **given_data}))(latents)
+            elif enum_density is not None:
+                log_p = torch.func.vmap(
+                    lambda z: enum_density(p_params, z, given_data))(values)
             else:
                 log_p = torch.func.vmap(
                     lambda z: p_comp.log_density_z(p_params, z, given_data))(values)

@@ -20,8 +20,17 @@ function values at fixed inputs: the Gram matrix plus ``jitter`` I, built
 inside the walk from the kernel's hyperparameters, which may be variables
 (hyperpriors flow through the links).
 
-The HMMs (lines 312-583) need discrete enumeration and wait for it
-(ROADMAP queue 1, item 13).
+The HMMs (lines 312-601): ``GaussianHMM`` and ``EmissionHMM`` sum their
+state chain out of ``log_prob`` with the forward algorithm, and decode it
+with ``posterior_marginals`` (forward-backward) and ``viterbi``; each of
+JAX's ``lax.scan``s is a loop over T on tensors whose leading axes are
+carried along, over a [T, ..., K] table of per-state emission
+log-densities (for ``EmissionHMM`` the emission's ``log_prob`` broadcast
+over the leading [K] axis of its parameters).  Their ``sample`` draws the
+state path and then the emissions from the run's generator (JAX splits
+keys: the draws agree in distribution only).  A MarkovSeries with a
+Bernoulli or Categorical transition is summed out by the compiler's
+sequence enumeration instead (``enumeration.py``).
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .distributions import REAL, Distribution, MultivariateNormal, Normal
+from .distributions import _LOG_2PI, REAL, Distribution, MultivariateNormal, Normal, _gumbel
+from .enumeration import _backward, _forward
 from .variables import PartialLink, RandomVariable, to_tensor, var2link
 
 Tensor = torch.Tensor
@@ -42,7 +52,8 @@ def _as_param(v, like: Tensor) -> Tensor:
     ``transition_fn`` may return python numbers)."""
     if isinstance(v, Tensor):
         return v
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    dtype = like.dtype if like.dtype.is_floating_point else torch.get_default_dtype()
+    return torch.as_tensor(v, dtype=dtype, device=like.device)
 
 
 class MarkovSeries(Distribution):
@@ -260,5 +271,199 @@ def Timeseries(data):
             torch.from_numpy(finite.astype(np.float32)))
 
 
+def _gather_state(table: Tensor, s: Tensor) -> Tensor:
+    """table [..., K, *rest] at state s [...]: [..., *rest]."""
+    idx = s.reshape(s.shape + (1,) * (table.dim() - s.dim()))
+    idx = idx.expand(s.shape + (1,) + table.shape[s.dim() + 1:])
+    return torch.gather(table, s.dim(), idx).squeeze(s.dim())
+
+
+class _HMM(Distribution):
+    """The recursions shared by the HMMs, over ``_emissions(value, params)``:
+    a [T, ..., K] table of per-state emission log-densities."""
+
+    reparameterized = False
+
+    def __init__(self, length: int):
+        self.length = int(length)
+
+    def _chain(self, params):
+        """(log initial [..., K], log transition [..., K, K]) probabilities."""
+        return (torch.log_softmax(params["init_logits"], dim=-1),
+                torch.log_softmax(params["trans_logits"], dim=-1))
+
+    def log_prob(self, value, **params):
+        """The forward algorithm in log space: one value per series (the
+        time axis is the event)."""
+        log_init, log_trans = self._chain(params)
+        emis = self._emissions(value, params)
+        alphas = _forward(log_init + emis[0], log_trans, emis, shared=True)
+        return torch.logsumexp(alphas[-1], dim=-1)
+
+    def posterior_marginals(self, value, **params):
+        """Forward-backward smoothing p(s_t = k | y_{1:T}) as [..., T, K]."""
+        log_init, log_trans = self._chain(params)
+        emis = self._emissions(value, params)
+        alphas = _forward(log_init + emis[0], log_trans, emis, shared=True)
+        betas = _backward(log_trans, emis, shared=True)
+        post = torch.softmax(torch.stack(alphas) + torch.stack(betas), dim=-1)
+        return post.movedim(0, -2)
+
+    def viterbi(self, value, **params):
+        """The MAP state path argmax_s log p(s, y) as int64 [..., T]: the
+        max-product forward recursion, then the backtrace (the first
+        maximum wins a tie, as ``jnp.argmax``)."""
+        log_init, log_trans = self._chain(params)
+        emis = self._emissions(value, params)
+        delta = log_init + emis[0]
+        back = []
+        for t in range(1, emis.shape[0]):
+            scores = delta.unsqueeze(-1) + log_trans  # [..., K_prev, K_next]
+            back.append(torch.argmax(scores, dim=-2))
+            delta = torch.amax(scores, dim=-2) + emis[t]
+        s = torch.argmax(delta, dim=-1)
+        path = [s]
+        for bp in reversed(back):
+            s = torch.gather(bp, -1, s.unsqueeze(-1)).squeeze(-1)
+            path.append(s)
+        path.reverse()
+        return torch.stack(path, dim=-1)
+
+    def _states(self, generator, init_logits, trans_logits) -> Tensor:
+        """A state path [T, ...] drawn from the chain (Gumbel-max)."""
+        batch = torch.broadcast_shapes(init_logits.shape[:-1], trans_logits.shape[:-2])
+        k = init_logits.shape[-1]
+        g = _gumbel(generator, (self.length,) + batch + (k,), init_logits)
+        s = torch.argmax(init_logits + g[0], dim=-1)
+        trans = trans_logits.expand(batch + (k, k))
+        states = [s]
+        for t in range(1, self.length):
+            s = torch.argmax(_gather_state(trans, s) + g[t], dim=-1)
+            states.append(s)
+        return torch.stack(states)
+
+
+class GaussianHMM(_HMM):
+    """Hidden Markov model with Gaussian emissions, the state chain summed
+    out exactly by the forward algorithm: interacting discrete latents
+    along time, which element-wise enumeration cannot take.
+
+    Parameters (each may be a link, so priors over them make the HMM
+    NUTS-able: the states never enter the sampler): init_logits [K],
+    trans_logits [K, K] (rows normalize), locs [K], scales [K]; a value is
+    [..., T] with any leading axes the parameters share."""
+
+    param_names = ("init_logits", "trans_logits", "locs", "scales")
+    param_event_ndims = {"init_logits": 1, "trans_logits": 2, "locs": 1, "scales": 1}
+    support = REAL
+    event_ndim = 1
+
+    def _emissions(self, value, params):
+        y = value.movedim(-1, 0).unsqueeze(-1)  # [T, ..., 1]
+        locs, scales = params["locs"], params["scales"]
+        return -0.5 * ((y - locs) / scales) ** 2 - torch.log(scales) - 0.5 * _LOG_2PI
+
+    def sample(self, generator, *, init_logits, trans_logits, locs, scales):
+        states = self._states(generator, init_logits, trans_logits)  # [T, ...]
+        k = locs.shape[-1]
+        batch = states.shape[1:]
+        loc_t = torch.stack([_gather_state(locs.expand(batch + (k,)), s) for s in states])
+        scale_t = torch.stack([_gather_state(scales.expand(batch + (k,)), s) for s in states])
+        eps = torch.randn(states.shape, generator=generator, device=locs.device, dtype=locs.dtype)
+        return (loc_t + scale_t * eps).movedim(0, -1)
+
+    def mean(self, *, init_logits, trans_logits, locs, scales):
+        m = torch.sum(torch.softmax(init_logits, dim=-1) * locs, dim=-1)
+        return m.unsqueeze(-1).expand(m.shape + (self.length,))
+
+
+class EmissionHMM(_HMM):
+    """Hidden Markov model with any emission family: the state chain summed
+    out by the same forward algorithm, the emissions from a
+    :class:`Distribution` (Poisson counts, Bernoulli spikes, MVN
+    observations).  Its parameters come with a LEADING STATE AXIS [K, ...]
+    under link names ``emission_<param>``; init and transition logits as in
+    GaussianHMM.  A value is [T, *event]; the emission table is the
+    emission's log-density of each value broadcast over the [K] axis of
+    the parameters, its event axes summed."""
+
+    def __init__(self, length: int, emission: Distribution):
+        super().__init__(length)
+        self.emission = emission
+        self.param_names = ("init_logits", "trans_logits") + tuple(
+            f"emission_{p}" for p in emission.param_names)
+        evr = {"init_logits": 1, "trans_logits": 2}
+        base_evr = emission.param_event_ndims or {}
+        for p in emission.param_names:
+            evr[f"emission_{p}"] = base_evr.get(p, emission.event_ndim) + 1
+        self.param_event_ndims = evr
+        self.support = emission.support
+        self.event_ndim = 1 + emission.event_ndim
+        self.is_discrete = emission.is_discrete
+
+    @staticmethod
+    def _em(params):
+        return {k[len("emission_"):]: v for k, v in params.items() if k.startswith("emission_")}
+
+    def _emissions(self, value, params):
+        em = self._em(params)
+        k = params["init_logits"].shape[-1]
+        y = value.unsqueeze(1)  # [T, 1, *event] against the params' [K, ...]
+        lp = self.emission.log_prob(y, **em)
+        lp = torch.broadcast_to(lp, (value.shape[0], k) + lp.shape[2:])
+        return lp.reshape(value.shape[0], k, -1).sum(-1)
+
+    def sample(self, generator, **params):
+        states = self._states(generator, params["init_logits"], params["trans_logits"])
+        return self.emission.sample(generator, **{p: v[states] for p, v in self._em(params).items()})
+
+    def mean(self, **params):
+        w = torch.softmax(params["init_logits"], dim=-1)
+        m = self.emission.mean(**self._em(params))  # [K, *event]
+        m = torch.tensordot(w, m, dims=([0], [0]))
+        return m.unsqueeze(0).expand((self.length,) + m.shape)
+
+
+def EmissionHMMVariable(length, emission: Distribution, init_logits, trans_logits,
+                        name: Optional[str] = None, **emission_params) -> RandomVariable:
+    """HMM series variable with any emission family.  ``emission_params``
+    bind the emission's parameters with a leading state axis [K, ...]; each
+    position takes constants, variables or expressions::
+
+        rates = LogNormalVariable(0., 1., 'rates', plate_shape=(3,))
+        y = EmissionHMMVariable(200, Poisson(), init_logits=np.zeros(3),
+                                trans_logits=T0, rate=rates, name='y')
+    """
+    missing = set(emission.param_names) - set(emission_params)
+    extra = set(emission_params) - set(emission.param_names)
+    if missing or extra:
+        raise ValueError(
+            f"emission {type(emission).__name__} expects params {emission.param_names}; "
+            f"missing {sorted(missing)}, unknown {sorted(extra)}")
+    links = {"init_logits": init_logits, "trans_logits": trans_logits}
+    links.update({f"emission_{p}": v for p, v in emission_params.items()})
+    return RandomVariable(EmissionHMM(length, emission), name=name, links=links)
+
+
+def hmm_posterior_marginals(value, *, init_logits, trans_logits, locs, scales) -> Tensor:
+    """Forward-backward smoothing of a Gaussian HMM, p(s_t = k | y_{1:T}) as
+    [T, K]: decode the states at fixed (or posterior-mean) parameters."""
+    value = torch.as_tensor(value)
+    params = {k: torch.as_tensor(v, dtype=value.dtype, device=value.device) for k, v in dict(
+        init_logits=init_logits, trans_logits=trans_logits, locs=locs, scales=scales).items()}
+    return GaussianHMM(value.shape[-1]).posterior_marginals(value, **params)
+
+
+def HMMVariable(length, init_logits, trans_logits, locs, scales,
+                name: Optional[str] = None) -> RandomVariable:
+    """Gaussian-emission HMM series variable, its states marginalized.  Each
+    parameter position takes constants, variables or expressions: put
+    priors on locs, scales or transitions and run NUTS directly."""
+    return RandomVariable(GaussianHMM(length), name=name, links={
+        "init_logits": init_logits, "trans_logits": trans_logits, "locs": locs,
+        "scales": scales})
+
+
 __all__ = ["MarkovSeries", "AutoRegressive", "ARProcess", "MarkovProcess",
-           "observe_timeseries", "Timeseries"]
+           "observe_timeseries", "Timeseries", "GaussianHMM", "EmissionHMM",
+           "EmissionHMMVariable", "hmm_posterior_marginals", "HMMVariable"]

@@ -100,7 +100,21 @@ Phases (each prints one or more JSON lines tagged "phase"):
      prints "reduced"); WVGD and SVGD on the conjugate model; flow VI
      (TriangularLinear + Shift); and phase 9's floor SVI with
      matmul_precision="bfloat16";
- 15. the {"kernels": [...]} summary (K1 for its main paths and for the
+ 15. exact enumeration of discrete latents, no kernel on any run: the
+     sequence HMM of tests/test_discrete_latents.py:624-661 (MarkovProcess,
+     T=500, K=2, BF.take emissions) at 256 chains, NUTS, 200 + 200, on a
+     value+grad that must replay a CUDA graph; _markov_hmm_model (:531, K=3)
+     at T=100 and T=10,000, one value+grad of 256 chains (capture seconds,
+     ms a replay and an eager call, graphed held to eager); the element-
+     wise mixture (:57-124) at 256 chains with its responsibilities, and
+     enumerated SVI on it (:127-139); the Gaussian HMM (tests/test_hmm.py:
+     67-87) at 256 chains and the Poisson HMM (:154-175) at its 4; the
+     chain, factor and group models (:242-255, :350-370, :497-529) at their
+     tests' runs against quadrature.  Each prints its dispatch's method and
+     seconds, whether the value+grad was graphed, leaves a draw, ms a call
+     and min-ESS/s (on each draw's sorted components where the labels are
+     exchangeable);
+ 16. the {"kernels": [...]} summary (K1 for its main paths and for the
      pipelined floor, K3 once for each of its six paths, K4 for each of
      its three, K5 for each of its five), the card's name and power
      limit, and the last line {"ok": true, "device": {...}}.
@@ -108,8 +122,8 @@ Phases (each prints one or more JSON lines tagged "phase"):
 Every launch counter is set to 0 just before each sample() or
 perform_inference() run and read just after it; a run whose kernels did
 not launch as expected (the value+grad kernel once per value+grad call,
-K5 once per transition, none on the paths of phases 8-10, 12 and 14 and
-on phase 13's vmap and ARD runs) fails the script.  Any failed check raises: the script then exits
+K5 once per transition, none on the paths of phases 8-10, 12, 14 and 15
+and on phase 13's vmap and ARD runs) fails the script.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
 brancher_torch package beside it, it exits 2 at once.
 """
@@ -1754,12 +1768,395 @@ def phase_zoo():
     _zoo_svi()
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: exact enumeration of discrete latents.  No kernel is on any of
+# its runs: under enumerate_discrete sample() forces fused_potential="off",
+# as JAX does (brancher_tpu/inference/mcmc.py:598-624), and the enumerated
+# potential runs on the autodiff value+grad, replayed from a CUDA graph.
+# The headline is tests/test_discrete_latents.py:624-661's sequence HMM
+# (T=500, K=2) at 256 chains; the lengths row is :531's _markov_hmm_model
+# (K=3; scripts/exp_enum_sequence.py) at T=100 and 10,000, one value+grad
+# of 256 chains; the other rows are their JAX tests' runs (ENUM_RUNS) with
+# the mixture and the Gaussian HMM at 256 chains.
+ENUM_T = 500
+ENUM_LENGTHS = (100, 10_000)
+ENUM_LENGTH_CHAINS = 256
+ENUM_RUNS = {  # tag: (chains, NUTS max_depth (None: NUTS()), warmup, draws, the JAX test's chains)
+    "sequence_hmm": (256, None, 200, 200, 4),
+    "mixture": (256, 8, 400, 400, 4),
+    "gaussian_hmm": (256, 7, 400, 400, 4),
+    "poisson_hmm": (4, 7, 400, 400, 4),
+    "chain": (2, 6, 200, 200, 2),
+    "factor": (2, 6, 300, 400, 2),
+    "group": (4, None, 300, 400, 4),
+}
+# the runs held at 256 chains: a cut for time is printed as "reduced"
+ENUM_TARGET_CHAINS = {"sequence_hmm": 256, "mixture": 256, "gaussian_hmm": 256}
+
+
+def _enum_line(info: dict, tag: str) -> dict:
+    """A phase-15 line: the card beside the run's numbers, and any cut of
+    its chains below its target (ENUM_TARGET_CHAINS)."""
+    info.update({"phase": 15, "nvidia_smi": RESULTS["environment"]["nvidia_smi"]})
+    if tag in ENUM_RUNS:
+        chains, depth, warmup, draws, _ = ENUM_RUNS[tag]
+        info.update({"chains": chains, "max_depth": depth, "num_warmup": warmup,
+                     "num_samples": draws})
+        target = ENUM_TARGET_CHAINS.get(tag, chains)
+        if chains != target:
+            info["reduced"] = {"chains": [target, chains]}
+    return info
+
+
+def _enum_sample(model, tag, enumerate_discrete=True, require_graph=False, exchangeable=None):
+    """A phase-15 sample() run: no kernel may launch; with
+    ``enumerate_discrete`` the dispatch is made (and timed) first, and the
+    run reuses it.  ``exchangeable`` names a latent whose components are
+    exchangeable labels (a mixture's or an HMM's states): chains settle in
+    permuted modes, so its min-ESS and R-hat are read on each draw's
+    sorted components."""
+    import numpy as np
+    import torch
+    from brancher_torch.inference import NUTS
+    from brancher_torch.inference.diagnostics import (
+        effective_sample_size, potential_scale_reduction)
+
+    chains, depth, warmup, draws, _ = ENUM_RUNS[tag]
+    line = {}
+    if enumerate_discrete:
+        comp = model.compiled("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn = comp.enum_log_density_fn(comp.initial_params)
+        torch.cuda.synchronize()
+        line = {"dispatch_method": fn.__name__, "dispatch_seconds": time.perf_counter() - t0}
+    res, info = _run_sample(model, f"enum/{tag}", None, key=0,
+                            kernel=NUTS() if depth is None else NUTS(max_depth=depth),
+                            num_chains=chains, num_warmup=warmup, num_samples=draws,
+                            enumerate_discrete=enumerate_discrete)
+    d = res.diagnostics
+    check(d["fused_family"] is None, f"enum/{tag}: sampled on family {d['fused_family']}")
+    if require_graph:
+        check(d["value_and_grad_graphed"] is True, f"enum/{tag}: the value+grad ran eagerly")
+    ess = min(float(np.min(v)) for v in d["ess"].values())
+    rhat = max(float(np.max(v)) for v in d["r_hat"].values())
+    if exchangeable is not None:
+        x = np.sort(res.samples[exchangeable].double().cpu().numpy(), axis=-1)
+        ess = float(np.min(effective_sample_size(x)))
+        rhat = float(np.max(potential_scale_reduction(x)))
+        line["ess_and_rhat_on"] = f"{exchangeable}, each draw's components sorted"
+    info.update(line)
+    info.update({"value_and_grad_graphed": d["value_and_grad_graphed"], "min_ess": ess,
+                 "ess_per_second": ess / info["sampler_seconds"], "max_rhat": rhat})
+    RESULTS.setdefault("enum", {})[tag] = info
+    return res, _enum_line(info, tag)
+
+
+def _markov_chain_model(data, trans_logits, scale):
+    """A MarkovProcess HMM with BF.take(locs, s) emissions (the sequence
+    node), its transition logits a link so that they follow it to the card."""
+    import numpy as np
+    import brancher_torch as BT
+    import brancher_torch.functions as BF
+    from brancher_torch.distributions import Categorical
+    from brancher_torch.stochastic_processes import MarkovProcess
+
+    k = trans_logits.shape[0]
+    s = MarkovProcess(len(data), Categorical(), lambda prev, lt: {"logits": lt[prev]},
+                      links={"lt": trans_logits}, init_dist=Categorical(),
+                      init_links={"logits": np.zeros(k, np.float32)}, name="s")
+    locs = BT.NormalVariable(np.zeros(k, np.float32), 2.0 * np.ones(k, np.float32), "locs")
+    y = BT.NormalVariable(BF.take(locs, s), scale, "y")
+    y.observe(data)
+    return BT.ProbabilisticModel([y])
+
+
+def _enum_headline():
+    """tests/test_discrete_latents.py:624-661 at 256 chains: per-chain sorted
+    emission means within 0.25 of (-1.5, 1.5), on a graphed value+grad."""
+    import numpy as np
+
+    rng = np.random.RandomState(3)
+    lt = np.asarray([[2.0, -2.0], [-2.0, 2.0]], np.float32)
+    p = np.exp(lt) / np.exp(lt).sum(-1, keepdims=True)
+    states = [0]
+    for _ in range(ENUM_T - 1):
+        states.append(rng.choice(2, p=p[states[-1]]))
+    true_locs = np.asarray([-1.5, 1.5], np.float32)
+    data = (true_locs[np.asarray(states)] + 0.5 * rng.normal(size=ENUM_T)).astype(np.float32)
+    res, info = _enum_sample(_markov_chain_model(data, lt, 0.5), "sequence_hmm",
+                             require_graph=True, exchangeable="locs")
+    per_chain = np.sort(res.samples["locs"].double().mean(dim=1).cpu().numpy(), axis=-1)
+    got = per_chain.mean(axis=0)
+    info.update({"T": ENUM_T, "K": 2, "per_chain_sorted_mean": got.tolist(),
+                 "max_abs_dev": float(np.abs(got - true_locs).max()), "limit": 0.25,
+                 "worst_chain_dev": float(np.abs(per_chain - true_locs).max())})
+    emit(info)
+    check(info["max_abs_dev"] < 0.25, f"enum/sequence_hmm: sorted locs {got}")
+
+
+def _enum_lengths():
+    """_markov_hmm_model(T, k=3) at T=100 and 10,000: one value+grad of 256
+    chains, its capture seconds, ms a replay and ms an eager call, and the
+    graphed call held to the eager one to 1e-5."""
+    import numpy as np
+    import torch
+    from brancher_torch.inference.hmc import autodiff_value_and_grad
+    from brancher_torch.inference.mcmc import make_enum_potential
+
+    lt = np.random.RandomState(0).normal(0, 1.5, (3, 3)).astype(np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for t_len in ENUM_LENGTHS:
+        data = np.random.RandomState(0).normal(0, 2, t_len).astype(np.float32)
+        comp = _markov_chain_model(data, lt, 0.7).compiled("cuda")
+        _reset_launches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn = comp.enum_log_density_fn(comp.initial_params)
+        torch.cuda.synchronize()
+        dispatch_s = time.perf_counter() - t0
+        graphed = autodiff_value_and_grad(
+            make_enum_potential(comp, comp.initial_params, None, comp.unravel_z))
+        z = torch.randn((ENUM_LENGTH_CHAINS, comp.dim), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, g = graphed(z)  # two eager calls on a side stream, the capture, one replay
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        check(len(graphed.graphs) == 1, f"enum/length {t_len}: the value+grad was not captured")
+        replay_ms = time_ms(lambda: graphed(z), reps=5, warm_ms=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v_e, g_e = graphed.fn(z)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        rel = max(_rel(v, v_e), _rel(g, g_e))
+        launches = {name: k.launches for name, k in _all_kernels().items()}
+        info = {"phase": 15, "run": f"enum/sequence_length_{t_len}", "T": t_len, "K": 3,
+                "chains": ENUM_LENGTH_CHAINS, "dispatch_method": fn.__name__,
+                "dispatch_seconds": dispatch_s, "capture_seconds": capture_s,
+                "graphed_ms_per_call": replay_ms, "eager_ms_per_call": eager_ms,
+                "graphed_vs_eager_rel": rel, "launches": launches,
+                "finite": bool(torch.isfinite(v).all() and torch.isfinite(g).all()),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "nvidia_smi": RESULTS["environment"]["nvidia_smi"]}
+        RESULTS.setdefault("enum", {})[f"length_{t_len}"] = info
+        emit(info)
+        check(not any(launches.values()), f"enum/length {t_len}: a kernel launched: {launches}")
+        check(info["finite"], f"enum/length {t_len}: non-finite value or gradient")
+        check(rel < 1e-5, f"enum/length {t_len}: graphed differs from eager by {rel}")
+        del graphed, v, g, v_e, g_e
+
+
+def _enum_mixture_model(data, k=2):
+    import numpy as np
+    import brancher_torch as BT
+    import brancher_torch.functions as BF
+
+    mu = BT.NormalVariable(np.zeros(k, np.float32), 3.0 * np.ones(k, np.float32), "mu")
+    z = BT.CategoricalVariable(probs=np.ones(k, np.float32) / k, name="z",
+                               plate_shape=(data.shape[0],))
+    x = BT.NormalVariable(BF.take(mu, z), 0.5, "x")
+    x.observe(data)
+    return BT.ProbabilisticModel([x])
+
+
+def _enum_mixture_data(n=40, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    comp = rng.randint(0, 2, n)
+    return (np.asarray([-2.0, 2.0])[comp] + 0.5 * rng.normal(size=n)).astype(np.float32), comp
+
+
+def _enum_mixture():
+    """tests/test_discrete_latents.py:100-124 at 256 chains: sorted means
+    within 0.2 of +-2, responsibilities at them classify > 95 %; and
+    :127-139's enumerated SVI (800 steps, 8 samples, lr 0.05)."""
+    import numpy as np
+    import torch
+    from brancher_torch.inference import ReverseKL
+
+    data, true_comp = _enum_mixture_data()
+    model = _enum_mixture_model(data)
+    res, info = _enum_sample(model, "mixture", exchangeable="mu")
+    mu_sorted = np.sort(res.samples["mu"].double().cpu().numpy().reshape(-1, 2), axis=1).mean(0)
+    comp = model.compiled("cuda")
+    _, resp = comp.enumerated_log_density(
+        comp.initial_params, {"mu": torch.as_tensor(mu_sorted, dtype=torch.float32, device="cuda")},
+        return_responsibilities=True)
+    hard = resp["z"].argmax(-1).cpu().numpy()
+    acc = float(max((hard == true_comp).mean(), (1 - hard == true_comp).mean()))
+    info.update({"sorted_mean": mu_sorted.tolist(), "limit": 0.2, "assignment_accuracy": acc})
+    emit(info)
+    check(float(np.abs(mu_sorted - [-2.0, 2.0]).max()) < 0.2, f"enum/mixture: means {mu_sorted}")
+    check(acc > 0.95, f"enum/mixture: responsibilities classify {acc}")
+
+    res, info = _run_svi("enum/svi_mixture", _enum_mixture_model(data), 800, False,
+                         number_samples=8, lr=0.05, key=0,
+                         inference_method=ReverseKL(enumerate_discrete=True))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        zs, _ = res.guide.sample_and_log_prob(res.params["q"], gen, 200)
+    mu_q = np.sort(zs["mu"].double().cpu().numpy(), axis=1).mean(0)
+    info.update({"phase": 15, "number_samples": 8, "lr": 0.05, "sorted_mean": mu_q.tolist(),
+                 "limit": 0.3, "nvidia_smi": RESULTS["environment"]["nvidia_smi"]})
+    RESULTS.setdefault("enum", {})["svi_mixture"] = info
+    emit(info)
+    check(float(np.abs(mu_q - [-2.0, 2.0]).max()) < 0.3, f"enum/svi_mixture: means {mu_q}")
+
+
+def _enum_hmms():
+    """The HMM variables under NUTS (the forward algorithm in the density, no
+    discrete latent left to enumerate): tests/test_hmm.py:67-87's Gaussian
+    HMM at 256 chains and :154-175's Poisson HMM at its own 4."""
+    import numpy as np
+    import brancher_torch as BT
+    from brancher_torch.distributions import Poisson
+    from brancher_torch.stochastic_processes import EmissionHMMVariable, HMMVariable
+
+    trans = np.asarray([[0.9, 0.1], [0.2, 0.8]])
+    rng = np.random.RandomState(1)
+    s, ys = rng.choice(2, p=[0.6, 0.4]), []
+    for _ in range(120):
+        ys.append(np.asarray([-2.0, 2.0])[s] + 0.7 * rng.randn())
+        s = rng.choice(2, p=trans[s])
+    locs = BT.NormalVariable(np.zeros(2, np.float32), 5.0 * np.ones(2, np.float32), "locs")
+    series = HMMVariable(120, init_logits=np.zeros(2, np.float32),
+                         trans_logits=np.log(trans).astype(np.float32), locs=locs,
+                         scales=np.asarray([0.7, 0.7], np.float32), name="y")
+    series.observe(np.asarray(ys, np.float32))
+    res, info = _enum_sample(BT.ProbabilisticModel([series]), "gaussian_hmm",
+                             enumerate_discrete=False, exchangeable="locs")
+    locs_hat = np.sort(res.samples["locs"].double().cpu().numpy().reshape(-1, 2), axis=1).mean(0)
+    info.update({"T": 120, "sorted_mean": locs_hat.tolist(), "limit": 0.25,
+                 "jax_test_divergences": "0 at 4 chains"})
+    emit(info)
+    check(float(np.abs(locs_hat - [-2.0, 2.0]).max()) < 0.25, f"enum/gaussian_hmm: {locs_hat}")
+
+    ptrans = np.asarray([[0.92, 0.08], [0.15, 0.85]])
+    rng = np.random.RandomState(5)
+    s, counts = 0, []
+    for _ in range(200):
+        counts.append(rng.poisson((1.0, 8.0)[s]))
+        s = rng.choice(2, p=ptrans[s])
+    rates = BT.LogNormalVariable(np.zeros(2, np.float32), 2.0 * np.ones(2, np.float32), "rates")
+    series = EmissionHMMVariable(200, Poisson(), init_logits=np.zeros(2, np.float32),
+                                 trans_logits=np.log(ptrans).astype(np.float32), rate=rates,
+                                 name="y")
+    series.observe(np.asarray(counts, np.float32))
+    res, info = _enum_sample(BT.ProbabilisticModel([series]), "poisson_hmm",
+                             enumerate_discrete=False, exchangeable="rates")
+    r_hat = np.sort(res.samples["rates"].double().cpu().numpy().reshape(-1, 2), axis=1).mean(0)
+    info.update({"T": 200, "sorted_mean": r_hat.tolist(), "limits": [0.4, 1.2]})
+    emit(info)
+    check(abs(r_hat[0] - 1.0) < 0.4 and abs(r_hat[1] - 8.0) < 1.2, f"enum/poisson_hmm: {r_hat}")
+
+
+def _quadrature(comp, density, grid):
+    """Posterior mean and sd of the scalar mu by quadrature over ``grid``
+    of ``density(mu)`` (mu's unconstrained transform is the identity)."""
+    import torch
+
+    with torch.no_grad():
+        lps = torch.func.vmap(density)(grid).double()
+    w = torch.exp(lps - torch.logsumexp(lps, 0))
+    g = grid.double()
+    mean = float(torch.sum(w * g))
+    return mean, float(torch.sqrt(torch.sum(w * g**2) - mean**2))
+
+
+def _enum_structures():
+    """tests/test_discrete_latents.py:242-255's chain HMM, :350-370's
+    three-way collider and :497-529's plated pair, each at its test's run
+    and limits against quadrature of the exact marginal (brute force for
+    the group, as there)."""
+    import itertools
+    import numpy as np
+    import torch
+    import brancher_torch as BT
+    import brancher_torch.functions as BF
+
+    a = np.asarray([[0.9, 0.1], [0.2, 0.8]], np.float32)
+    rng = np.random.RandomState(3)
+    s, xs = rng.randint(0, 2), []
+    for _ in range(12):
+        xs.append(0.5 + 2.0 * (2 * s - 1) + 0.6 * rng.normal())
+        s = rng.choice(2, p=a[s])
+    mu = BT.NormalVariable(0.0, 3.0, "mu")
+    st = BT.CategoricalVariable(probs=np.asarray([0.5, 0.5], np.float32), name="s0")
+    outs = []
+    for t in range(12):
+        if t:
+            st = BT.CategoricalVariable(probs=BF.take(a, st, axis=0), name=f"s{t}")
+        x = BT.NormalVariable(2.0 * (2.0 * st - 1.0) + mu, 0.6, f"x{t}")
+        x.observe(np.float32(xs[t]))
+        outs.append(x)
+    chain = BT.ProbabilisticModel(outs)
+
+    d1, d2, d3 = (BT.BernoulliVariable(p, name=n) for p, n in ((0.4, "d1"), (0.5, "d2"), (0.6, "d3")))
+    mu = BT.NormalVariable(0.0, 2.0, "mu")
+    y = BT.NormalVariable(mu + d1 + 0.5 * d2 - d3 + 2.0 * d1 * d2 * d3, 0.7, "y")
+    y.observe(np.float32(1.2))
+    factor = BT.ProbabilisticModel([y])
+
+    mu = BT.NormalVariable(0.0, 2.0, "mu")
+    z1 = BT.BernoulliVariable(0.4, name="z1", plate_shape=(2,))
+    z2 = BT.BernoulliVariable(logits=1.5 * z1 - 0.5, name="z2")
+    y = BT.NormalVariable(mu + z1 + 0.5 * z2 + 1.2 * z1 * z2, 0.7, "y")
+    y.observe(np.linspace(-0.5, 1.5, 2).astype(np.float32))
+    group = BT.ProbabilisticModel([y])
+
+    dev = "cuda"
+    for tag, model, grid, limits in (
+            ("chain", chain, torch.linspace(-3.0, 4.0, 2001, device=dev), (0.4, 0.4)),
+            ("factor", factor, torch.linspace(-4.0, 5.0, 1501, device=dev), (0.35, 0.4)),
+            ("group", group, torch.linspace(-3.0, 3.0, 241, device=dev), None)):
+        res, info = _enum_sample(model, tag)  # the dispatch first, timed
+        comp = model.compiled(dev)
+        p = comp.initial_params
+        if tag == "group":
+            assigns = [{"z1": torch.tensor(u, device=dev), "z2": torch.tensor(v, device=dev)}
+                       for u in itertools.product([0, 1], repeat=2)
+                       for v in itertools.product([0, 1], repeat=2)]
+            density = lambda m: torch.logsumexp(torch.stack(  # noqa: E731
+                [comp.log_density_z(p, {"mu": m}, g) for g in assigns]), 0)
+        else:
+            fn = comp.enum_log_density_fn(p)
+            density = lambda m, _fn=fn: _fn(p, {"mu": m})  # noqa: E731
+        exact_mean, exact_sd = _quadrature(comp, density, grid)
+        draws = res.samples["mu"].double().cpu().numpy().ravel()
+        info.update({"mean": float(draws.mean()), "sd": float(draws.std()),
+                     "exact_mean": exact_mean, "exact_sd": exact_sd})
+        if limits is None:  # the group test's limits (4 chains x 400 draws)
+            info["limits"] = {"mean": 3.5 * exact_sd / np.sqrt(40), "sd": [0.6, 1.5]}
+            ok = (abs(info["mean"] - exact_mean) < info["limits"]["mean"]
+                  and 0.6 * exact_sd < info["sd"] < 1.5 * exact_sd)
+        else:
+            info["limits"] = {"mean_in_sd": limits[0], "sd_in_sd": limits[1]}
+            ok = (abs(info["mean"] - exact_mean) < limits[0] * exact_sd
+                  and abs(info["sd"] - exact_sd) < limits[1] * exact_sd)
+        emit(info)
+        check(ok, f"enum/{tag}: mean {info['mean']} sd {info['sd']} against "
+                  f"{exact_mean} {exact_sd}")
+
+
+def phase_enumeration():
+    _enum_headline()
+    _enum_lengths()
+    _enum_mixture()
+    _enum_hmms()
+    _enum_structures()
+
+
 def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
     for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate",
                     "hmc_floor", "ard", "svi_floor", "vae", "ar1", "ar1_chees", "ar2",
                     "particles", "ar2_dense", "ar2_pipelined", "floor_pipelined", "floor_vmap",
-                    "conjugate_vmap", "ard_pipelined", "zoo"):
+                    "conjugate_vmap", "ard_pipelined", "zoo", "enum"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -1814,12 +2211,13 @@ def summary_line():
 
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
          5: phase_mxu, 6: phase_chees, 7: phase_hmc, 8: phase_ard, 9: phase_svi_floor,
-         10: phase_vae, 11: phase_ar, 12: phase_particles, 13: phase_modes, 14: phase_zoo}
+         10: phase_vae, 11: phase_ar, 12: phase_particles, 13: phase_modes, 14: phase_zoo,
+         15: phase_enumeration}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="", help="comma-separated subset of 1-14 (default: all)")
+    parser.add_argument("--phases", default="", help="comma-separated subset of 1-15 (default: all)")
     args = parser.parse_args()
     try:
         import torch
@@ -1846,7 +2244,7 @@ def main() -> int:
         STEPS[num]()
         RESULTS.setdefault("phase_seconds", {})[num] = time.perf_counter() - t
     RESULTS["total_seconds"] = time.perf_counter() - t0
-    emit({"phase": 15, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    emit({"phase": 16, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
     if chosen != sorted(STEPS):
         return 0  # a subset: no summary, no "ok" line
     emit(summary_line())

@@ -406,6 +406,45 @@ def test_graphed_autodiff_matches_eager(cuda, make_model):
     assert len(graphed.graphs) + len(graphed.eager_shapes) == 1
 
 
+def _sequence_hmm(t_len=60, k=2):
+    """A MarkovProcess HMM (the sequence-node enumeration path), its
+    transition logits a link so that they follow the model to the card."""
+    import brancher_torch as BT
+    import brancher_torch.functions as BF
+    from brancher_torch.distributions import Categorical
+    from brancher_torch.stochastic_processes import MarkovProcess
+
+    s = MarkovProcess(t_len, Categorical(), lambda prev, lt: {"logits": lt[prev]},
+                      links={"lt": np.float32([[2.0, -2.0], [-2.0, 2.0]])},
+                      init_dist=Categorical(), init_links={"logits": np.zeros(k, np.float32)},
+                      name="s")
+    locs = BT.NormalVariable(np.zeros(k, np.float32), 2.0 * np.ones(k, np.float32), "locs")
+    y = BT.NormalVariable(BF.take(locs, s), 0.5, "y")
+    y.observe(np.random.RandomState(3).normal(0, 1.5, t_len).astype(np.float32))
+    return BT.ProbabilisticModel([y])
+
+
+def test_graphed_enumerated_value_and_grad_matches_eager(cuda):
+    """The enumerated potential (forward algorithm over T inside the
+    value+grad) is captured, not run eagerly, and its replays equal the
+    eager call bit for bit."""
+    from brancher_torch.inference.hmc import autodiff_value_and_grad
+    from brancher_torch.inference.mcmc import make_enum_potential
+
+    comp = _sequence_hmm().compiled(cuda)
+    pot = make_enum_potential(comp, comp.initial_params, None, comp.unravel_z)
+    graphed = autodiff_value_and_grad(pot)
+    eager = graphed.fn
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(4):
+        z = torch.randn((16, comp.dim), generator=gen, device=cuda)
+        v, g = graphed(z)
+        v_ref, g_ref = eager(z)
+        torch.testing.assert_close(v, v_ref, rtol=0, atol=0)
+        torch.testing.assert_close(g, g_ref, rtol=0, atol=0)
+    assert len(graphed.graphs) == 1 and not graphed.eager_shapes
+
+
 def test_a_value_and_grad_that_waits_on_the_card_runs_eagerly(cuda):
     from brancher_torch.inference.hmc import GraphedValueAndGrad
 

@@ -132,7 +132,7 @@ def test_sample_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"chain_method": "shard_map"}, {"enumerate_discrete": True},
+    {"chain_method": "shard_map"}, {"mesh": "chains"},
 ], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values())))[:8])
 def test_unported_options_raise_naming_the_roadmap(option):
     model, _ = conjugate_normal_model()

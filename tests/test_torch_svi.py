@@ -341,8 +341,6 @@ def test_unported_options_raise_naming_the_roadmap(kw):
     model, _ = conjugate_normal_model()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
         TS.perform_inference(model, number_iterations=2, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TS.ReverseKL(enumerate_discrete=True)
 
 
 def test_defaults_to_cuda_and_raises_without_it(monkeypatch):
