@@ -27,6 +27,7 @@ from .stochastic_processes import (
     HMMVariable,
     MarkovProcess,
 )
+from .dashboard import export_dashboard_html
 from .model_comparison import compare, loo, waic
 from .transformations import (
     PlanarFlow,

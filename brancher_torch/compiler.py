@@ -4,6 +4,7 @@ Counterpart of ``brancher_tpu/compiler.py``.  ``CompiledModel`` walks the
 frozen DAG in topological order and evaluates, for ONE sample:
 
   * ``sample_one(params, generator, given)`` — ancestral sampling
+  * ``mean_one(params, key, given)``         — every variable at its mean
   * ``log_density_z(params, z, given)``      — log-joint + Jacobians in
                                                unconstrained space (the
                                                target NUTS differentiates)
@@ -291,6 +292,12 @@ class CompiledModel(EnumerationMixin):
         ``given`` entries clamped."""
         gen = make_generator(generator, self.device)
         return self._walk_sample(self._as_store(params), gen, given or {})[0]
+
+    def mean_one(self, params, key=None, given: Optional[Dict[str, Tensor]] = None):
+        """Every variable at its mean given its parents' means, ``given``
+        entries clamped: {name: value} (``key`` is unused, as in JAX)."""
+        del key
+        return self._walk_mean(self._as_store(params), given or {})
 
     def log_prob_one(self, params, values: Dict[str, Tensor]) -> Tensor:
         """Joint log-density of ONE full assignment in constrained space

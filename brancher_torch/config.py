@@ -8,12 +8,19 @@ of the ``torch.Generator`` an entry point makes when none is given.
 Entry points default to ``"cuda"``.  Where CUDA is absent they raise
 instead of carrying on quietly on the CPU; the CPU is used only when a
 caller asks for it (``device="cpu"``), as the tests do.
+
+``set_dtype`` and ``enable_nan_checks`` are JAX's (lines 49-62).
+``enable_nan_checks`` turns on ``torch.autograd.set_detect_anomaly``, which
+raises where a backward pass produces a NaN; JAX's ``jax_debug_nans``
+raises at any primitive, forward ones too (a documented deviation).  The
+mesh axis names wait for the parallelism item (ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -75,5 +82,23 @@ def make_generator(
     return gen
 
 
+def set_dtype(dtype) -> None:
+    """Set the default floating dtype: a ``torch.dtype`` or a name
+    ("float32", "bfloat16", ...), or a numpy dtype."""
+    if not isinstance(dtype, torch.dtype):
+        name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+        dtype = getattr(torch, name, None)
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"unknown dtype {name!r}")
+    config.dtype = dtype
+
+
 def default_dtype() -> torch.dtype:
     return config.dtype
+
+
+def enable_nan_checks(on: bool = True) -> None:
+    """Debug aid: raise at the first backward-pass operation that yields a
+    NaN, with a traceback into the forward operation that made it
+    (``torch.autograd.set_detect_anomaly``)."""
+    torch.autograd.set_detect_anomaly(bool(on))

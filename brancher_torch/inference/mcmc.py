@@ -1,7 +1,7 @@
 """MCMC entry point: warmup + sampling, diagnostics.
 
 Counterpart of ``brancher_tpu/inference/mcmc.py``: ``MCMCResult``
-(lines 46-91), ``make_potential`` (line 94), ``_run_single_chain`` (lines
+(lines 46-91, ``to_pandas`` and ``posterior_predictive`` among them), ``make_potential`` (line 94), ``_run_single_chain`` (lines
 157-230), the engine dispatch of ``_run_vectorized`` (lines 250-330) and
 ``sample()`` (lines 454-1069) with ``chain_method`` "vectorized" or
 "vmap", ``mass`` "diag" or "dense", and ``resume_state``.  ``kernel``
@@ -52,7 +52,10 @@ every engine then samples the marginal of the continuous latents on the
 autodiff value+grad (``fused_potential`` is forced "off", so the GLM
 recognizer is not asked), and the discrete latents are pinned to zeros for
 ``constrain`` so that their deterministic descendants stay defined.  The
-potential is cached on the compiled model (``_enum_potential_cache``).
+potential is cached on the compiled model (``_enum_potential_cache``), a
+FIFO of eight keyed by ``given``'s content, as in JAX; a ``given`` leaf
+over 16 MB is neither copied to the host nor hashed, and its call builds a
+fresh potential.
 
 Not ported yet, and refused with ``NotImplementedError``: sharded chains
 (``chain_method="shard_map"``, ``mesh=``; ROADMAP queue 1, item 15).
@@ -60,6 +63,7 @@ Not ported yet, and refused with ``NotImplementedError``: sharded chains
 from __future__ import annotations
 
 import copy
+import hashlib
 import time
 import warnings
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -104,6 +108,31 @@ class MCMCResult:
         self.stats = stats  # {accept_prob, diverging, num_steps}[chains, draws]
         self.diagnostics = diagnostics
 
+    def to_pandas(self):
+        """The draws of every chain, one row each, as a pandas DataFrame."""
+        from ..pandas_interface import sample_dict_to_dataframe
+
+        return sample_dict_to_dataframe(
+            {k: v.detach().cpu().reshape((-1,) + tuple(v.shape[2:])) for k, v in self.samples.items()})
+
+    def posterior_predictive(self, model, num_draws: int = 100, key=None) -> Dict[str, Tensor]:
+        """Sample the model's variables, the observed ones included, given
+        ``num_draws`` posterior draws thinned uniformly from all chains
+        without replacement, on the samples' device.  key: an int seed
+        (default 0) or a generator there.  JAX thins with
+        ``jax.random.choice(..., replace=False)``; this takes the first
+        ``num_draws`` of a ``torch.randperm`` from the same generator as the
+        draws, so it matches JAX in distribution only."""
+        flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in self.samples.items()}
+        first = next(iter(flat.values()))
+        total, dev = first.shape[0], first.device
+        if num_draws > total:
+            raise ValueError(f"num_draws={num_draws} exceeds the {total} posterior draws")
+        gen = make_generator(0 if key is None else key, dev)
+        idx = torch.randperm(total, generator=gen, device=dev)[:num_draws]
+        given = {k: v[idx] for k, v in flat.items()}
+        return model.get_sample_dict(num_draws, key=gen, input_values=given, device=dev)
+
     def posterior_mean(self) -> Dict[str, Tensor]:
         return {k: torch.mean(v.float(), dim=(0, 1)) for k, v in self.samples.items()}
 
@@ -130,17 +159,45 @@ def make_potential(
     return potential, comp.unravel_z, torch.zeros((comp.dim,), device=comp.device)
 
 
+# a given leaf over this many bytes is not keyed: copying it to the host
+# and hashing it on every call would cost more than the cache saves (JAX
+# ``mcmc.py:126-133``)
+_GIVEN_KEY_MAX_BYTES = 1 << 24
+
+
 def _given_key(given) -> Optional[tuple]:
-    """A key for ``given``'s content (names, shapes, dtypes and bytes),
-    read once a ``sample()`` call: what the potential caches are keyed by,
-    as JAX keys them (``mcmc.py:572-590``)."""
+    """A key for ``given``'s content (names, shapes, dtypes and the sha1
+    of the bytes), read once a ``sample()`` call: what the potential
+    caches are keyed by, as JAX keys them (``_content_key``, ``mcmc.py:
+    109-135``).  None, before any host copy, when a leaf passes 16 MB: the
+    call then builds a fresh potential and caches nothing."""
     if not given:
         return ()
-    key = []
+    leaves = []
     for k in sorted(given):
-        a = np.ascontiguousarray(torch.as_tensor(given[k]).detach().cpu().numpy())
-        key.append((k, a.shape, str(a.dtype), hash(a.tobytes())))
+        t = torch.as_tensor(given[k])
+        if t.numel() * t.element_size() > _GIVEN_KEY_MAX_BYTES:
+            return None
+        leaves.append((k, t))
+    key = []
+    for k, t in leaves:
+        a = np.ascontiguousarray(t.detach().cpu().numpy())
+        key.append((k, a.shape, str(a.dtype), hashlib.sha1(a.tobytes()).hexdigest()))
     return tuple(key)
+
+
+def _comp_cache(comp, attr: str, key, build, cap: int = 8):
+    """A FIFO of ``cap`` entries kept on the compiled model under ``attr``
+    (JAX ``_comp_cache``, ``mcmc.py:140-155``): the entry of ``key``, else
+    ``build()``, stored after the oldest entry is evicted when full."""
+    cache = comp.__dict__.setdefault(attr, {})
+    if key in cache:
+        return cache[key]
+    value = build()
+    if len(cache) >= cap:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+    return value
 
 
 def make_enum_potential(comp: CompiledModel, params, given, unravel) -> Callable[[Tensor], Tensor]:
@@ -440,13 +497,11 @@ def sample(
         # the discrete latents summed out inside the potential: every engine
         # samples the marginal on the autodiff value+grad (JAX mcmc.py:598-624)
         gck = _given_key(given) if params is comp.initial_params else None
-        cache = comp.__dict__.setdefault("_enum_potential_cache", {})
-        if gck is not None and gck in cache:
-            potential_fn = cache[gck]
+        if gck is not None:
+            potential_fn = _comp_cache(comp, "_enum_potential_cache", gck,
+                                       lambda: make_enum_potential(comp, params, given, unravel))
         else:
             potential_fn = make_enum_potential(comp, params, given, unravel)
-            if gck is not None:
-                cache[gck] = potential_fn
         fused_potential = "off"
 
     # -- fused-potential upgrade (cached per compiled model) ---------------

@@ -15,9 +15,12 @@ There is no compiled program to reuse, so a chunk is not padded to
 ``chunk_size``: ``process`` takes a chunk of any length, every step a real
 one, and ``chunk_size`` only sets how ``streaming_particle_filter`` slices
 its input.
-The state carries the run's ``SMCRandom``; resuming from a saved state
-waits for the checkpoint port (ROADMAP queue 1, item 16), and ``mesh=``
-for the parallelism item (item 15).
+The state carries the run's ``SMCRandom``, as JAX's carries its key
+(lines 49-63): a state saved with ``checkpoint.save_checkpoint`` (its
+generator as its state) and restored with ``restore_checkpoint`` resumes
+in a fresh ``StreamingSMC``, even in a new process, bit for bit with the
+uninterrupted run.  ``mesh=`` waits for the parallelism item (ROADMAP
+queue 1, item 15).
 """
 from __future__ import annotations
 

@@ -433,6 +433,26 @@ class ProbabilisticModel:
         return comp.sample(comp.initial_params if params is None else params, key,
                            number_samples, given=input_values)
 
+    def get_sample(self, number_samples: int, key=None, input_values=None, params=None,
+                   device=None):
+        """``get_sample_dict`` as a tidy pandas DataFrame (reference API)."""
+        from .pandas_interface import sample_dict_to_dataframe
+
+        return sample_dict_to_dataframe(self.get_sample_dict(
+            number_samples, key=key, input_values=input_values, params=params, device=device))
+
+    def calculate_log_probability(self, samples, params: Optional[Dict[str, Any]] = None,
+                                  for_gradient: bool = False, device=None) -> torch.Tensor:
+        """Log-joint per sample, f32[n] on the model's device.  Accepts
+        sample dicts, {Variable: array} mappings or DataFrames;
+        ``for_gradient`` is accepted and unused, as in JAX."""
+        from .pandas_interface import coerce_to_sample_dict
+
+        del for_gradient
+        comp = self.compiled(device)
+        return comp.log_prob(comp.initial_params if params is None else params,
+                             coerce_to_sample_dict(samples, device=comp.device))
+
     # -- posterior attachment ------------------------------------------------
     def set_posterior_model(self, model: "ProbabilisticModel") -> None:
         """Attach a variational model; correspondence is by variable NAME."""
@@ -456,6 +476,13 @@ class ProbabilisticModel:
         given = {k: v for k, v in q_samples.items() if k in p_names}
         return self.get_sample_dict(number_samples, key=gen, input_values=given,
                                     params=params.get("p"), device=dev)
+
+    def get_posterior_sample(self, number_samples: int, key=None, params=None, device=None):
+        """``get_posterior_sample_dict`` as a pandas DataFrame."""
+        from .pandas_interface import sample_dict_to_dataframe
+
+        return sample_dict_to_dataframe(self.get_posterior_sample_dict(
+            number_samples, key=key, params=params, device=device))
 
     def __repr__(self):
         return (

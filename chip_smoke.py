@@ -85,10 +85,11 @@ Phases (each prints one or more JSON lines tagged "phase"):
      run resumed for 400 draws with fused_leapfrog=True (K5 once a
      transition); chain_method="vmap" (no kernel) at the floor (1024
      chains, 200 + 200) and on the conjugate model (64 chains, 500 +
-     1000); and phase 8's ARD under the pipelined engine (500 + ARD13_DRAWS
-     draws), its iterations a draw and ms an iteration beside phase 8's
-     lockstep leaves.  Each against its phase's reference (least squares,
-     MCSE, closed form) with R-hat;
+     1000); and phase 8's ARD under the pipelined engine (ARD13_DRAWS
+     draws, resumed from phase 8's run, or after 500 warmup transitions
+     where phase 8 did not run), its iterations a draw and ms an
+     iteration beside phase 8's lockstep leaves.  Each against its
+     phase's reference (least squares, MCSE, closed form) with R-hat;
  14. the model zoo, no kernel on any run: softmax classification at
      scripts/exp_categorical_speedup.py:26-34's full width (N=2000, d=32,
      K=10, D=330; 256 chains, NUTS(max_depth=7), fused_potential="auto",
@@ -114,16 +115,33 @@ Phases (each prints one or more JSON lines tagged "phase"):
      seconds, whether the value+grad was graphed, leaves a draw, ms a call
      and min-ESS/s (on each draw's sorted components where the labels are
      exchangeable);
- 16. the {"kernels": [...]} summary (K1 for its main paths and for the
-     pipelined floor, K3 once for each of its six paths, K4 for each of
-     its three, K5 for each of its five), the card's name and power
-     limit, and the last line {"ok": true, "device": {...}}.
+ 16. the auxiliary modules on phase 3's floor model (1024 chains): NUTS
+     200 + 200 on K1; its resume_state through save_checkpoint /
+     restore_checkpoint, resumed for 200 draws on K1 (within 5 MCSE of
+     the first run); posterior_predictive (1000 draws of y, all 0 or 1);
+     summarize_mcmc and export_dashboard_html (24 panels); profile_trace
+     around 10 resumed transitions, with the trace's bytes and the card's
+     busy share over the traced window (information); MetricsLogger's
+     JSONL over 300 steps of phase 9's floor SVI; the spec round trip
+     (the floor model's expression link refused, a direct-link model over
+     the floor's X rebuilt with a bit-identical log density); phase 12's
+     streaming filter checkpointed at t=150 and resumed bit for bit; and,
+     where pandas, cloudpickle and matplotlib import (the phase prints
+     which do), to_pandas, get_sample(1000), save_model -> load_model
+     (the same draws and log density) and a plot;
+ 17. the {"kernels": [...]} summary (K1 for its main paths, for the
+     pipelined floor and for phase 16's floor run, K3 once for each of its
+     six paths, K4 for each of its three, K5 for each of its five), the
+     card's name and power limit, and the last line {"ok": true,
+     "device": {...}}.
 
 Every launch counter is set to 0 just before each sample() or
 perform_inference() run and read just after it; a run whose kernels did
 not launch as expected (the value+grad kernel once per value+grad call,
-K5 once per transition, none on the paths of phases 8-10, 12, 14 and 15
-and on phase 13's vmap and ARD runs) fails the script.  Any failed check raises: the script then exits
+K5 once per transition, none on the paths of phases 8-10, 12, 14 and 15,
+on phase 13's vmap and ARD runs and on phase 16's SVI and posterior
+predictive) fails the script.  The whole script must end within 1200 s on
+one card.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
 brancher_torch package beside it, it exits 2 at once.
 """
@@ -131,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import importlib
 import json
 import math
 import statistics
@@ -166,7 +185,8 @@ MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor", "logr
 # K3 runs on six main paths and K4 on three, one entry each in the summary,
 # and K1 has an entry for the pipelined floor beside its own: (section and
 # run of RESULTS, phase-2 shape)
-VG_PATHS = {"glm_bernoulli_f32": ((("floor_pipelined", "auto"), "floor"),),
+VG_PATHS = {"glm_bernoulli_f32": ((("floor_pipelined", "auto"), "floor"),
+                                  (("aux", "aux/floor"), "floor")),
             "glm_normal_f32": ((("conjugate", "auto"), "conjugate"),
                                (("mxu_linreg", "auto"), "linreg"),
                                (("ar1", "auto"), "ar1"), (("ar2", "auto"), "ar2"),
@@ -1024,6 +1044,7 @@ def phase_ard():
     })
     emit(run)
     RESULTS["ard"] = {"fused": run}
+    RESULTS.setdefault("resume_states", {})["ard/fused"] = d["resume_state"]
     check(d["diagnostics_backend"] == "device", f"ard: diagnostics ran on {d['diagnostics_backend']}")
     check(run["max_rhat"] < 1.01, f"ard: max R-hat {run['max_rhat']}")
     check(ess_rel <= 0.05, f"ard: device ESS {ess_rel:.4f} from the host's")
@@ -1179,9 +1200,13 @@ def phase_ar():
 
 
 # phase 13's ARD run under the pipelined engine: phase 8's model, chains and
-# warmup, its draws cut from phase 8's ARD_DRAWS for time (printed as
-# "reduced" in its line): with 500 draws the whole script took 967 s on an
-# H100, too near its 1200 s limit for a slower host (PERF.md)
+# key, its draws cut from phase 8's ARD_DRAWS for time (printed as "reduced"
+# in its line): with 500 draws the whole script took 967 s on an H100, too
+# near its 1200 s limit for a slower host (PERF.md).  Where phase 8 ran, the
+# run resumes from phase 8's resume_state with no warmup, also printed as
+# "reduced": the pipelined engine warms up with the lockstep engine, so its
+# 500 warmup transitions (about 79 s of the run's 129 s on an H100) repeat
+# phase 8's warmup at the same key.
 ARD13_DRAWS = 300
 
 
@@ -1273,21 +1298,26 @@ def phase_modes():
     _check_conjugate(res, run, info, 13, "conjugate_vmap/auto", family=None)
     check(run["max_rhat"] < 1.01, f"conjugate_vmap/auto: R-hat {run['max_rhat']}")
 
-    # phase 8's ARD under the pipelined engine (no kernel)
+    # phase 8's ARD under the pipelined engine (no kernel), resumed from
+    # phase 8's run where it ran
     model, fused = _ard_model_and_potential()
+    rs = RESULTS.get("resume_states", {}).get("ard/fused")
+    warmup = ARD_WARMUP if rs is None else 0
     res, run = _run_sample(model, "ard_pipelined/fused", None,
-                           kernel=NUTS(max_depth=8, pipelined=True), num_warmup=ARD_WARMUP,
+                           kernel=NUTS(max_depth=8, pipelined=True), num_warmup=warmup,
                            num_samples=ARD13_DRAWS, num_chains=1024, key=6, target_accept=0.95,
-                           value_and_grad_fn=fused, ess_vars=["w", "tau"])
+                           value_and_grad_fn=fused, ess_vars=["w", "tau"], resume_state=rs)
     d = res.diagnostics
     ess = np.concatenate([np.ravel(d["ess"][n]) for n in ("w", "tau")])
     rhat = np.concatenate([np.ravel(d["r_hat"][n]) for n in ("w", "tau")])
     run.update({
-        "phase": 13, "chains": 1024, "num_warmup": ARD_WARMUP, "num_samples": ARD13_DRAWS,
+        "phase": 13, "chains": 1024, "num_warmup": warmup, "num_samples": ARD13_DRAWS,
         "min_ess": float(ess.min()), "ess_cap": float(1024 * ARD13_DRAWS),
         "ess_per_second": float(ess.min()) / run["sampler_seconds"], "max_rhat": float(rhat.max()),
         "mean_live_leapfrogs_per_draw": float(d["chain_leapfrog"].mean()),
-        **({"reduced": {"num_samples": [ARD_DRAWS, ARD13_DRAWS]}} if ARD13_DRAWS != ARD_DRAWS else {}),
+        "reduced": {"num_samples": [ARD_DRAWS, ARD13_DRAWS],
+                    **({"num_warmup": [ARD_WARMUP, 0], "resumed_from": "ard/fused (phase 8)"}
+                       if rs is not None else {})},
     })
     if "ard" in RESULTS:  # phase 8 ran: its lockstep leaves and ms a leaf beside these
         lock = RESULTS["ard"]["fused"]
@@ -1464,7 +1494,7 @@ def phase_particles():
 # small models (eight schools, GP, GMM) at their JAX tests' chains, with the
 # warmup and draws of eight schools and the GP cut for time (printed as
 # "reduced"): the whole script read 988.6 s with 800 + 800 and 200 + 100 on
-# an H100 (700 W), against its 1000 s, and the GP fills NUTS's tree (131
+# an H100 (700 W), against its 1200 s limit, and the GP fills NUTS's tree (131
 # leaves a transition), so its 400 + 400 alone would cost about 85 s of the
 # phase's 180 (PERF.md §6).
 SOFTMAX_N, SOFTMAX_D, SOFTMAX_K = 2000, 32, 10
@@ -2151,12 +2181,277 @@ def phase_enumeration():
     _enum_structures()
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the auxiliary modules on phase 3's floor model at full width
+# (1024 chains, N=1000, D=32), K1 under every sample() run.  The runs are
+# shorter than phase 3's (200 + 200, then 200 resumed): the phase checks the
+# modules around the sampler, and phase 3 measures the sampler.  Steps that
+# need a package the card machine may lack (pandas, cloudpickle, matplotlib,
+# TensorBoard) print "not_run" with the package's name where it is absent.
+AUX_WARMUP, AUX_DRAWS = 200, 200
+AUX_PROFILE_DRAWS = 10  # transitions in the profiled window: a trace of a few MB
+AUX_SVI_STEPS = 300
+AUX_PPC_DRAWS = 1000
+OPTIONAL_PACKAGES = ("pandas", "cloudpickle", "matplotlib", "tensorboard")
+
+
+def _installed(name: str) -> bool:
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def _busy_share(trace_path):
+    """The card's busy time in a Chrome trace, the union of its kernel,
+    memcpy and memset intervals, as a share of the span of all its events
+    (the traced window) and of the span from the first device interval to
+    the last; the window's ms and the number of kernels."""
+    events = [e for e in json.loads(Path(trace_path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in device:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    device_span = (device[-1][1] - device[0][0]) if device else 0.0
+    return (busy / max(end - start, 1e-9), busy / max(device_span, 1e-9), (end - start) * 1e-3,
+            kernels)
+
+
+def _aux_line(info: dict) -> dict:
+    info["phase"] = 16
+    emit(info)
+    RESULTS.setdefault("aux", {})[info["run"]] = info
+    return info
+
+
+def phase_aux():
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aux_") as d:
+        _phase_aux(Path(d))
+
+
+def _phase_aux(work):
+    import numpy as np
+    import torch
+    from brancher_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from brancher_torch.dashboard import export_dashboard_html
+    from brancher_torch.inference import NUTS
+    from brancher_torch.inference.streaming_smc import StreamingSMC
+    from brancher_torch.metrics import TRACE_FILE, MetricsLogger, profile_trace, summarize_mcmc
+    from brancher_torch.models import LGSSMParams, lgssm_state_space, make_lgssm_data
+    from brancher_torch.serialization import build_model, model_spec
+
+    present = {name: _installed(name) for name in OPTIONAL_PACKAGES}
+    emit({"phase": 16, "optional_packages": present})
+    nuts = NUTS(max_depth=8)
+    x, y, model = _floor_model()
+
+    # 1. the floor run (K1 once per value+grad call)
+    res, info = _run_sample(model, "aux/floor", "glm_bernoulli_f32", kernel=nuts,
+                            num_warmup=AUX_WARMUP, num_samples=AUX_DRAWS, num_chains=1024, key=30)
+    mean, sd, ess, rhat = _post_stats(res, "w")
+    info.update({"num_warmup": AUX_WARMUP, "num_samples": AUX_DRAWS, "min_ess": float(ess.min()),
+                 "max_rhat": float(rhat.max())})
+    _aux_line(info)
+    check(info["fused_family"] == "bernoulli_logit", f"aux/floor: family {info['fused_family']}")
+    check(info["max_rhat"] < 1.01, f"aux/floor: max R-hat {info['max_rhat']}")
+    if "floor_auto_moments" in RESULTS:  # phase 3 ran
+        _mcse_compare(16, "aux/floor vs floor/auto", RESULTS["floor_auto_moments"],
+                      (mean, sd, ess), "aux")
+
+    # 2. the resume state through a checkpoint, then 200 draws with no warmup
+    t0 = time.perf_counter()
+    rs = res.diagnostics["resume_state"]
+    save_checkpoint(str(work / "resume"), rs)
+    rs2 = restore_checkpoint(str(work / "resume"))
+    ckpt_s = time.perf_counter() - t0
+    check(all(torch.equal(torch.as_tensor(rs[k]), torch.as_tensor(rs2[k])) for k in rs)
+          and rs2["z"].device.type == "cuda", "aux: the checkpoint changed the resume state")
+    res2, info = _run_sample(model, "aux/resume", "glm_bernoulli_f32", kernel=nuts,
+                             resume_state=rs2, num_warmup=0, num_samples=AUX_DRAWS,
+                             num_chains=1024, key=31)
+    m2, s2, e2, r2 = _post_stats(res2, "w")
+    info.update({"num_samples": AUX_DRAWS, "checkpoint_seconds": ckpt_s,
+                 "min_ess": float(e2.min()), "max_rhat": float(r2.max())})
+    _aux_line(info)
+    check(info["warmup_leaf_iterations"] == 0, "aux/resume: the resumed run warmed up")
+    _mcse_compare(16, "aux/resume vs aux/floor", (mean, sd, ess), (m2, s2, e2), "aux")
+
+    # 3. the posterior predictive: y's draws are 0 or 1
+    _reset_launches()
+    t0 = time.perf_counter()
+    ppc = res.posterior_predictive(model, num_draws=AUX_PPC_DRAWS, key=32)
+    torch.cuda.synchronize()
+    ppc_s = time.perf_counter() - t0
+    yd = ppc["y"]
+    agree = float((yd.float().mean(0).round().cpu().numpy() == y).mean())
+    _aux_line({"run": "aux/posterior_predictive", "num_draws": AUX_PPC_DRAWS,
+               "shape": list(yd.shape), "seconds": ppc_s, "agreement_with_data": agree,
+               "launches": {n: k.launches for n, k in _all_kernels().items()}})
+    check(tuple(yd.shape) == (AUX_PPC_DRAWS, x.shape[0]) and bool(((yd == 0) | (yd == 1)).all()),
+          "aux/posterior_predictive: y's draws are not 0/1 of the data's shape")
+    check(not any(RESULTS["aux"]["aux/posterior_predictive"]["launches"].values()),
+          "aux/posterior_predictive: a kernel launched")
+
+    # 4. the summaries: summarize_mcmc and the dashboard (24 panels of 32)
+    t0 = time.perf_counter()
+    summary = summarize_mcmc(res)
+    summary_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    page = Path(export_dashboard_html(res, str(work / "dashboard.html"), max_panels=24)).read_text()
+    dash_s = time.perf_counter() - t0
+    panels = page.count('class="panel"')
+    _aux_line({"run": "aux/summaries", "summarize_seconds": summary_s, "dashboard_seconds": dash_s,
+               "dashboard_bytes": len(page.encode()), "panels": panels})
+    check(summary["w"]["mean"].shape == (32,) and "ess" in summary["w"], "aux: summarize_mcmc")
+    check(panels == 24 and "truncated at max_panels" in page, f"aux: dashboard has {panels} panels")
+
+    # 5. profiling a short window of the resumed sampler (information only)
+    trace_dir = work / "trace"
+    with profile_trace(str(trace_dir)):
+        _, info = _run_sample(model, "aux/profiled", "glm_bernoulli_f32", kernel=nuts,
+                              resume_state=rs2, num_warmup=0, num_samples=AUX_PROFILE_DRAWS,
+                              num_chains=1024, key=33, diagnostics_backend="none")
+    trace = trace_dir / TRACE_FILE
+    share, span_share, window_ms, kernels = _busy_share(trace)
+    info.update({"num_samples": AUX_PROFILE_DRAWS, "trace_bytes": trace.stat().st_size,
+                 "traced_window_ms": window_ms, "kernel_events": kernels,
+                 "device_busy_share": share, "device_busy_share_first_to_last_kernel": span_share,
+                 "nvidia_smi": RESULTS["environment"]["nvidia_smi"]})
+    _aux_line(info)
+    check(kernels > 0, "aux/profiled: the trace holds no kernel")
+
+    # 6. the metrics logger over phase 9's floor SVI
+    svi, info = _run_svi("aux/svi_metrics", model, AUX_SVI_STEPS, False, number_samples=16,
+                         lr=0.02, key=34)
+    tb = str(work / "tensorboard") if present["tensorboard"] else None
+    logger = MetricsLogger(str(work / "metrics.jsonl"), tensorboard_dir=tb)
+    t0 = time.perf_counter()
+    for step, loss in enumerate(svi.loss_curve):
+        logger.log(step, loss=loss)
+    logger.close()
+    info.update({"log_seconds": time.perf_counter() - t0,
+                 "jsonl_lines": len((work / "metrics.jsonl").read_text().splitlines()),
+                 "tensorboard": bool(tb) or {"not_run": "tensorboard is not installed"}})
+    _aux_line(info)
+    check(info["jsonl_lines"] == AUX_SVI_STEPS, f"aux: {info['jsonl_lines']} metric lines")
+
+    # 7. specs: the floor model's logits are an expression link, which the
+    # spec holds as opaque and build_model refuses, as in JAX; the round
+    # trip is held on a model of the floor's data with direct links
+    import brancher_torch as BT
+
+    spec = json.loads(json.dumps(model_spec(model, include_links=True, device="cuda")))
+    try:
+        build_model(spec)
+        refused = False
+    except ValueError as e:
+        refused = "opaque" in str(e)
+    check(refused, "aux/spec: build_model did not refuse the floor model's expression link")
+    mu = BT.NormalVariable(np.zeros(32, np.float32), np.ones(32, np.float32), "mu")
+    sigma = BT.LogNormalVariable(0.0, 0.5, "sigma")
+    xv = BT.NormalVariable(mu, sigma, "x", plate_shape=(x.shape[0],))
+    xv.observe(x)
+    direct = BT.ProbabilisticModel([xv])
+    t0 = time.perf_counter()
+    rebuilt = build_model(json.loads(json.dumps(model_spec(direct, include_links=True,
+                                                           device="cuda"))))
+    spec_s = time.perf_counter() - t0
+    z = torch.randn((1024, 33), generator=torch.Generator("cuda").manual_seed(35), device="cuda")
+    dens = []
+    for m in (direct, rebuilt):
+        comp = m.compiled("cuda")
+        dens.append(torch.func.vmap(lambda zf, c=comp: c.log_density_z(
+            c.initial_params, c.unravel_z(zf)))(z))
+    _aux_line({"run": "aux/spec", "floor_spec_refused": refused, "seconds": spec_s,
+               "rebuilt_model": "x ~ N(mu [32], sigma) over the floor's 1000 x 32 X",
+               "bit_identical": bool(torch.equal(dens[0], dens[1]))})
+    check(torch.equal(dens[0], dens[1]), "aux/spec: the rebuilt log density differs")
+
+    # 8. the streaming filter at phase 12's size, checkpointed at t=150 and
+    # resumed in a fresh StreamingSMC: bit for bit the uninterrupted run
+    _, ys = make_lgssm_data(300, LGSSMParams(), seed=0)
+    ys = np.asarray(ys)
+    kw = dict(num_particles=2048, lag=16, device="cuda")
+    f = StreamingSMC(lgssm_state_space(LGSSMParams()), **kw)
+    state, _ = f.init(ys[0], key=22)
+    state, _ = f.process(state, ys[1:150])
+    t0 = time.perf_counter()
+    save_checkpoint(str(work / "stream"), state)
+    ckpt_s = time.perf_counter() - t0
+    state, (means, sms, _, _) = f.process(state, ys[150:])
+    t0 = time.perf_counter()
+    state2 = restore_checkpoint(str(work / "stream"))
+    restore_s = time.perf_counter() - t0
+    state2, (means2, sms2, _, _) = StreamingSMC(lgssm_state_space(LGSSMParams()), **kw).process(
+        state2, ys[150:])
+    same = (torch.equal(means, means2) and torch.equal(sms, sms2) and state.t == state2.t
+            and all(torch.equal(a, b) for a, b in zip(state[1:5], state2[1:5])))
+    _aux_line({"run": "aux/streaming_resume", "T": 300, "particles": 2048, "lag": 16,
+               "checkpoint_at": 150, "save_seconds": ckpt_s, "restore_seconds": restore_s,
+               "bit_identical": same})
+    check(same, "aux/streaming_resume: the resumed filter differs from the uninterrupted one")
+
+    # 9. what needs pandas, cloudpickle or matplotlib
+    line = {"run": "aux/optional"}
+    if present["pandas"]:
+        t0 = time.perf_counter()
+        df = res.to_pandas()
+        gs = model.get_sample(1000, key=36, device="cuda")
+        line.update({"to_pandas_rows": len(df), "get_sample_shape": list(gs.shape),
+                     "pandas_seconds": time.perf_counter() - t0})
+        check(len(df) == math.prod(res.samples["w"].shape[:2]) and list(gs.columns) == ["w", "y"]
+              and len(gs) == 1000, "aux: DataFrames")
+    else:
+        line["pandas"] = {"not_run": "pandas is not installed"}
+    if present["cloudpickle"]:
+        from brancher_torch.serialization import load_model, save_model
+
+        t0 = time.perf_counter()
+        save_model(model, str(work / "model.pkl"))
+        loaded = load_model(str(work / "model.pkl"), device="cuda")
+        pickle_s = time.perf_counter() - t0
+        draws = [m.get_sample_dict(1000, key=37, device="cuda") for m in (model, loaded)]
+        lps = [m.calculate_log_probability({"w": res.samples["w"][0, :64]}, device="cuda")
+               for m in (model, loaded)]
+        same = (all(torch.equal(draws[0][k], draws[1][k]) for k in draws[0])
+                and torch.equal(lps[0], lps[1]))
+        line.update({"pickle_seconds": pickle_s, "pickle_bytes": (work / "model.pkl").stat().st_size,
+                     "pickle_bit_identical": same})
+        check(same, "aux: the loaded model's draws or log density differ")
+    else:
+        line["cloudpickle"] = {"not_run": "cloudpickle is not installed"}
+    if present["matplotlib"]:
+        from brancher_torch.visualizations import plot_posterior
+
+        t0 = time.perf_counter()
+        plot_posterior(res, variables=["w"]).savefig(str(work / "posterior.png"))
+        line["plot_seconds"] = time.perf_counter() - t0
+    else:
+        line["matplotlib"] = {"not_run": "matplotlib is not installed"}
+    _aux_line(line)
+
+
 def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
     for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate",
                     "hmc_floor", "ard", "svi_floor", "vae", "ar1", "ar1_chees", "ar2",
                     "particles", "ar2_dense", "ar2_pipelined", "floor_pipelined", "floor_vmap",
-                    "conjugate_vmap", "ard_pipelined", "zoo", "enum"):
+                    "conjugate_vmap", "ard_pipelined", "zoo", "enum", "aux"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -2212,12 +2507,12 @@ def summary_line():
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
          5: phase_mxu, 6: phase_chees, 7: phase_hmc, 8: phase_ard, 9: phase_svi_floor,
          10: phase_vae, 11: phase_ar, 12: phase_particles, 13: phase_modes, 14: phase_zoo,
-         15: phase_enumeration}
+         15: phase_enumeration, 16: phase_aux}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="", help="comma-separated subset of 1-15 (default: all)")
+    parser.add_argument("--phases", default="", help="comma-separated subset of 1-16 (default: all)")
     args = parser.parse_args()
     try:
         import torch
@@ -2244,7 +2539,7 @@ def main() -> int:
         STEPS[num]()
         RESULTS.setdefault("phase_seconds", {})[num] = time.perf_counter() - t
     RESULTS["total_seconds"] = time.perf_counter() - t0
-    emit({"phase": 16, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    emit({"phase": 17, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
     if chosen != sorted(STEPS):
         return 0  # a subset: no summary, no "ok" line
     emit(summary_line())

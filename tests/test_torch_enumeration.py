@@ -503,3 +503,81 @@ def test_group_enumeration_uses_structural_tables(monkeypatch):
     fp = fresh.initial_params
     assert not any(plan[-1] for plan in fresh._group_plan(fp, {}).values())
     np.testing.assert_allclose(float(fresh.group_enumerated_log_density(fp, z)), val, rtol=1e-5)
+
+
+def test_enumerated_potential_cache_keeps_the_last_eight_givens():
+    """Twelve sample() calls with twelve different ``given``s on one compiled
+    mixture leave eight cached potentials, the oldest evicted first, as
+    JAX's ``_comp_cache(..., cap=8)``; an equal ``given`` in new tensors
+    hits its entry (keyed by content, sha1 of the bytes)."""
+    from brancher_torch.inference import mcmc
+
+    data, _ = _make_mixture_data(20)
+    model = _mixture_model("torch", data)
+    comp = model.compiled("cpu")
+    kw = dict(kernel=NUTS(max_depth=2), num_samples=1, num_warmup=0, num_chains=2,
+              enumerate_discrete=True, diagnostics_backend="none", device="cpu")
+    givens = [{"x": torch.as_tensor(data + 0.1 * i)} for i in range(12)]
+    for i, g in enumerate(givens):
+        sample(model, key=i, given=g, **kw)
+    cache = comp._enum_potential_cache
+    keys = [mcmc._given_key(g) for g in givens]
+    assert all(len(k[0][3]) == 40 for k in keys)  # sha1 hex digests
+    assert list(cache) == keys[4:]
+    last = cache[keys[-1]]
+    sample(model, key=0, given={"x": torch.as_tensor(data + 0.1 * 11)}, **kw)
+    assert list(cache) == keys[4:] and cache[keys[-1]] is last
+
+
+def _mixture_with_a_plate(n):
+    """The four-point mixture beside ``w`` ~ N(mu[0], 1) over ``n`` points."""
+    data, _ = _make_mixture_data(4)
+    mu = BT.NormalVariable(np.zeros(2, np.float32), 3.0 * np.ones(2, np.float32), "mu")
+    z = BT.CategoricalVariable(probs=np.ones(2, np.float32) / 2, name="z", plate_shape=(4,))
+    x = BT.NormalVariable(BFT.take(mu, z), 0.5, "x")
+    x.observe(data)
+    w = BT.NormalVariable(mu[0], 1.0, "w", plate_shape=(n,))
+    w.observe(np.zeros(n, np.float32))
+    return BT.ProbabilisticModel([x, w])
+
+
+def test_a_given_over_16_mb_is_neither_copied_nor_hashed_nor_cached(monkeypatch):
+    """A ``given`` leaf over 1 << 24 bytes gets no key before any host copy
+    or hash (JAX ``_content_key``'s bail), and every sample() with it builds
+    a fresh enumerated potential that is not cached; one byte less is
+    keyed and cached."""
+    from brancher_torch.inference import mcmc
+
+    n = (1 << 22) + 1  # 16 MB + 4 bytes of f32
+    rng = np.random.RandomState(0)
+    big = {"w": torch.as_tensor(rng.normal(size=n).astype(np.float32))}
+    fits = {"w": torch.as_tensor(rng.normal(size=n - 1).astype(np.float32))}
+
+    def boom(*a, **k):
+        raise AssertionError("the large given was copied or hashed")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "numpy", boom)
+        m.setattr(torch.Tensor, "cpu", boom)
+        m.setattr(mcmc.hashlib, "sha1", boom)
+        assert mcmc._given_key(big) is None
+    assert mcmc._given_key(fits) is not None
+    built = []
+    orig = mcmc.make_enum_potential
+
+    def counting(*a, **k):
+        built.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(mcmc, "make_enum_potential", counting)
+    kw = dict(kernel=NUTS(max_depth=1), num_samples=1, num_warmup=0, num_chains=1,
+              enumerate_discrete=True, diagnostics_backend="none", device="cpu")
+    model = _mixture_with_a_plate(n)
+    for _ in range(2):
+        sample(model, key=0, given=big, **kw)
+    assert len(built) == 2
+    assert not model.compiled("cpu").__dict__.get("_enum_potential_cache")
+    model = _mixture_with_a_plate(n - 1)
+    for _ in range(2):
+        sample(model, key=0, given=fits, **kw)
+    assert len(built) == 3 and len(model.compiled("cpu")._enum_potential_cache) == 1

@@ -25,7 +25,9 @@ def test_import_loads_no_jax_and_builds_nothing():
         "brancher_torch.models.state_space, brancher_torch.distributions, "
         "brancher_torch.transforms, brancher_torch.standard_variables, "
         "brancher_torch.transformations, brancher_torch.model_comparison, "
-        "brancher_torch.inference.particle_inference_tools;"
+        "brancher_torch.inference.particle_inference_tools, brancher_torch.pandas_interface, "
+        "brancher_torch.serialization, brancher_torch.checkpoint, brancher_torch.metrics, "
+        "brancher_torch.visualizations, brancher_torch.dashboard, brancher_torch.utilities;"
         "print(json.dumps({'jax': 'jax' in sys.modules, "
         "'tpu': any(m.startswith('brancher_tpu') for m in sys.modules), "
         "'loaded': sorted(brancher_torch.ops.cuda_build._loaded)}))"
@@ -46,7 +48,7 @@ def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "brancher_tpu"):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "brancher_tpu"):
                     offenders.append(f"{path.relative_to(ROOT)}: {name}")
     assert not offenders, offenders
     for source in ("glm_vg.cu", "leapfrog.cu"):
@@ -58,5 +60,7 @@ def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
                    "inference/pmmh.py", "inference/particle_gibbs.py", "models/autoregressive.py",
                    "models/state_space.py", "distributions.py", "transforms.py",
                    "standard_variables.py", "transformations.py", "model_comparison.py",
-                   "inference/particle_inference_tools.py"):
+                   "inference/particle_inference_tools.py", "pandas_interface.py",
+                   "serialization.py", "checkpoint.py", "metrics.py", "visualizations.py",
+                   "dashboard.py", "utilities.py"):
         assert (PORT / module).exists()

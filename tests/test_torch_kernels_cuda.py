@@ -458,3 +458,61 @@ def test_a_value_and_grad_that_waits_on_the_card_runs_eagerly(cuda):
     assert graphed.eager_shapes and not graphed.graphs
     torch.testing.assert_close(v, torch.full((4,), 12.0, device=cuda))
     torch.testing.assert_close(g, z * 2)
+
+
+def test_cuda_generator_survives_a_checkpoint(cuda, tmp_path):
+    """A CUDA generator goes through save_checkpoint as its state and
+    device and comes back on the card, drawing on where it stopped."""
+    from brancher_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    torch.rand(1000, generator=g, device=cuda)
+    save_checkpoint(str(tmp_path), {"g": g, "z": torch.ones(3, device=cuda)})
+    r = restore_checkpoint(str(tmp_path))
+    assert r["g"].device.type == "cuda" and r["z"].device.type == "cuda"
+    assert torch.equal(torch.rand(64, generator=r["g"], device=cuda),
+                       torch.rand(64, generator=g, device=cuda))
+
+
+def test_streaming_resume_is_bit_identical_on_the_card(cuda, tmp_path):
+    from brancher_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from brancher_torch.inference.streaming_smc import StreamingSMC
+    from brancher_torch.models import lgssm_state_space, make_lgssm_data
+
+    _, ys = make_lgssm_data(length=120, seed=5)
+    ys = np.asarray(ys)
+    kw = dict(num_particles=512, lag=8, device=cuda)
+    f = StreamingSMC(lgssm_state_space(), **kw)
+    state, _ = f.init(ys[0], key=0)
+    state, _ = f.process(state, ys[1:60])
+    save_checkpoint(str(tmp_path), state)
+    state, (m, sm, _, _) = f.process(state, ys[60:])
+    state2 = restore_checkpoint(str(tmp_path))
+    state2, (m2, sm2, _, _) = StreamingSMC(lgssm_state_space(), **kw).process(state2, ys[60:])
+    assert torch.equal(m, m2) and torch.equal(sm, sm2) and state.t == state2.t
+    for a, b in zip(state[1:5], state2[1:5]):
+        assert torch.equal(a, b)
+
+
+def test_a_model_saved_on_the_cpu_loads_onto_the_card(cuda, tmp_path):
+    import brancher_torch as BT
+    from brancher_torch.serialization import load_model, save_model
+
+    mu = BT.NormalVariable(0.0, 2.0, "mu")
+    sigma = BT.LogNormalVariable(0.0, 0.5, "sigma")
+    x = BT.NormalVariable(mu, sigma, "x", plate_shape=(20,))
+    x.observe(np.random.RandomState(0).randn(20).astype(np.float32))
+    model = BT.ProbabilisticModel([x])
+    vals = {"mu": np.asarray([0.5, -1.0], np.float32), "sigma": np.asarray([1.0, 0.3], np.float32)}
+    lp = model.calculate_log_probability(vals, device="cpu")
+    save_model(model, str(tmp_path / "m.pkl"))
+    loaded = load_model(str(tmp_path / "m.pkl"), device="cuda")
+    assert loaded.get_variable("x").observed_value.device.type == "cuda"
+    lp_card = loaded.calculate_log_probability(vals, device="cuda")
+    assert lp_card.device.type == "cuda"
+    torch.testing.assert_close(lp_card.cpu(), lp, rtol=1e-6, atol=0)
+    # and back: a model holding card tensors loads onto the CPU
+    save_model(loaded, str(tmp_path / "m2.pkl"))
+    back = load_model(str(tmp_path / "m2.pkl"), device="cpu")
+    assert back.get_variable("x").observed_value.device.type == "cpu"
+    torch.testing.assert_close(back.calculate_log_probability(vals, device="cpu"), lp, rtol=0, atol=0)
