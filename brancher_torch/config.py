@@ -13,12 +13,14 @@ caller asks for it (``device="cpu"``), as the tests do.
 ``enable_nan_checks`` turns on ``torch.autograd.set_detect_anomaly``, which
 raises where a backward pass produces a NaN; JAX's ``jax_debug_nans``
 raises at any primitive, forward ones too (a documented deviation).  The
-mesh axis names wait for the parallelism item (ROADMAP queue 1, item 15).
+mesh axis names and ``mesh_shape`` are JAX's (lines 27-39): the names of
+the ``DeviceMesh`` dimensions that ``parallel.chain_mesh``,
+``particle_mesh`` and ``batch_mesh`` build.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,11 +38,19 @@ class RuntimeConfig:
       dtype: floating dtype of parameters, latents and data.
       seed: seed of the generator an entry point makes when it is given
         none.
+      chain_axis: mesh dimension over which MCMC chains shard.
+      particle_axis: mesh dimension over which SMC particles shard.
+      batch_axis: mesh dimension over which SVI Monte-Carlo batches shard.
+      mesh_shape: kept for parity with the JAX config; nothing reads it.
     """
 
     device: str = "cuda"
     dtype: torch.dtype = torch.float32
     seed: int = 0
+    chain_axis: str = "chain"
+    particle_axis: str = "particle"
+    batch_axis: str = "batch"
+    mesh_shape: Optional[Tuple[int, ...]] = None
 
 
 config = RuntimeConfig()

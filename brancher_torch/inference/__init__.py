@@ -4,10 +4,11 @@ NUTS (lockstep or draw-pipelined), chain-batched HMC and ChEES, the
 per-chain NUTS and HMC steps of ``chain_method="vmap"``, dense mass and
 resumed runs, their diagnostics, and the single-device particle methods
 (the bootstrap and streaming filters, tempered SMC, PMMH and particle
-Gibbs).
+Gibbs), and their sharded modes over a ``DeviceMesh`` (``mesh=``: chains,
+SVI batches, particle filters, streaming SMC and PMMH; the SPMD convention
+of ``parallel/mesh.py``).
 
-Counterpart of ``brancher_tpu/inference``.  Sharded chains and particle
-filters are still to port (ROADMAP queue 1, item 15).
+Counterpart of ``brancher_tpu/inference``.
 """
 
 from .svi import (

@@ -4,9 +4,10 @@ Counterpart of ``brancher_tpu/inference/adaptation.py`` (lines 25-242):
 ``DualAveragingState``, ``da_init``, ``da_update``, ``da_restart``,
 ``build_warmup_schedule``, the Welford estimator, and the step-size
 probes ``find_reasonable_step_size`` (per chain) and
-``find_reasonable_step_size_batched`` (one shared step), and the
+``find_reasonable_step_size_batched`` (one shared step), the
 chain-batched engines' diagonal-mass update (``diag_mass_update``, inline
-in each JAX engine).
+in each JAX engine), and the cross-rank consensus of sharded chains
+(``pmean_if`` and ``psum_if``, JAX lines 179-185).
 
 The dual-averaging state is five 0-d float32 tensors on the run's device,
 updated with the same float32 operations as the JAX package, so the step
@@ -15,6 +16,12 @@ per-chain pieces work on a whole block of chains at once: where JAX
 ``vmap``s a per-chain function, the port's takes a leading chain axis
 (``WelfordState`` with ``batch=(C,)``, ``find_reasonable_step_size``
 over [C, d]) and gives each chain what its own call would.
+
+Where JAX takes an ``axis_name``, the port takes ``axis``: the mesh's
+chain dimension (``parallel.collectives.Axis``: its process group, size
+and this rank's place), or None for an unsharded run.  Only
+warmup reduces over it, between transitions, so every rank issues the
+same collectives in the same order whatever its own tree depths.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import pmean, psum
 from .hmc import init_chain_state, kinetic_energy, leapfrog
 
 Tensor = torch.Tensor
@@ -143,6 +151,18 @@ def diag_mass_update(s1: Tensor, s2: Tensor, n_acc: float) -> Tensor:
     return (ng / (ng + 5.0)) * var + 1e-3 * (5.0 / (ng + 5.0))
 
 
+def pmean_if(x: Tensor, axis=None) -> Tensor:
+    """The mean of ``x`` over the ranks of ``axis`` (a
+    ``parallel.collectives.Axis``: JAX's ``pmean`` over the chain axis);
+    ``x`` itself when ``axis`` is None."""
+    return x if axis is None else pmean(x, axis)
+
+
+def psum_if(x: Tensor, axis=None) -> Tensor:
+    """The sum of ``x`` over the ranks of ``axis``; ``x`` when None."""
+    return x if axis is None else psum(x, axis)
+
+
 def find_reasonable_step_size(
     value_and_grad_fn,
     z: Tensor,
@@ -198,6 +218,7 @@ def find_reasonable_step_size_batched(
     target: float = 0.8,
     num_iters: int = 20,
     noise: Optional[Tensor] = None,
+    axis=None,
 ) -> Tensor:
     """Hoffman & Gelman alg. 4 for the chain-batched engines: ONE shared
     step size, doubled or halved until the cross-chain MEAN one-step
@@ -207,6 +228,9 @@ def find_reasonable_step_size_batched(
     is crossed they change nothing, so this loop stops there (one host
     sync per iteration, once per sampler run).  ``noise`` are the standard
     normals of the momenta ([C, D]; drawn from ``generator`` when None).
+    With ``axis`` the mean accept probability is the mean over its ranks
+    of each rank's chain mean (JAX ``:221``), the same on every rank, so
+    every rank stops at the same iteration.
     """
     if noise is None:
         noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
@@ -221,7 +245,7 @@ def find_reasonable_step_size_batched(
         r2 = r1 + 0.5 * step * grad1
         h1 = -val1 + 0.5 * torch.sum(r2 * r2 * inv_mass[None, :], -1)
         h1 = torch.where(torch.isfinite(h1), h1, torch.full_like(h1, math.inf))
-        return torch.mean(torch.exp(torch.clamp(h0 - h1, max=0.0)))
+        return pmean_if(torch.mean(torch.exp(torch.clamp(h0 - h1, max=0.0))), axis)
 
     step = torch.tensor(init_step, dtype=z.dtype, device=z.device)
     p = mean_accept(step)

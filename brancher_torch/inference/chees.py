@@ -13,6 +13,13 @@ reads it there; the loop path reads it on the host (one sync per
 transition).  Randomness comes from a source with the methods of
 ``inference.hmc.TorchHMCRandom`` (momenta and accept uniforms), so a
 test can replay the JAX stream (``split(k, 2)``).
+
+Sharded chains (``axis``, JAX's ``axis_name``: lines 68-79, 124-164,
+225 and 265-267): the warmup's mean accept probability, the ChEES
+estimator's centre and its weighted means are means over ranks of each
+rank's chain means, and a window's moments are summed over ranks at its
+end.  The trajectory-length gradient is used in warmup only, so it is
+computed there only, and the draws run no collective.
 """
 from __future__ import annotations
 
@@ -21,7 +28,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .adaptation import build_warmup_schedule, da_init, da_restart, da_update, diag_mass_update
+from .adaptation import (
+    build_warmup_schedule, da_init, da_restart, da_update, diag_mass_update, pmean_if, psum_if,
+)
 from .hmc import VG, TorchHMCRandom, loop_leapfrog
 
 Tensor = torch.Tensor
@@ -55,21 +64,21 @@ class ChEESHMC:
 
 
 def chees_log_traj_grad(z: Tensor, z1: Tensor, v1: Tensor, accept: Tensor,
-                        accept_prob: Tensor, t_jit) -> Tensor:
+                        accept_prob: Tensor, t_jit, axis=None) -> Tensor:
     """d(ChEES)/d(log T) estimator at the jittered length t = u*T:
     accept-weighted cross-chain mean of jump * <z' - m, v'>, times t.
     Non-finite positions (divergent chains, zero accept weight) are kept
-    out of the mean."""
+    out of the mean.  With ``axis`` the means run over its ranks too."""
     safe_z1 = torch.where(torch.isfinite(z1), z1, 0.0)
     safe_v1 = torch.where(torch.isfinite(v1), v1, 0.0)
-    m = torch.mean(torch.where(accept[:, None], safe_z1, z), dim=0)
+    m = pmean_if(torch.mean(torch.where(accept[:, None], safe_z1, z), dim=0), axis)
     dz1 = safe_z1 - m[None, :]
     dz0 = z - m[None, :]
     jump = torch.sum(dz1 * dz1, -1) - torch.sum(dz0 * dz0, -1)
     g_c = jump * torch.sum(dz1 * safe_v1, -1)
     g_c = torch.where(torch.isfinite(g_c), g_c, 0.0)
-    num = torch.mean(g_c * accept_prob)
-    den = torch.mean(accept_prob)
+    num, den = pmean_if(torch.stack([torch.mean(g_c * accept_prob), torch.mean(accept_prob)]),
+                        axis)
     return num / torch.clamp(den, min=1e-10) * t_jit
 
 
@@ -100,8 +109,11 @@ def chees_hmc(
     leapfrog_fn=None,
     max_delta_energy: float = 1000.0,
     rng=None,
+    axis=None,
 ) -> ChEESResult:
     """value_and_grad_fn: [C,d] -> ([C] log posterior, [C,d] grad).
+    axis: the mesh's chain dimension (``parallel.collectives.Axis``) when
+    the chains are sharded (module docstring).
 
     mass: "diag" or "dense".  Dense adapts the full covariance as inverse
     mass; momenta are drawn from N(0, Sigma^-1) by a triangular solve and
@@ -131,7 +143,7 @@ def chees_hmc(
     def kinetic(r, inv_mass):
         return 0.5 * torch.sum(r * velocity(r, inv_mass), -1)
 
-    def one_step(z, val, grad, eps, traj, inv_mass, chol, step_idx):
+    def one_step(z, val, grad, eps, traj, inv_mass, chol, step_idx, warm):
         r0 = sample_momentum(z, inv_mass, chol)
         h0 = -val + kinetic(r0, inv_mass)
         t_jit = traj * _halton(step_idx)
@@ -153,8 +165,8 @@ def chees_hmc(
         diverging = div_traj | (delta < -max_delta_energy)
         accept_prob = torch.clamp(torch.exp(torch.clamp(delta, max=0.0)), max=1.0)
         accept = rng.accept(c, val) < accept_prob
-        chees_grad = chees_log_traj_grad(z, z1, velocity(r1, inv_mass), accept,
-                                          accept_prob, t_jit)
+        chees_grad = (chees_log_traj_grad(z, z1, velocity(r1, inv_mass), accept,
+                                          accept_prob, t_jit, axis) if warm else None)
         z = torch.where(accept[:, None], z1, z)
         val = torch.where(accept, val1, val)
         grad = torch.where(accept[:, None], grad1, grad)
@@ -183,10 +195,10 @@ def chees_hmc(
     for i in range(num_warmup):
         eps = torch.exp(da.log_step)
         z, val, grad, ap, g, n_steps, _, k = one_step(
-            z, val, grad, eps, torch.exp(log_traj), inv_mass, chol, i)
+            z, val, grad, eps, torch.exp(log_traj), inv_mass, chol, i, True)
         syncs += k
         lf_total = lf_total + n_steps
-        da = da_update(da, torch.mean(ap), target_accept=target_accept)
+        da = da_update(da, pmean_if(torch.mean(ap), axis), target_accept=target_accept)
         # Adam ascent on log trajectory length
         t = float(i + 1)
         adam_m = 0.9 * adam_m + 0.1 * g
@@ -201,13 +213,15 @@ def chees_hmc(
             s2 = s2 + (torch.sum(z * z, 0) if diag else z.T @ z)
             n_acc += c
         if window_end[i]:
+            s1g = psum_if(s1, axis)
+            s2g = psum_if(s2, axis)
+            ng = float(n_acc * (1 if axis is None else axis.size))
             if diag:
-                inv_mass = diag_mass_update(s1, s2, n_acc)
+                inv_mass = diag_mass_update(s1g, s2g, ng)
             else:
-                ng = float(n_acc)
-                mean = s1 / max(ng, 1.0)
+                mean = s1g / max(ng, 1.0)
                 shrink = ng / (ng + 5.0)
-                cov = s2 / max(ng, 1.0) - torch.outer(mean, mean)
+                cov = s2g / max(ng, 1.0) - torch.outer(mean, mean)
                 cov = shrink * cov + 1e-3 * (1.0 - shrink) * torch.eye(d, dtype=dtype, device=dev)
                 inv_mass, chol = cov, torch.linalg.cholesky(cov)
             s1, s2, n_acc = torch.zeros_like(s1), torch.zeros_like(s2), 0
@@ -222,7 +236,7 @@ def chees_hmc(
     n_leaps = torch.empty((num_samples,), dtype=torch.int32, device=dev)
     for s in range(num_samples):
         z, val, grad, ap, _, n_steps, dv, k = one_step(
-            z, val, grad, eps_final, traj_final, inv_mass, chol, num_warmup + s)
+            z, val, grad, eps_final, traj_final, inv_mass, chol, num_warmup + s, False)
         zs[s], aps[s], dvgs[s], n_leaps[s] = z, ap, dv, n_steps
         syncs += k
     return ChEESResult(

@@ -96,7 +96,9 @@ class GraphedValueAndGrad:
                     self.fn(static_z)
             torch.cuda.current_stream(z.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # thread_local: another thread's CUDA calls (a process group's
+            # watchdog querying its collectives' events) do not break it
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 v, g = self.fn(static_z)
         except RuntimeError:
             torch.cuda.synchronize(z.device)

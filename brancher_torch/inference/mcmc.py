@@ -3,8 +3,8 @@
 Counterpart of ``brancher_tpu/inference/mcmc.py``: ``MCMCResult``
 (lines 46-91, ``to_pandas`` and ``posterior_predictive`` among them), ``make_potential`` (line 94), ``_run_single_chain`` (lines
 157-230), the engine dispatch of ``_run_vectorized`` (lines 250-330) and
-``sample()`` (lines 454-1069) with ``chain_method`` "vectorized" or
-"vmap", ``mass`` "diag" or "dense", and ``resume_state``.  ``kernel``
+``sample()`` (lines 454-1069) with ``chain_method`` "vectorized", "vmap"
+or "shard_map", ``mesh``, ``mass`` "diag" or "dense", and ``resume_state``.  ``kernel``
 picks the vectorized engine: ``ChEESHMC`` runs ``chees_hmc``, ``HMC``
 runs ``hmc_batched``, anything else vectorized NUTS (draw-pipelined with
 ``NUTS(pipelined=True)``).  ``chain_method="vmap"`` runs the kernel's
@@ -57,8 +57,23 @@ FIFO of eight keyed by ``given``'s content, as in JAX; a ``given`` leaf
 over 16 MB is neither copied to the host nor hashed, and its call builds a
 fresh potential.
 
-Not ported yet, and refused with ``NotImplementedError``: sharded chains
-(``chain_method="shard_map"``, ``mesh=``; ROADMAP queue 1, item 15).
+Sharded chains (``mesh=``, a ``DeviceMesh`` with a ``chain_axis``
+dimension; the SPMD convention of ``parallel/mesh.py``): every rank calls
+``sample()`` with the same arguments, draws the same global z0 [C, d],
+runs its block of C / n chains on a generator folded with its rank, and
+returns the global result gathered in rank order.  ``chain_method=
+"vectorized"`` is JAX's ``_run_vectorized`` under ``shard_map``
+(``mcmc.py:233-440``): the fused-potential probe is unchanged, so a
+recognized model runs its kernel on the rank's [C / n, d] block, and the
+warmup's step size and mass reach consensus over the ranks (``axis`` of
+the engines); ``warmup_leapfrog`` and ``chain_leapfrog`` are the means
+over ranks.  ``"shard_map"`` is the per-chain runner over the rank's block
+(``mcmc.py:887-935``), its chain means the means over ranks of each
+rank's chain means.  ``mass="dense"`` runs stage A sharded, takes the
+statistics of the gathered draws and runs stage B sharded (``:819`` and
+``:863``); the pipelined engine's warmup is sharded and its draws need no
+collective.  ``chain_method="vmap"`` ignores ``mesh``, as in JAX.
+``value_and_grad_calls`` and ``host_syncs`` count this rank's.
 """
 from __future__ import annotations
 
@@ -73,6 +88,7 @@ import torch
 
 from ..compiler import CompiledModel
 from ..config import make_generator
+from ..parallel.collectives import Axis, all_gather, fold_in, local_block, mesh_axis
 from ..variables import DeterministicVariable
 from .adaptation import (
     build_warmup_schedule,
@@ -81,6 +97,7 @@ from .adaptation import (
     da_update,
     find_reasonable_step_size,
     find_reasonable_step_size_batched,
+    pmean_if,
     welford_init,
     welford_update,
     welford_variance,
@@ -223,21 +240,33 @@ class _Counted:
         return self.fn(z)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
+def _gathered(zs: Tensor, stats: Dict[str, Tensor], axis: Optional[Axis]):
+    """The global samples [C, S, d] and stats [C, S] from every rank's
+    block, in rank order (as ``out_specs=P(chain_axis)``), on the samples'
+    device (NCCL gathers card tensors only; NUTS counts its leaves on the
+    host)."""
+    if axis is None:
+        return zs, stats
+    return all_gather(zs, axis), {k: all_gather(v.to(zs.device), axis) for k, v in stats.items()}
 
 
 def _run_vectorized(kernel, vg, z0, num_warmup, num_samples, gen, target_accept,
-                    init_step_size, inv_mass0=None, leapfrog_fn=None, adapt_step_size=True):
+                    init_step_size, inv_mass0=None, leapfrog_fn=None, adapt_step_size=True,
+                    axis: Optional[Axis] = None):
     """One run of the chain-batched engine that ``kernel`` picks: returns
     (samples [C, S, d], stats {accept_prob, diverging, num_steps} [C, S],
-    info), as JAX's ``_run_vectorized`` (its ``run``/``_run_inner``)."""
+    info), as JAX's ``_run_vectorized`` (its ``run``/``_run_inner``).
+    With ``axis`` (sharded chains) z0 is the global [C, d]: this rank runs
+    its block and returns the gathered result."""
+    if axis is not None:
+        z0 = local_block(z0, axis, "num_chains")
     c, dim = z0.shape
     dev = z0.device
     if num_warmup > 0 and adapt_step_size:
         im0 = torch.ones((dim,), device=dev) if inv_mass0 is None else inv_mass0
         init_eps = find_reasonable_step_size_batched(vg, z0, im0, gen,
-                                                     init_step=min(init_step_size, 1.0))
+                                                     init_step=min(init_step_size, 1.0),
+                                                     axis=axis)
     else:
         init_eps = init_step_size
     max_delta = getattr(kernel, "max_delta_energy", 1000.0)
@@ -248,6 +277,7 @@ def _run_vectorized(kernel, vg, z0, num_warmup, num_samples, gen, target_accept,
             init_trajectory_length=kernel.init_trajectory_length,
             max_leapfrog=kernel.max_leapfrog, adam_lr=kernel.adam_lr, mass=kernel.mass,
             inv_mass0=inv_mass0, leapfrog_fn=leapfrog_fn, max_delta_energy=max_delta,
+            axis=axis,
         )
         num_steps = res.num_leapfrog.to(torch.int64)[None, :].expand(c, num_samples)
         info = {"trajectory_length": res.trajectory_length,
@@ -260,7 +290,7 @@ def _run_vectorized(kernel, vg, z0, num_warmup, num_samples, gen, target_accept,
             num_integration_steps=kernel.num_integration_steps,
             target_accept=target_accept, init_step_size=float(init_eps),
             jitter_steps=kernel.jitter_steps, inv_mass0=inv_mass0, leapfrog_fn=leapfrog_fn,
-            max_delta_energy=max_delta,
+            max_delta_energy=max_delta, axis=axis,
         )
         length = kernel.num_integration_steps
         num_steps = torch.full((c, num_samples),
@@ -274,7 +304,7 @@ def _run_vectorized(kernel, vg, z0, num_warmup, num_samples, gen, target_accept,
             target_accept=target_accept, init_step_size=float(init_eps),
             max_delta_energy=max_delta, inv_mass0=inv_mass0,
             pipeline=getattr(kernel, "pipelined", False),
-            lookahead=getattr(kernel, "lookahead", 16),
+            lookahead=getattr(kernel, "lookahead", 16), axis=axis,
         )
         num_steps = res.num_leapfrog[None, :].expand(c, num_samples)
         info = {"warmup_leapfrog": res.warmup_leapfrog, "chain_leapfrog": res.chain_leapfrog,
@@ -282,17 +312,31 @@ def _run_vectorized(kernel, vg, z0, num_warmup, num_samples, gen, target_accept,
     stats = {"accept_prob": res.accept_prob, "diverging": res.diverging, "num_steps": num_steps}
     info.update(step_size=res.step_size, inv_mass=res.inv_mass, host_syncs=res.host_syncs,
                 used_leapfrog_fn=getattr(res, "used_leapfrog_fn", False))
-    return res.samples, stats, info
+    if axis is not None:
+        # each rank's loop counts differ: reported as their mean over ranks
+        for k in ("warmup_leapfrog", "chain_leapfrog"):
+            if k in info:
+                info[k] = pmean_if(torch.as_tensor(info[k], dtype=torch.float32, device=dev), axis)
+        if "warmup_leapfrog" in info:
+            info["warmup_leapfrog"] = float(info["warmup_leapfrog"])
+    samples, stats = _gathered(res.samples, stats, axis)
+    return samples, stats, info
 
 
 def _run_single_chain(kernel_step, vg, z0, num_warmup, num_samples, gen, target_accept,
-                      adapt_step_size, adapt_mass, init_step_size):
+                      adapt_step_size, adapt_mass, init_step_size, axis: Optional[Axis] = None):
     """JAX's per-chain run (``_run_single_chain``) over a [C, d] block:
     warmup with dual averaging on the mean accept probability over chains,
     each chain's Welford variance in the slow windows and their mean as
     the shared diagonal mass at each window end; then the draws.  Where
     JAX takes ``pmean`` over the chain axis (the probed step, the accept
-    probability, the variance) this takes the mean over chains."""
+    probability, the variance) this takes the mean over chains; with
+    ``axis`` (``chain_method="shard_map"``) this rank runs its block of the
+    global z0, the mean is the mean over ranks of each rank's chain mean,
+    and the result is gathered."""
+    c_all = z0.shape[0]
+    if axis is not None:
+        z0 = local_block(z0, axis, "num_chains")
     c, dim = z0.shape
     dtype, dev = z0.dtype, z0.device
     rng = TorchChainRandom(gen)
@@ -300,8 +344,8 @@ def _run_single_chain(kernel_step, vg, z0, num_warmup, num_samples, gen, target_
     inv_mass = torch.ones((dim,), dtype=dtype, device=dev)
     syncs = 0
     if adapt_step_size and num_warmup > 0:
-        step0 = torch.mean(find_reasonable_step_size(vg, z0, inv_mass, gen, init_step=init_step_size,
-                                                     target=target_accept))
+        step0 = pmean_if(torch.mean(find_reasonable_step_size(
+            vg, z0, inv_mass, gen, init_step=init_step_size, target=target_accept)), axis)
     else:
         step0 = torch.tensor(init_step_size, dtype=dtype, device=dev)
     da = da_init(step0)
@@ -310,12 +354,13 @@ def _run_single_chain(kernel_step, vg, z0, num_warmup, num_samples, gen, target_
     for i in range(num_warmup):
         state, stats = kernel_step(rng, state, torch.exp(da.log_step), inv_mass)
         syncs += stats.pop("host_syncs")
-        da = da_update(da, torch.mean(stats["accept_prob"]), target_accept=target_accept)
+        da = da_update(da, pmean_if(torch.mean(stats["accept_prob"]), axis),
+                       target_accept=target_accept)
         if adapt_mass:
             if in_slow[i]:
                 welford = welford_update(welford, state.z)
             if window_end[i]:
-                inv_mass = torch.mean(welford_variance(welford), dim=0)
+                inv_mass = pmean_if(torch.mean(welford_variance(welford), dim=0), axis)
                 welford = welford_init(dim, dtype, dev, batch=(c,))
         if window_end[i]:
             da = da_restart(da)
@@ -329,9 +374,10 @@ def _run_single_chain(kernel_step, vg, z0, num_warmup, num_samples, gen, target_
         zs[s] = state.z
         draws.append(stats)
     stats = {k: torch.stack([st[k] for st in draws], dim=1) for k in (draws[0] if draws else ())}
-    info = {"step_size": step_final.expand(c), "inv_mass": inv_mass.expand(c, dim),
+    info = {"step_size": step_final.expand(c_all), "inv_mass": inv_mass.expand(c_all, dim),
             "host_syncs": syncs}
-    return zs.transpose(0, 1), stats, info
+    zs, stats = _gathered(zs.transpose(0, 1), stats, axis)
+    return zs, stats, info
 
 
 def dense_statistics(zs_a: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -362,12 +408,14 @@ def whitened(z: Tensor, mu: Tensor, chol: Tensor) -> Tensor:
 
 
 def _run_dense(kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init_step_size,
-               adapt_step_size, dense_warmup_fraction, dense_resume, inv_mass0):
+               adapt_step_size, dense_warmup_fraction, dense_resume, inv_mass0, axis=None):
     """``mass="dense"`` (JAX ``mcmc.py:794-879``): stage A, a diagonal-mass
     run of part of the warmup and a few draws, estimates the posterior's
     mean and covariance, unless ``dense_resume`` carries them; stage B runs
     the same engine on the whitened value+grad.  Returns (samples, stats,
-    info, the resume payload's dense part, stage A's line or None)."""
+    info, the resume payload's dense part, stage A's line or None).  With
+    ``axis`` both stages run sharded and the statistics come from stage
+    A's gathered draws, the same on every rank."""
     dev = z0.device
     stage_a = None
     if dense_resume is not None:
@@ -382,7 +430,7 @@ def _run_dense(kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init
         calls = vg.calls
         zs_a, stats_a, info_a = _run_vectorized(
             kernel, vg, z0, warm_a, draws_a, gen, target_accept, init_step_size,
-            inv_mass0=inv_mass0, adapt_step_size=adapt_step_size)
+            inv_mass0=inv_mass0, adapt_step_size=adapt_step_size, axis=axis)
         mu, cov, chol = dense_statistics(zs_a)
         z_last = zs_a[:, -1]
         stage_a = {"num_warmup": warm_a, "num_samples": draws_a,
@@ -394,7 +442,7 @@ def _run_dense(kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init
         kernel, whiten(vg, mu, chol), whitened(z_last, mu, chol), num_warmup - warm_a,
         num_samples, gen, target_accept, init_step_size,
         inv_mass0=inv_mass0 if dense_resume is not None else None,
-        adapt_step_size=adapt_step_size)
+        adapt_step_size=adapt_step_size, axis=axis)
     zs = mu[None, None, :] + torch.einsum("csd,ed->cse", zs_t, chol)
     ckpt = {"dense_mu": mu, "dense_L": chol, "dense_inner_inv_mass": info["inv_mass"]}
     info["inv_mass"] = cov  # report the dense metric actually used
@@ -449,9 +497,10 @@ def sample(
     in the fused potential (a slightly perturbed density); "off" skips
     the recognizer.
 
-    chain_method: "vectorized" (the chain-batched engines) or "vmap" (the
+    chain_method: "vectorized" (the chain-batched engines), "vmap" (the
     kernel's per-chain ``make_step``, NUTS or HMC; launches no kernel and
-    ignores ``value_and_grad_fn``, as in the JAX package).  adapt_mass is
+    ignores ``value_and_grad_fn``, as in the JAX package) or "shard_map"
+    ("vmap" sharded over ``mesh``).  adapt_mass is
     read only by the per-chain engines: the vectorized ones always adapt a
     diagonal mass.  mass="dense" (vectorized only) whitens the posterior
     with stage A's covariance, ``dense_warmup_fraction`` of the warmup;
@@ -460,16 +509,27 @@ def sample(
     ``torch.save``/``torch.load`` if need be); the resumed run has no
     warmup and starts from its draws, step size and mass (and ChEES's
     trajectory length).
+    mesh, chain_axis: shard the chains over the mesh's ``chain_axis``
+    dimension (module docstring): every rank calls ``sample()`` alike and
+    gets the global result; ``num_chains`` must divide over it, and the
+    run's device defaults to the mesh's device type.  "shard_map" without
+    a mesh runs as "vmap".
     jit_runner and given_key exist in the JAX package to avoid retracing
     and re-hashing; there is no trace step here, so they are accepted and
     do nothing.  ``diagnostics["sampler_seconds"]`` is the wall time of the
     engine, ended by a device synchronize.
     """
-    del jit_runner, given_key, chain_axis
+    del jit_runner, given_key
     if chain_method not in ("vectorized", "vmap", "shard_map"):
         raise ValueError(f"unknown chain_method {chain_method!r}")
-    if chain_method == "shard_map" or mesh is not None:
-        _not_ported("sharding chains over a mesh", "ROADMAP queue 1, item 15")
+    axis = None
+    if mesh is not None and chain_method != "vmap":  # vmap ignores the mesh, as in JAX
+        axis = mesh_axis(mesh, chain_axis)
+        if num_chains % axis.size:
+            raise ValueError(f"num_chains={num_chains} must divide over mesh axis "
+                             f"{chain_axis!r} of size {axis.size}")
+        if device is None and not isinstance(model, CompiledModel):
+            device = mesh.device_type
     if mass not in ("diag", "dense"):
         raise ValueError(f"unknown mass {mass!r}")
     if fused_potential not in ("auto", "bf16", "off"):
@@ -492,7 +552,7 @@ def sample(
     if params is None:
         params = comp.initial_params
     potential_fn, unravel, _ = make_potential(comp, params, given)
-    per_chain = chain_method == "vmap"
+    per_chain = chain_method in ("vmap", "shard_map")
     if enumerate_discrete:
         # the discrete latents summed out inside the potential: every engine
         # samples the marginal on the autodiff value+grad (JAX mcmc.py:598-624)
@@ -597,22 +657,26 @@ def sample(
         raise ValueError("mass='dense' requires chain_method='vectorized'")
 
     # -- the engine --------------------------------------------------------
+    # a sharded run draws its chains' numbers from a generator folded with
+    # its rank (JAX fold_in(key, axis_index), mcmc.py:401-403)
+    run_gen = gen if axis is None else fold_in(gen, axis.index)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_engine = time.perf_counter()
     dense_ckpt, stage_a = None, None
     if per_chain:
         zs, stats, info = _run_single_chain(
-            kernel.make_step(potential_fn, vg), vg, z0, num_warmup, num_samples, gen,
-            target_accept, adapt_step_size, adapt_mass, init_step_size)
+            kernel.make_step(potential_fn, vg), vg, z0, num_warmup, num_samples, run_gen,
+            target_accept, adapt_step_size, adapt_mass, init_step_size, axis=axis)
     elif mass == "dense" and (num_warmup > 0 or dense_resume is not None):
         zs, stats, info, dense_ckpt, stage_a = _run_dense(
-            kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init_step_size,
-            adapt_step_size, dense_warmup_fraction, dense_resume, inv_mass0)
+            kernel, vg, z0, num_warmup, num_samples, run_gen, target_accept, init_step_size,
+            adapt_step_size, dense_warmup_fraction, dense_resume, inv_mass0, axis=axis)
     else:
         zs, stats, info = _run_vectorized(
-            kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init_step_size,
-            inv_mass0=inv_mass0, leapfrog_fn=leapfrog_fn, adapt_step_size=adapt_step_size)
+            kernel, vg, z0, num_warmup, num_samples, run_gen, target_accept, init_step_size,
+            inv_mass0=inv_mass0, leapfrog_fn=leapfrog_fn, adapt_step_size=adapt_step_size,
+            axis=axis)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     sampler_seconds = time.perf_counter() - t_engine

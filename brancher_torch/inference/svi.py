@@ -35,9 +35,18 @@ latents out of log p with an unconstrained-space guide: the compiled
 model's dispatched enumerated density (``enum_log_density_fn``, the one
 ``sample(enumerate_discrete=True)`` uses) mapped over the guide's samples.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh=`` (item
-15).  ``scan_unroll`` and ``batch_axis`` are accepted and do nothing:
-there is no scan to unroll and no mesh.
+``mesh=`` (a ``DeviceMesh`` with a ``batch_axis`` dimension; JAX lines
+211-228 and 303-325) splits the Monte-Carlo samples over its ranks, under
+the SPMD convention of ``parallel/mesh.py``: every rank calls
+``perform_inference`` alike, initialises the same parameters from the
+key, evaluates ``number_samples / n`` samples (and any minibatch) from a
+generator folded with its rank, and averages its loss and gradients over
+the ranks after ``backward`` (``average_over_ranks``: one all-reduce a
+step), so that every rank's optimizer takes the same step and the
+parameters stay identical on every rank.  JAX takes the ``pmean`` of the
+loss inside ``shard_map`` and differentiates through it; the gradient is
+the same mean.  ``scan_unroll`` is accepted and does nothing: there is no
+scan to unroll.
 """
 from __future__ import annotations
 
@@ -52,14 +61,11 @@ from torch.overrides import TorchFunctionMode
 from ..compiler import CompiledModel
 from ..config import make_generator
 from ..optimizers import detached, resolve_optimizer as _resolve_optimizer, set_grads, trainable_copy
+from ..parallel.collectives import Axis, fold_in, mesh_axis, pmean
 from .gradient_estimators import GradientEstimator, PathwiseDerivativeEstimator
 from .guides import AutoMeanField, DSLGuide
 
 Tensor = torch.Tensor
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item})")
 
 
 def _data_draw(p_comp: CompiledModel, p_params, generator, loaders, draws) -> Dict[str, Tensor]:
@@ -251,6 +257,20 @@ def matmul_precision_scope(matmul_precision: Optional[str]):
         torch.set_float32_matmul_precision(previous)
 
 
+def average_over_ranks(loss: Tensor, leaves, axis: Axis) -> Tensor:
+    """Replace each leaf's ``.grad`` by its mean over the ranks of ``axis``
+    and return the mean loss, by one all-reduce of [loss, grads...]."""
+    flat = torch.cat([loss.detach().reshape(1).to(torch.float32)]
+                     + [p.grad.reshape(-1).to(torch.float32) for p in leaves])
+    flat = pmean(flat, axis)
+    pos = 1
+    for p in leaves:
+        n = p.grad.numel()
+        p.grad = flat[pos:pos + n].reshape(p.grad.shape).to(p.grad.dtype)
+        pos += n
+    return flat[0]
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -291,13 +311,15 @@ def perform_inference(
     scoped to the run (module docstring).  With
     ``perform_inference._benchmark`` set, the step loop runs three more
     times from the same start and ``perform_inference._last_run_seconds``
-    is the best of them, ended by a device synchronize.
+    is the best of them, ended by a device synchronize.  mesh, batch_axis:
+    split the samples over the mesh's ``batch_axis`` dimension (module
+    docstring); ``number_samples`` must divide over it, and the run's
+    device defaults to the mesh's device type.  The particle methods
+    (WVGD, SVGD) ignore ``mesh``, as in JAX.
     """
-    del batch_axis, scan_unroll
+    del scan_unroll
     if inference_method is None:
         inference_method = ReverseKL()
-    if mesh is not None:
-        _not_ported("perform_inference(mesh=...)", "item 15")
     if matmul_precision not in _PRECISIONS:
         raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
     if isinstance(inference_method, WassersteinVariationalGradientDescent):
@@ -318,6 +340,14 @@ def perform_inference(
             number_particles=inference_method.number_particles, optimizer=optimizer, lr=lr,
             key=key, kernel_bandwidth=inference_method.kernel_bandwidth, device=device)
 
+    axis, local_samples = None, number_samples
+    if mesh is not None:
+        axis = mesh_axis(mesh, batch_axis)
+        if number_samples % axis.size:
+            raise ValueError(f"number_samples={number_samples} must divide over mesh "
+                             f"axis {batch_axis!r} of size {axis.size}")
+        local_samples = number_samples // axis.size
+        device = mesh.device_type if device is None else device
     p_comp: CompiledModel = joint_model.compiled(device)
     dev = p_comp.device
     gen = make_generator(key, dev)
@@ -339,17 +369,21 @@ def perform_inference(
 
     loss_fn = inference_method.make_loss(p_comp, guide)
     make_optimizer = _resolve_optimizer(optimizer, lr)
-    run_state = gen.get_state()
+    # the parameters start replicated; a rank's samples are its own
+    draw_gen = gen if axis is None else fold_in(gen, axis.index)
+    run_state = draw_gen.get_state()
 
     def run():
-        gen.set_state(run_state)
+        draw_gen.set_state(run_state)
         params, leaves = trainable_copy(opt_params)
         opt = make_optimizer(leaves)
         losses = torch.empty((number_iterations,), device=dev)
         for i in range(number_iterations):
             with matmul_precision_scope(matmul_precision):
-                loss = loss_fn(params, gen, number_samples)
+                loss = loss_fn(params, draw_gen, local_samples)
             set_grads(loss, leaves)
+            if axis is not None:
+                loss = average_over_ranks(loss, leaves, axis)
             opt.step()
             losses[i] = loss.detach()
             if progress and i % progress_interval == 0:

@@ -29,6 +29,14 @@ methods of ``TorchNutsRandom``, so a test can replay JAX's stream
 (``k_mom`` normals; per leaf ``fold_in(k_loop, n)`` split in three; per
 pipelined iteration ``fold_in(key, it)`` split in four) and hold one
 transition to the JAX one.
+
+Sharded chains (``axis``, JAX's ``axis_name``; ``_gmean``/``_gsum`` at
+lines 38-45): the warmup's mean accept probability is the mean over ranks
+of each rank's chain mean, and a window's mass comes from the moments
+summed over ranks (one all-reduce at the window's end: the sums are
+linear, so this is JAX's psum of each rank's running sums).  The tree's
+loop and the pipelined loop run no collective, since each rank's loop
+ends on its own chains' U-turns.
 """
 from __future__ import annotations
 
@@ -38,7 +46,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .adaptation import build_warmup_schedule, da_init, da_restart, da_update, diag_mass_update
+from .adaptation import (
+    build_warmup_schedule, da_init, da_restart, da_update, diag_mass_update, pmean_if, psum_if,
+)
 
 Tensor = torch.Tensor
 VG = Callable[[Tensor], Tuple[Tensor, Tensor]]
@@ -458,11 +468,13 @@ def nuts_batched(
     inv_mass0: Optional[Tensor] = None,
     pipeline: bool = False,
     lookahead: int = 16,
+    axis=None,
 ) -> VectorizedNUTSResult:
     """Full vectorized-NUTS run with shared warmup adaptation: dual-averaged
     step size on the mean accept probability over chains, and a diagonal
     mass from cross-chain moments at each window end, starting from
-    ``inv_mass0`` (ones when None).  Warmup is lockstep; with ``pipeline``
+    ``inv_mass0`` (ones when None); over the ranks of ``axis`` too when
+    the chains are sharded.  Warmup is lockstep; with ``pipeline``
     the draws come from ``_pipelined_sampling``, whose per-draw iteration
     count is reported as the amortised iterations a draw."""
     c, d = z0.shape
@@ -490,13 +502,15 @@ def nuts_batched(
         z, val, grad = t.z, t.val, t.grad
         warmup_leapfrog += t.num_leaves
         syncs += t.host_syncs
-        da = da_update(da, torch.mean(t.accept_prob), target_accept=target_accept)
+        da = da_update(da, pmean_if(torch.mean(t.accept_prob), axis),
+                       target_accept=target_accept)
         if in_slow[i]:
             s1 = s1 + torch.sum(z, dim=0)
             s2 = s2 + torch.sum(z * z, dim=0)
             n_acc += c
         if window_end[i]:
-            inv_mass = diag_mass_update(s1, s2, n_acc)
+            s1g, s2g = psum_if(torch.stack([s1, s2]), axis)
+            inv_mass = diag_mass_update(s1g, s2g, n_acc * (1 if axis is None else axis.size))
             s1, s2, n_acc = torch.zeros_like(s1), torch.zeros_like(s2), 0
             da = da_restart(da)
     eps_final = (torch.exp(da.log_step_avg) if num_warmup > 0

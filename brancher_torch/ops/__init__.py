@@ -5,8 +5,8 @@ Counterpart of ``brancher_tpu/ops``.  Ported: the fused GLM value+grad
 the whole-X logistic-regression value+grad (``logreg.py``, K6) and the
 chain-batched HMC engine (``batched_hmc.py``); the softmax family
 (``CategoricalFusedFamily``) has no kernel in either package.
-``resampling`` is still to port (ROADMAP queue 1, item 15).  Importing
-builds nothing.
+``resampling`` holds the sharded particle filters' collectives (no kernel
+in either package).  Importing builds nothing.
 """
 
 from .glm import (

@@ -22,6 +22,10 @@ Randomness is injectable: a transition reads its momenta, its accept
 uniforms and its jittered step count from a source with the methods of
 ``inference.hmc.TorchHMCRandom``, so a test can replay the JAX stream
 (``split(k, 3)`` into momentum, accept and length keys).
+
+Sharded chains (``axis``, JAX's ``axis_name``, lines 121-130): the
+warmup's mean accept probability is the mean over ranks of each rank's
+chain mean, and a window's moments are summed over ranks at its end.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import torch
 
 from ..inference.adaptation import (
-    build_warmup_schedule, da_init, da_restart, da_update, diag_mass_update,
+    build_warmup_schedule, da_init, da_restart, da_update, diag_mass_update, pmean_if, psum_if,
 )
 from ..inference.hmc import TorchHMCRandom, kinetic_energy, loop_leapfrog
 
@@ -97,12 +101,14 @@ def hmc_batched(
     leapfrog_fn=None,
     max_delta_energy: float = 1000.0,
     rng=None,
+    axis=None,
 ) -> BatchedHMCResult:
     """value_and_grad_fn: z [C,d] -> (log posterior [C], grad [C,d]).
 
     leapfrog_fn: optional multi-step integrator
     (z, r, grad, eps, inv_mass, n_steps) -> (z1, r1, val1, grad1), e.g.
-    the fused kernel K5 (``ops.leapfrog``).
+    the fused kernel K5 (``ops.leapfrog``).  axis: the mesh's chain
+    dimension (``parallel.collectives.Axis``) when the chains are sharded.
     """
     c, d = z0.shape
     dtype, dev = z0.dtype, z0.device
@@ -126,13 +132,14 @@ def hmc_batched(
     for i in range(num_warmup):
         z, val, grad, ap, _, k = step(z, val, grad, torch.exp(da.log_step), inv_mass)
         syncs += k
-        da = da_update(da, torch.mean(ap), target_accept=target_accept)
+        da = da_update(da, pmean_if(torch.mean(ap), axis), target_accept=target_accept)
         if in_slow[i]:
             s1 = s1 + torch.sum(z, dim=0)
             s2 = s2 + torch.sum(z * z, dim=0)
             n_acc += c
         if window_end[i]:
-            inv_mass = diag_mass_update(s1, s2, n_acc)
+            s1g, s2g = psum_if(torch.stack([s1, s2]), axis)
+            inv_mass = diag_mass_update(s1g, s2g, n_acc * (1 if axis is None else axis.size))
             s1, s2, n_acc = torch.zeros_like(s1), torch.zeros_like(s2), 0
             da = da_restart(da)
     eps_final = (torch.exp(da.log_step_avg) if num_warmup > 0

@@ -129,18 +129,35 @@ Phases (each prints one or more JSON lines tagged "phase"):
      where pandas, cloudpickle and matplotlib import (the phase prints
      which do), to_pandas, get_sample(1000), save_model -> load_model
      (the same draws and log density) and a plot;
- 17. the {"kernels": [...]} summary (K1 for its main paths, for the
-     pipelined floor and for phase 16's floor run, K3 once for each of its
-     six paths, K4 for each of its three, K5 for each of its five), the
-     card's name and power limit, and the last line {"ok": true,
-     "device": {...}}.
+ 17. the sharded modes through a one-rank NCCL group opened in-process
+     (parallel.initialize_distributed on a FileStore in a temporary
+     directory, with a timeout; its line prints "world_size" and
+     "backend"), every mesh built by the port's parallel functions: floor
+     NUTS with mesh=chain_mesh() (phase 3's config, K1 once a value+grad
+     call, R-hat, means within 5 MCSE of phase 3's, sampler seconds beside
+     phase 3's); floor ChEES with fused_leapfrog=True (K5 once a
+     transition, means against phase 6's); chain_method="shard_map" at the
+     floor, 200 + 200 (beside phase 13's vmap row); mass="dense" on the
+     conjugate model (K3, against the closed form); floor SVI with
+     mesh=batch_mesh() (phase 9's config); phase 12's LGSSM through
+     smc_sample(mesh=particle_mesh()) with exchange "ppermute", "gather"
+     and "island" (phase 12's limits; ppermute and gather bit for bit; the
+     ring's host reads a step); the streaming filter with mesh= (phase
+     12's); PMMH with shard="chain" and "particle" at phase 12's size (a
+     cut of depth prints "reduced").  The group is destroyed at the end;
+ 18. the {"kernels": [...]} summary (K1 for its main paths, for the
+     pipelined floor, for phase 16's floor run and for phase 17's sharded
+     floor, K3 once for each of its seven paths, K4 for each of its three,
+     K5 for each of its six), the card's name and power limit, and the
+     last line {"ok": true, "device": {...}}.
 
 Every launch counter is set to 0 just before each sample() or
 perform_inference() run and read just after it; a run whose kernels did
 not launch as expected (the value+grad kernel once per value+grad call,
 K5 once per transition, none on the paths of phases 8-10, 12, 14 and 15,
-on phase 13's vmap and ARD runs and on phase 16's SVI and posterior
-predictive) fails the script.  The whole script must end within 1200 s on
+on phase 13's vmap and ARD runs, on phase 16's SVI and posterior
+predictive and on phase 17's shard_map, SVI and particle runs) fails the
+script.  The whole script must end within 1200 s on
 one card.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
 brancher_torch package beside it, it exits 2 at once.
@@ -182,22 +199,25 @@ SOURCES = ("glm_vg", "leapfrog")
 # each value+grad kernel's shape on its main path (phase 3 and 6 for K1,
 # K2 and K6)
 MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor", "logreg_f32": "floor"}
-# K3 runs on six main paths and K4 on three, one entry each in the summary,
-# and K1 has an entry for the pipelined floor beside its own: (section and
-# run of RESULTS, phase-2 shape)
+# K3 runs on seven main paths and K4 on three, one entry each in the
+# summary, and K1 has entries for the pipelined, the auxiliaries' and the
+# sharded floor beside its own: (section and run of RESULTS, phase-2 shape)
 VG_PATHS = {"glm_bernoulli_f32": ((("floor_pipelined", "auto"), "floor"),
-                                  (("aux", "aux/floor"), "floor")),
+                                  (("aux", "aux/floor"), "floor"),
+                                  (("sharded_floor", "auto"), "floor")),
             "glm_normal_f32": ((("conjugate", "auto"), "conjugate"),
+                               (("sharded_dense", "auto"), "conjugate"),
                                (("mxu_linreg", "auto"), "linreg"),
                                (("ar1", "auto"), "ar1"), (("ar2", "auto"), "ar2"),
                                (("ar2_dense", "auto"), "ar2"), (("ar2_pipelined", "auto"), "ar2")),
             "glm_normal_bf16": ((("conjugate", "bf16"), "conjugate"),
                                 (("mxu_linreg", "bf16"), "linreg"),
                                 (("ar1", "bf16"), "ar1"))}
-# K5 runs on five main paths, one entry each in the summary: (section and
+# K5 runs on six main paths, one entry each in the summary: (section and
 # run of RESULTS, phase-2 shape, family, phase-2 step count; None: the one
 # nearest the run's leapfrogs per draw)
 LEAPFROG_PATHS = ((("chees", "fused"), "floor", "bernoulli_logit", None),
+                  (("sharded_chees", "fused"), "floor", "bernoulli_logit", None),
                   (("hmc_conjugate", "fused"), "conjugate", "normal_learned", None),
                   (("hmc_floor", "fused"), "floor", "bernoulli_logit", 32),
                   (("ar1_chees", "fused"), "ar1", "normal_learned", None),
@@ -904,6 +924,8 @@ def phase_chees():
         })
         emit(info)
         RESULTS.setdefault("chees", {})[tag] = info
+        if tag == "fused":  # phase 17's sharded ChEES is held to these
+            RESULTS["chees_fused_moments"] = (mean, sd, ess)
         check(info["max_rhat"] < 1.01, f"chees/{tag}: max R-hat {info['max_rhat']}")
         check(bool(np.isfinite(mean).all()) and mean.shape == (32,), f"chees/{tag}: bad means")
         if "floor_auto_moments" in RESULTS:  # phase 3 ran
@@ -1202,12 +1224,13 @@ def phase_ar():
 # phase 13's ARD run under the pipelined engine: phase 8's model, chains and
 # key, its draws cut from phase 8's ARD_DRAWS for time (printed as "reduced"
 # in its line): with 500 draws the whole script took 967 s on an H100, too
-# near its 1200 s limit for a slower host (PERF.md).  Where phase 8 ran, the
+# near its 1200 s limit for a slower host, and with 300 (52.6 s of the run)
+# and phase 17 added it took 1124.4 s on a slow host (PERF.md).  Where phase 8 ran, the
 # run resumes from phase 8's resume_state with no warmup, also printed as
 # "reduced": the pipelined engine warms up with the lockstep engine, so its
 # 500 warmup transitions (about 79 s of the run's 129 s on an H100) repeat
 # phase 8's warmup at the same key.
-ARD13_DRAWS = 300
+ARD13_DRAWS = 150
 
 
 def _roundtrip(state):
@@ -1366,7 +1389,7 @@ def _kalman_grid(ys):
     return mean, float(np.sqrt((w * (grid - mean) ** 2).sum()))
 
 
-def _particle_run(tag, fn):
+def _particle_run(tag, fn, phase=12):
     """One particle-method run with every launch counter at 0 before it (no
     kernel is on these paths), timed to a device synchronize."""
     import torch
@@ -1380,17 +1403,17 @@ def _particle_run(tag, fn):
     seconds = time.perf_counter() - t0
     launches = {name: k.launches for name, k in _all_kernels().items()}
     check(not any(launches.values()), f"{tag}: a kernel launched on a particle path: {launches}")
-    return out, {"phase": 12, "run": tag, "seconds": seconds, "launches": launches}
+    return out, {"phase": phase, "run": tag, "seconds": seconds, "launches": launches}
 
 
-def _grid_check(tag, info, a_draws, accept, grid, accept_range):
+def _grid_check(tag, info, a_draws, accept, grid, accept_range, section="particles"):
     """PMMH and PGAS against the Kalman grid, the JAX tests' limits."""
     mean_a, sd_a = grid
     info.update({"a_mean": float(a_draws.mean()), "a_sd": float(a_draws.std()),
                  "grid_mean": mean_a, "grid_sd": sd_a, "accept_rate": accept,
                  "mean_diff_in_grid_sd": abs(float(a_draws.mean()) - mean_a) / sd_a})
     emit(info)
-    RESULTS["particles"][tag] = info
+    RESULTS.setdefault(section, {})[tag] = info
     check(accept_range[0] < accept < accept_range[1], f"{tag}: accept rate {accept}")
     check(info["mean_diff_in_grid_sd"] < 2.5, f"{tag}: mean of a off the Kalman grid's")
     check(0.3 * sd_a < info["a_sd"] < 3.5 * sd_a, f"{tag}: sd of a {info['a_sd']} against {sd_a}")
@@ -1496,10 +1519,11 @@ def phase_particles():
 # "reduced"): the whole script read 988.6 s with 800 + 800 and 200 + 100 on
 # an H100 (700 W), against its 1200 s limit, and the GP fills NUTS's tree (131
 # leaves a transition), so its 400 + 400 alone would cost about 85 s of the
-# phase's 180 (PERF.md §6).
+# phase's 180 (PERF.md §6).  The softmax run's draws are cut from 500 to 300
+# (its 500 took 95.8 s of a 1124.4 s script with phase 17; PERF.md).
 SOFTMAX_N, SOFTMAX_D, SOFTMAX_K = 2000, 32, 10
 ZOO_RUNS = {  # tag: (chains, max_depth, warmup, draws, the reference's (warmup, draws))
-    "softmax": (256, 7, 300, 500, (300, 500)),
+    "softmax": (256, 7, 300, 300, (300, 500)),
     "eight_schools": (16, 9, 400, 400, (800, 800)),
     "gp": (8, 8, 150, 50, (400, 400)),
     "gmm": (8, 7, 400, 300, (400, 300)),
@@ -2446,12 +2470,188 @@ def _phase_aux(work):
     _aux_line(line)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: every sharded mode through a one-rank NCCL group.  PMMH's depth
+# (warmup, draws) is cut from phase 12's 200 + 400 to 100 + 200, printed as
+# "reduced": at 200 + 400 its two runs took 68.4 s of the phase's 117.9 on an
+# H100 (700 W), and at 150 + 300 56.6 s of a whole script of 1124.4 s on a
+# slow host (PERF.md).
+PMMH17_DEPTH = (100, 200)
+COLLECTIVE_TIMEOUT_S = 300
+
+
+def _sharded_line(info: dict, section: str, tag: str) -> dict:
+    """A phase-17 line, kept under RESULTS[section][tag]."""
+    info.update({"phase": 17, "nvidia_smi": RESULTS["environment"]["nvidia_smi"]})
+    emit(info)
+    RESULTS.setdefault(section, {})[tag] = info
+    return info
+
+
+def _sharded_mcmc(meshes):
+    """The sharded MCMC and SVI runs at full width."""
+    import numpy as np
+    from brancher_torch.inference import NUTS, ChEESHMC
+    from brancher_torch.models import conjugate_normal_model
+
+    chain = meshes["chain"]
+    # floor NUTS, phase 3's config, the rank's [C / n, D] block on K1
+    _floor_run("sharded_floor", "auto", "glm_bernoulli_f32", 17, 1000, kernel=NUTS(max_depth=8),
+               fused_potential="auto", mesh=chain)
+    run = RESULTS["sharded_floor"]["auto"]
+    if "floor" in RESULTS:  # phase 3 ran: the same run without a mesh, on the same card
+        run["unsharded_sampler_seconds"] = RESULTS["floor"]["auto"]["sampler_seconds"]
+        emit({"phase": 17, "compare": "sharded_floor/auto vs floor/auto seconds",
+              "sharded": run["sampler_seconds"], "unsharded": run["unsharded_sampler_seconds"]})
+
+    # floor ChEES with K5 on the rank's block
+    _, _, model = _floor_model()
+    res, info = _run_sample(model, "sharded_chees/fused", "glm_bernoulli_f32",
+                            transition_kernel="leapfrog_f32", kernel=ChEESHMC(), num_warmup=500,
+                            num_samples=1000, num_chains=1024, key=3, fused_leapfrog=True,
+                            mesh=chain)
+    mean, sd, ess, rhat = _post_stats(res, "w")
+    info.update({"min_ess": float(ess.min()), "max_rhat": float(rhat.max()),
+                 "ess_per_second": float(ess.min()) / info["sampler_seconds"]})
+    _sharded_line(info, "sharded_chees", "fused")
+    check(info["max_rhat"] < 1.01, f"sharded_chees: max R-hat {info['max_rhat']}")
+    ref = RESULTS.get("chees_fused_moments", RESULTS.get("floor_auto_moments"))
+    if ref is not None:
+        _mcse_compare(17, "sharded_chees/fused vs chees/fused" if "chees_fused_moments" in RESULTS
+                      else "sharded_chees/fused vs floor/auto", ref, (mean, sd, ess),
+                      "sharded_chees")
+
+    # the per-chain runner over the rank's block (autodiff, no kernel)
+    _floor_run("sharded_shard_map", "auto", None, 17, 200, warmup=200, kernel=NUTS(max_depth=8),
+               chain_method="shard_map", mesh=chain)
+    if "floor_vmap" in RESULTS:  # phase 13 ran
+        emit({"phase": 17, "compare": "sharded_shard_map/auto vs floor_vmap/auto seconds",
+              "sharded": RESULTS["sharded_shard_map"]["auto"]["sampler_seconds"],
+              "unsharded": RESULTS["floor_vmap"]["auto"]["sampler_seconds"]})
+
+    # dense mass with a mesh on the conjugate model (K3 in both stages)
+    model, truth = conjugate_normal_model()
+    res, run = _run_sample(model, "sharded_dense/auto", "glm_normal_f32",
+                           kernel=NUTS(max_depth=8), mass="dense", num_warmup=500,
+                           num_samples=1000, num_chains=64, key=1, mesh=chain)
+    RESULTS["sharded_dense"] = {"auto": run}
+    _check_conjugate(res, run, truth, 17, "sharded_dense/auto")
+    check(tuple(res.diagnostics["inv_mass"].shape) == (1, 1), "sharded_dense: not a dense metric")
+
+    # floor SVI, phase 9's config, its samples split over the batch axis
+    _, _, model = _floor_model()
+    res, info = _run_svi("sharded_svi/meanfield", model, 1500, False, number_samples=16, lr=0.02,
+                         key=7, mesh=meshes["batch"])
+    loc = res.guide.posterior_moments(res.params["q"])[0].cpu().numpy()
+    check(bool(np.isfinite(loc).all()) and loc.shape == (32,), "sharded_svi: bad loc")
+    if "floor_auto_moments" in RESULTS:
+        info["max_abs_diff_to_nuts_mean"] = float(np.abs(loc - RESULTS["floor_auto_moments"][0]).max())
+        info["tolerance"] = 0.15
+    _sharded_line(info, "sharded_svi", "meanfield")
+    if "tolerance" in info:
+        check(info["max_abs_diff_to_nuts_mean"] < 0.15,
+              f"sharded_svi: loc {info['max_abs_diff_to_nuts_mean']:.3f} from the NUTS means")
+
+
+def _sharded_particles(meshes):
+    """Phase 12's particle runs with mesh=, at its sizes and limits."""
+    import numpy as np
+    import torch
+    from brancher_torch.inference import pmmh_sample, smc_sample, streaming_particle_filter
+    from brancher_torch.models import LGSSMParams, kalman_filter, lgssm_state_space, make_lgssm_data
+
+    particle = meshes["particle"]
+    params = LGSSMParams()
+    ssm = lgssm_state_space(params)
+    t_len, p = 200, 8192
+    _, ys = make_lgssm_data(t_len, params)
+    ll, means, _ = kalman_filter(ys, params)
+    results = {}
+    for exchange in ("ppermute", "gather", "island"):
+        res, info = _particle_run(f"sharded_particles/{exchange}", lambda: smc_sample(
+            ssm, ys, num_particles=p, key=21, mesh=particle, exchange=exchange), phase=17)
+        results[exchange] = res
+        info.update({"T": t_len, "particles": p, "exchange": exchange,
+                     "particle_steps_per_second": p * t_len / info["seconds"],
+                     "log_marginal": float(res.log_marginal), "kalman_log_marginal": float(ll),
+                     "max_filter_mean_err": float(np.abs(res.filter_means.cpu().numpy() - means).max()),
+                     "min_ess": float(res.ess_history.min()), "host_syncs": res.host_syncs,
+                     "host_syncs_per_step": res.host_syncs / (t_len - 1)})
+        _sharded_line(info, "sharded_particles", exchange)
+        check(abs(info["log_marginal"] - ll) < 0.5, f"sharded {exchange}: log-marginal off Kalman's")
+        check(info["max_filter_mean_err"] < 0.08, f"sharded {exchange}: filter means off Kalman's")
+        check(info["min_ess"] > 100, f"sharded {exchange}: ESS collapsed")
+    ring, gather = results["ppermute"], results["gather"]
+    same = all(torch.equal(getattr(ring, k), getattr(gather, k))
+               for k in ("log_marginal", "particles", "weights", "filter_means", "ess_history"))
+    emit({"phase": 17, "compare": "sharded ppermute vs gather", "bit_identical": same})
+    check(same, "sharded ppermute and gather differ")
+
+    t_len, p = 300, 2048
+    xs_true, ys = make_lgssm_data(t_len, params, seed=0)
+    kl, km, _ = kalman_filter(ys, params)
+    res, info = _particle_run("sharded_particles/streaming", lambda: streaming_particle_filter(
+        ssm, ys, num_particles=p, key=22, lag=16, chunk_size=64, mesh=particle), phase=17)
+    fm, sm = res.filter_means.ravel(), res.smoothed_means.ravel()
+    info.update({"T": t_len, "particles": p, "lag": 16, "chunk": 64,
+                 "particle_steps_per_second": p * t_len / info["seconds"],
+                 "log_marginal": float(res.log_marginal), "kalman_log_marginal": float(kl),
+                 "max_filter_mean_err": float(np.abs(fm - km).max()),
+                 "rmse_filter": float(np.sqrt(((fm - xs_true) ** 2).mean())),
+                 "rmse_smoothed": float(np.sqrt(((sm - xs_true) ** 2).mean()))})
+    _sharded_line(info, "sharded_particles", "streaming")
+    check(info["max_filter_mean_err"] < 0.15, "sharded streaming: filter means off Kalman's")
+    check(abs(info["log_marginal"] - kl) < 2.0, "sharded streaming: log-marginal off Kalman's")
+    check(info["rmse_smoothed"] < info["rmse_filter"], "sharded streaming: smoothing did not help")
+
+    _, ys = make_lgssm_data(60, LGSSMParams(a=0.85), seed=0)
+    grid = _kalman_grid(ys)
+    warm, draws = PMMH17_DEPTH
+    for shard, mesh in (("chain", meshes["chain"]), ("particle", particle)):
+        res, info = _particle_run(f"sharded_particles/pmmh_{shard}", lambda: pmmh_sample(
+            _lgssm_ssm_of_theta, ys, lambda th: -0.5 * torch.sum((th / 1.5) ** 2, dim=-1),
+            [float(np.arctanh(0.7))], num_samples=draws, num_warmup=warm, num_particles=128,
+            num_chains=8, key=24, mesh=mesh, shard=shard), phase=17)
+        info.update({"T": 60, "particles": 128, "chains": 8, "shard": shard, "num_warmup": warm,
+                     "num_samples": draws, "nvidia_smi": RESULTS["environment"]["nvidia_smi"],
+                     "particle_steps_per_second": 8 * 128 * 60 * (warm + draws + 1) / info["seconds"]})
+        if (warm, draws) != (200, 400):
+            info["reduced"] = {"num_warmup": [200, warm], "num_samples": [400, draws]}
+        _grid_check(f"pmmh_{shard}", info, np.tanh(res.thetas[..., 0].cpu().numpy().ravel()),
+                    float(res.accept_rate), grid, (0.05, 0.8), section="sharded_particles")
+
+
+def phase_sharded():
+    import tempfile
+
+    import torch.distributed as dist
+    from brancher_torch.parallel import batch_mesh, chain_mesh, initialize_distributed, particle_mesh
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        initialize_distributed(coordinator_address=f"file://{tmp}/store", num_processes=1,
+                               process_id=0, device="cuda", timeout_seconds=COLLECTIVE_TIMEOUT_S)
+        try:
+            meshes = {"chain": chain_mesh(), "particle": particle_mesh(), "batch": batch_mesh()}
+            line = {"phase": 17, "world_size": dist.get_world_size(), "backend": dist.get_backend(),
+                    "meshes": {k: [list(m.mesh_dim_names), list(m.mesh.shape)]
+                               for k, m in meshes.items()},
+                    "nvidia_smi": RESULTS["environment"]["nvidia_smi"]}
+            emit(line)
+            check(line["backend"] == "nccl", f"phase 17: backend {line['backend']}")
+            _sharded_mcmc(meshes)
+            _sharded_particles(meshes)
+        finally:
+            dist.destroy_process_group()
+
+
 def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
     for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate",
                     "hmc_floor", "ard", "svi_floor", "vae", "ar1", "ar1_chees", "ar2",
                     "particles", "ar2_dense", "ar2_pipelined", "floor_pipelined", "floor_vmap",
-                    "conjugate_vmap", "ard_pipelined", "zoo", "enum", "aux"):
+                    "conjugate_vmap", "ard_pipelined", "zoo", "enum", "aux", "sharded_floor",
+                    "sharded_chees", "sharded_shard_map", "sharded_dense", "sharded_svi",
+                    "sharded_particles"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -2507,12 +2707,12 @@ def summary_line():
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
          5: phase_mxu, 6: phase_chees, 7: phase_hmc, 8: phase_ard, 9: phase_svi_floor,
          10: phase_vae, 11: phase_ar, 12: phase_particles, 13: phase_modes, 14: phase_zoo,
-         15: phase_enumeration, 16: phase_aux}
+         15: phase_enumeration, 16: phase_aux, 17: phase_sharded}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="", help="comma-separated subset of 1-16 (default: all)")
+    parser.add_argument("--phases", default="", help="comma-separated subset of 1-17 (default: all)")
     args = parser.parse_args()
     try:
         import torch
@@ -2539,7 +2739,7 @@ def main() -> int:
         STEPS[num]()
         RESULTS.setdefault("phase_seconds", {})[num] = time.perf_counter() - t
     RESULTS["total_seconds"] = time.perf_counter() - t0
-    emit({"phase": 17, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    emit({"phase": 18, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
     if chosen != sorted(STEPS):
         return 0  # a subset: no summary, no "ok" line
     emit(summary_line())

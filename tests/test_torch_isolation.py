@@ -27,7 +27,9 @@ def test_import_loads_no_jax_and_builds_nothing():
         "brancher_torch.transformations, brancher_torch.model_comparison, "
         "brancher_torch.inference.particle_inference_tools, brancher_torch.pandas_interface, "
         "brancher_torch.serialization, brancher_torch.checkpoint, brancher_torch.metrics, "
-        "brancher_torch.visualizations, brancher_torch.dashboard, brancher_torch.utilities;"
+        "brancher_torch.visualizations, brancher_torch.dashboard, brancher_torch.utilities, "
+        "brancher_torch.parallel, brancher_torch.parallel.collectives, "
+        "brancher_torch.ops.resampling;"
         "print(json.dumps({'jax': 'jax' in sys.modules, "
         "'tpu': any(m.startswith('brancher_tpu') for m in sys.modules), "
         "'loaded': sorted(brancher_torch.ops.cuda_build._loaded)}))"
@@ -62,5 +64,6 @@ def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
                    "standard_variables.py", "transformations.py", "model_comparison.py",
                    "inference/particle_inference_tools.py", "pandas_interface.py",
                    "serialization.py", "checkpoint.py", "metrics.py", "visualizations.py",
-                   "dashboard.py", "utilities.py"):
+                   "dashboard.py", "utilities.py", "parallel/mesh.py", "parallel/collectives.py",
+                   "ops/resampling.py"):
         assert (PORT / module).exists()

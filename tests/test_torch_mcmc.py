@@ -135,9 +135,19 @@ def test_sample_defaults_to_cuda_and_raises_without_it(monkeypatch):
     {"chain_method": "shard_map"}, {"mesh": "chains"},
 ], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values())))[:8])
 def test_unported_options_raise_naming_the_roadmap(option):
+    """Both options once refused are ported: "shard_map" without a mesh
+    runs as "vmap" (JAX mcmc.py:902), bit for bit, and a mesh that is not
+    a DeviceMesh raises a TypeError naming it (the sharded runs are in
+    tests/test_torch_sharded_mcmc.py)."""
     model, _ = conjugate_normal_model()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample(model, num_samples=5, num_warmup=5, num_chains=2, device="cpu", **option)
+    kw = dict(num_samples=5, num_warmup=5, num_chains=2, device="cpu", key=3)
+    if "mesh" in option:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            sample(model, **kw, **option)
+        return
+    got = sample(model, **kw, **option)
+    want = sample(model, chain_method="vmap", **kw)
+    assert torch.equal(got.samples["mu"], want.samples["mu"])
 
 
 def test_fused_leapfrog_under_nuts_warns_and_changes_nothing():

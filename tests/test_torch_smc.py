@@ -238,15 +238,25 @@ def test_streaming_state_stays_constant_size():
 
 
 def test_sharded_arguments_and_default_device_raise():
+    """The sharded modes are ported (tests/test_torch_sharded_smc.py): a
+    mesh that is not a DeviceMesh raises a TypeError naming it, an unknown
+    PMMH shard mode a ValueError, and exchange= without a mesh is ignored
+    as in JAX (smc.py:413-421): the single-device filter, bit for bit."""
     from brancher_torch.inference import pmmh_sample, streaming_particle_filter as spf
 
     ssm = t_lgssm_ssm(LGSSMParams())
     ys = np.zeros(5, np.float32)
     for call in (lambda: TSMC.smc_sample(ssm, ys, 8, mesh=object(), device="cpu"),
-                 lambda: TSMC.smc_sample(ssm, ys, 8, exchange="island", device="cpu"),
                  lambda: spf(ssm, ys, 8, mesh=object(), device="cpu"),
-                 lambda: pmmh_sample(None, ys, None, [0.0], shard="both", device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 15"):
+                 lambda: pmmh_sample(None, ys, None, [0.0], mesh=object(), shard="both",
+                                     device="cpu")):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
+    with pytest.raises(ValueError, match="unknown shard mode"):
+        pmmh_sample(None, ys, None, [0.0], mesh=object(), shard="rows", device="cpu")
+    island = TSMC.smc_sample(ssm, ys, 8, key=4, exchange="island", device="cpu")
+    plain = TSMC.smc_sample(ssm, ys, 8, key=4, device="cpu")
+    assert torch.equal(island.filter_means, plain.filter_means)
+    assert torch.equal(island.log_marginal, plain.log_marginal)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TSMC.smc_sample(ssm, ys, 8)

@@ -338,8 +338,10 @@ def test_maximum_likelihood_uses_observed_data():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
 def test_unported_options_raise_naming_the_roadmap(kw):
+    """mesh= is ported (tests/test_torch_sharded_mcmc.py): a mesh that is
+    not a DeviceMesh raises a TypeError naming it."""
     model, _ = conjugate_normal_model()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TS.perform_inference(model, number_iterations=2, device="cpu", **kw)
 
 
