@@ -23,6 +23,7 @@ integrator (``loop_leapfrog``).
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -63,12 +64,15 @@ class GraphedValueAndGrad:
     buffer, and replays it; later calls copy z into the buffer, replay, and
     return copies of the static outputs.  A function the card cannot
     capture (one that waits on the card, for example) runs eagerly at that
-    shape from then on (``eager_shapes``).  Inputs on the CPU run eagerly."""
+    shape from then on (``eager_shapes``).  Inputs on the CPU run eagerly.
+    ``capture_seconds`` sums the wall time of the captures, warm-up calls
+    included, each ended by a device synchronize."""
 
     def __init__(self, fn: VG):
         self.fn = fn
         self.graphs = {}
         self.eager_shapes = set()
+        self.capture_seconds = 0.0
 
     def __call__(self, z):
         if z.device.type != "cuda":
@@ -78,7 +82,10 @@ class GraphedValueAndGrad:
             return self.fn(z)
         entry = self.graphs.get(key)
         if entry is None:
+            t0 = time.perf_counter()
             entry = self._capture(z, key)
+            torch.cuda.synchronize(z.device)
+            self.capture_seconds += time.perf_counter() - t0
             if entry is None:
                 return self.fn(z)
         graph, static_z, v, g = entry

@@ -55,7 +55,12 @@ recognizer is not asked), and the discrete latents are pinned to zeros for
 potential is cached on the compiled model (``_enum_potential_cache``), a
 FIFO of eight keyed by ``given``'s content, as in JAX; a ``given`` leaf
 over 16 MB is neither copied to the host nor hashed, and its call builds a
-fresh potential.
+fresh potential.  The autodiff value+grad (``GraphedValueAndGrad``) is kept
+in a FIFO of the same kind (``_autodiff_vg_cache``), keyed also by whether
+the potential is enumerated, so that a second call on the same model and
+data replays the CUDA graphs of the first (``diagnostics[
+"value_and_grad_captures"]`` and ``["value_and_grad_capture_seconds"]``
+read 0 then).
 
 Sharded chains (``mesh=``, a ``DeviceMesh`` with a ``chain_axis``
 dimension; the SPMD convention of ``parallel/mesh.py``): every rank calls
@@ -551,12 +556,18 @@ def sample(
     gen = make_generator(key, dev)
     if params is None:
         params = comp.initial_params
+    gck = _given_key(given) if params is comp.initial_params else None
+    if gck:
+        # the cached potentials keep the given of the call that built them:
+        # a copy, so that a caller's later in-place change to its arrays
+        # cannot reach a later call whose content matches the key
+        given = {k: v.clone() if isinstance(v, torch.Tensor) else np.array(v, copy=True)
+                 for k, v in given.items()}
     potential_fn, unravel, _ = make_potential(comp, params, given)
     per_chain = chain_method in ("vmap", "shard_map")
     if enumerate_discrete:
         # the discrete latents summed out inside the potential: every engine
         # samples the marginal on the autodiff value+grad (JAX mcmc.py:598-624)
-        gck = _given_key(given) if params is comp.initial_params else None
         if gck is not None:
             potential_fn = _comp_cache(comp, "_enum_potential_cache", gck,
                                        lambda: make_enum_potential(comp, params, given, unravel))
@@ -598,7 +609,19 @@ def sample(
             "proceeds with the f32 path.", stacklevel=2,
         )
     if value_and_grad_fn is None or per_chain:
-        value_and_grad_fn = autodiff_value_and_grad(potential_fn)
+        if gck is not None:
+            # kept beside the potential, so that a second call on the same
+            # model and data replays the CUDA graphs the first one captured;
+            # the potential holds ``params``, so its id is not reused while
+            # the entry lives
+            value_and_grad_fn = _comp_cache(
+                comp, "_autodiff_vg_cache", (gck, bool(enumerate_discrete), id(params)),
+                lambda: autodiff_value_and_grad(potential_fn))
+        else:
+            value_and_grad_fn = autodiff_value_and_grad(potential_fn)
+    graphed = isinstance(value_and_grad_fn, GraphedValueAndGrad)
+    graphs0 = len(value_and_grad_fn.graphs) if graphed else 0
+    capture0 = value_and_grad_fn.capture_seconds if graphed else 0.0
     vg = _Counted(value_and_grad_fn)
     if per_chain and not hasattr(kernel, "make_step"):
         raise ValueError(f"kernel {type(kernel).__name__} requires chain_method='vectorized'")
@@ -734,8 +757,12 @@ def sample(
         "fused_dtype": ("bf16" if bf16_active else "f32") if fam_name else None,
         "fused_leapfrog": k5_ran,
         # the autodiff value+grad replayed a CUDA graph (None: not autodiff)
-        "value_and_grad_graphed": (bool(value_and_grad_fn.graphs)
-                                   if isinstance(value_and_grad_fn, GraphedValueAndGrad) else None),
+        "value_and_grad_graphed": bool(value_and_grad_fn.graphs) if graphed else None,
+        # graphs this call captured, and their seconds (0 when it replayed
+        # the graphs of an earlier call on the same model and data)
+        "value_and_grad_captures": len(value_and_grad_fn.graphs) - graphs0 if graphed else None,
+        "value_and_grad_capture_seconds": (value_and_grad_fn.capture_seconds - capture0
+                                           if graphed else None),
         "device": str(dev),
     }
     mode = diagnostics_backend

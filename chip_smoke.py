@@ -26,7 +26,8 @@ Phases (each prints one or more JSON lines tagged "phase"):
   3. vectorized NUTS at the floor config: make_logreg_data(1000, 32) ->
      logistic_regression_model -> sample(NUTS(max_depth=8), 500 warmup,
      1000 draws, 1024 chains) with fused_potential "auto" (K1), "bf16" (K2)
-     and "off" (autodiff, the yardstick), fewer draws for the last two;
+     and "off" (autodiff, the yardstick), fewer draws for the last two
+     (250) after FLOOR_SIDE_WARMUP warmup transitions ("reduced");
   4. NUTS on the conjugate model with "auto" (K3) and "bf16" (K4) against
      its closed-form posterior;
   5. the MXU-scale logistic regression (N=131072, D=1024, 256 chains) with
@@ -47,11 +48,14 @@ Phases (each prints one or more JSON lines tagged "phase"):
   8. the ARD headline, bench.py's child_ard at full width:
      make_logreg_data(100, 32, seed=0), tau ~ LogNormal(0, 0.75) [32], w
      non-centered, 1024 chains, NUTS(max_depth=8), target_accept 0.95,
-     500 warmup + 2000 draws, on bench's hand-fused value+grad (held
-     to autodiff at three random z first; no kernel: the recognizer
-     declines, logits are not affine in z); min-ESS over w and tau,
+     500 warmup + 2000 draws, on bench's hand-fused value+grad replayed
+     from a CUDA graph as bench jit-compiles it (held to autodiff at three
+     random z first, and the replay to the eager call bit for bit at the
+     run's shape; no kernel: the recognizer declines, logits are not
+     affine in z); min-ESS over w and tau,
      min-ESS/s, divergences, max R-hat, leaves per draw, and the device
-     diagnostics against the host ones on the same draws, both timed;
+     diagnostics against the host ones on the same draws (the first
+     ARD_DIAG_CHAINS chains), both timed;
   9. SVI on the floor model: perform_inference with AutoMeanField, 16
      samples, lr 0.02, 1500 steps; the guide's loc within 0.15 of phase
      3's NUTS means; ELBO steps/s over the call's wall time;
@@ -61,12 +65,12 @@ Phases (each prints one or more JSON lines tagged "phase"):
      and last 100 steps (the last lower) and peak memory, TF32 off;
  11. AR(p) series under NUTS, scripts/exp_glm_speedup.py:12-14's AR(1) at
      full width: make_ar_data(2000, (0.7,), 0.3, seed=0) -> ar_model(order=1),
-     512 chains, NUTS(max_depth=8), 400 warmup + 800 draws, with
-     fused_potential "auto" (K3), "bf16" (K4) and "off" (autodiff, the
-     yardstick); the same model under ChEES with fused_leapfrog=True (K5);
+     512 chains, NUTS(max_depth=8), 400 warmup + AR1_DRAWS draws
+     ("reduced" from 800), with fused_potential "auto" (K3), "bf16" (K4)
+     and "off" (autodiff, the yardstick); the same model under ChEES with fused_leapfrog=True (K5);
      and examples/03_autoregressive_timeseries.py:10-13's AR(2) (T=1000,
-     coefficients (0.5, 0.2)) under "auto", against its least-squares
-     fit.  The recognizer finds normal_learned over the lag matrix (D =
+     coefficients (0.5, 0.2)) under "auto" (AR2_WARMUP + AR2_DRAWS, "reduced"),
+     against its least-squares fit.  The recognizer finds normal_learned over the lag matrix (D =
      order + 1); phase 2 holds K3/K4 (and K5 at AR(1)) at these shapes on
      that family;
  12. the particle methods (no kernel): the bootstrap filter at
@@ -74,18 +78,22 @@ Phases (each prints one or more JSON lines tagged "phase"):
      particles) and the streaming filter (T=300, 2048 particles, lag 16,
      chunks of 64) against the Kalman filter; tempered SMC on the
      conjugate model (2048 particles) against the closed form; PMMH (T=60,
-     128 particles, 8 chains, 200 + 400) and particle Gibbs (32 particles)
+     128 particles, 8 chains) and particle Gibbs (32 particles), both at
+     PMMH17_DEPTH ("reduced" from 200 + 400),
      against the Kalman grid posterior of a; each with the limits of its
      JAX test, its wall time and the filters' particle-steps per second;
  13. the remaining MCMC modes at full width: phase 11's AR(2) under
-     mass="dense" (stage A and the whitened stage B both on K3), resumed
+     mass="dense" (stage A and the whitened stage B both on K3; AR_WARMUP
+     + AR2_DRAWS, "reduced"), resumed
      for 400 draws from its resume_state after a torch.save/torch.load
-     round trip, and under NUTS(max_depth=8, pipelined=True) (K3); phase
-     3's floor under the pipelined engine (K1); phase 11's AR(1) ChEES
+     round trip, and under NUTS(max_depth=8, pipelined=True) (K3;
+     AR2_WARMUP + AR2_DRAWS, "reduced"); phase 3's floor under the pipelined
+     engine (K1; PIPELINED_FLOOR_WARMUP + PIPELINED_FLOOR_DRAWS,
+     "reduced"); phase 11's AR(1) ChEES
      run resumed for 400 draws with fused_leapfrog=True (K5 once a
      transition); chain_method="vmap" (no kernel) at the floor (1024
-     chains, 200 + 200) and on the conjugate model (64 chains, 500 +
-     1000); and phase 8's ARD under the pipelined engine (ARD13_DRAWS
+     chains, 200 + 200) and on the conjugate model (64 chains,
+     CONJUGATE_VMAP_DEPTH, "reduced" from 500 + 1000); and phase 8's ARD under the pipelined engine (ARD13_DRAWS
      draws, resumed from phase 8's run, or after 500 warmup transitions
      where phase 8 did not run), its iterations a draw and ms an
      iteration beside phase 8's lockstep leaves.  Each against its
@@ -103,14 +111,16 @@ Phases (each prints one or more JSON lines tagged "phase"):
      matmul_precision="bfloat16";
  15. exact enumeration of discrete latents, no kernel on any run: the
      sequence HMM of tests/test_discrete_latents.py:624-661 (MarkovProcess,
-     T=500, K=2, BF.take emissions) at 256 chains, NUTS, 200 + 200, on a
+     T=500, K=2, BF.take emissions) at 256 chains, NUTS, 100 + 100
+     ("reduced" from 200 + 200), on a
      value+grad that must replay a CUDA graph; _markov_hmm_model (:531, K=3)
      at T=100 and T=10,000, one value+grad of 256 chains (capture seconds,
      ms a replay and an eager call, graphed held to eager); the element-
-     wise mixture (:57-124) at 256 chains with its responsibilities, and
-     enumerated SVI on it (:127-139); the Gaussian HMM (tests/test_hmm.py:
-     67-87) at 256 chains and the Poisson HMM (:154-175) at its 4; the
-     chain, factor and group models (:242-255, :350-370, :497-529) at their
+     wise mixture (:57-124) at 256 chains (200 + 200, "reduced") with its
+     responsibilities, and enumerated SVI on it (:127-139); the Gaussian
+     HMM (tests/test_hmm.py:67-87) at 256 chains (200 + 200, "reduced")
+     and the Poisson HMM (:154-175) at its 4 (200 +
+     200, "reduced"); the chain, factor and group models (:242-255, :350-370, :497-529) at their
      tests' runs against quadrature.  Each prints its dispatch's method and
      seconds, whether the value+grad was graphed, leaves a draw, ms a call
      and min-ESS/s (on each draw's sorted components where the labels are
@@ -133,30 +143,56 @@ Phases (each prints one or more JSON lines tagged "phase"):
      (parallel.initialize_distributed on a FileStore in a temporary
      directory, with a timeout; its line prints "world_size" and
      "backend"), every mesh built by the port's parallel functions: floor
-     NUTS with mesh=chain_mesh() (phase 3's config, K1 once a value+grad
-     call, R-hat, means within 5 MCSE of phase 3's, sampler seconds beside
-     phase 3's); floor ChEES with fused_leapfrog=True (K5 once a
+     NUTS with mesh=chain_mesh() (phase 3's config but SHARDED_FLOOR_DRAWS
+     draws, "reduced"; K1 once a value+grad call, R-hat, means within 5
+     MCSE of phase 3's, ms a leaf iteration beside phase 3's); floor ChEES with fused_leapfrog=True (K5 once a
      transition, means against phase 6's); chain_method="shard_map" at the
      floor, 200 + 200 (beside phase 13's vmap row); mass="dense" on the
-     conjugate model (K3, against the closed form); floor SVI with
+     conjugate model (K3, SHARDED_DENSE_DEPTH, "reduced"; against the
+     closed form); floor SVI with
      mesh=batch_mesh() (phase 9's config); phase 12's LGSSM through
      smc_sample(mesh=particle_mesh()) with exchange "ppermute", "gather"
      and "island" (phase 12's limits; ppermute and gather bit for bit; the
      ring's host reads a step); the streaming filter with mesh= (phase
      12's); PMMH with shard="chain" and "particle" at phase 12's size (a
      cut of depth prints "reduced").  The group is destroyed at the end;
- 18. the {"kernels": [...]} summary (K1 for its main paths, for the
-     pipelined floor, for phase 16's floor run and for phase 17's sharded
-     floor, K3 once for each of its seven paths, K4 for each of its three,
-     K5 for each of its six), the card's name and power limit, and the
-     last line {"ok": true, "device": {...}}.
+ 18. the port's programs and the suite's cross-cutting checks:
+     examples/torch/01, 02, 04, 05 and 07 through main() at the JAX
+     examples' own sizes but for the cuts in EXAMPLE_CUTS (printed as
+     "reduced"; 03 does not run here, as phase 11 runs its AR(2), and 06
+     needs scikit-learn, which the card's machine lacks), each with its
+     numbers against its reference limits (the closed form; corr >= 0.9;
+     the Kalman filter; a falling loss; Stan's mu 4.4 and tau 3.6), wall
+     seconds and launches (K3 = calls for 01, K1 = calls for 02, none for
+     the rest); rerun pairs at one
+     key on the floor at full width (1024 chains, RERUN_WARMUP +
+     RERUN_DRAWS, "reduced"): NUTS "auto" (K1), "bf16" (K2), pipelined
+     (K1) and "off" (the graphed autodiff value+grad, whose second call
+     must capture no graph), HMC(8) and ChEES with fused_leapfrog=True
+     (K5), the bootstrap filter at example 04's config, floor SVI for
+     RERUN_SVI_STEPS steps and the softmax family's scatter_add value+grad
+     at phase 14's shape, each "bit_identical" or the script fails (after
+     naming what torch calls nondeterministic in one more run); SBC at
+     tests/test_calibration.py's sizes (conjugate NUTS and ChEES, the
+     non-centered hierarchy on a graphed autograd value+grad, its depth
+     halved, "reduced") with the chi-square p-values (> 0.005); the
+     centered funnel under NUTS, ChEES
+     and HMC (16 chains, FUNNEL_WARMUP + FUNNEL_DRAWS, NUTS at
+     FUNNEL_NUTS_DEPTH; a cut prints "reduced"), each count nonzero;
+ 19. the {"kernels": [...]} summary (K1 for its main paths, for the
+     pipelined floor, for phase 16's floor run, for phase 17's sharded
+     floor and for example 02, K3 once for each of its eight paths
+     (example 01's among them), K4 for each of its three, K5 for each of
+     its six), the card's name and power limit, and the last line
+     {"ok": true, "device": {...}}.
 
 Every launch counter is set to 0 just before each sample() or
 perform_inference() run and read just after it; a run whose kernels did
 not launch as expected (the value+grad kernel once per value+grad call,
 K5 once per transition, none on the paths of phases 8-10, 12, 14 and 15,
 on phase 13's vmap and ARD runs, on phase 16's SVI and posterior
-predictive and on phase 17's shard_map, SVI and particle runs) fails the
+predictive, on phase 17's shard_map, SVI and particle runs and on phase
+18's examples 04, 05 and 07, SBC, funnel, filter and SVI runs) fails the
 script.  The whole script must end within 1200 s on
 one card.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
@@ -189,9 +225,13 @@ SHAPES = {
     "mxu": (256, 131072, 1024),
     "ragged": (100, 1037, 33),
     "linreg": (256, 131072, 1025),
+    # phase 18's examples: 02's logistic regression (64 chains, N=1000,
+    # D=16) and 01's conjugate mean (8 chains, N=50, D=1; K3/K4 only)
+    "ex02": (64, 1000, 16),
+    "ex01": (8, 50, 1),
 }
-# phase 5's linear-Gaussian regression (z = [sigma, w]): K3/K4 only
-NORMAL_ONLY_SHAPES = ("linreg",)
+# phase 5's linear-Gaussian regression (z = [sigma, w]) and example 01: K3/K4 only
+NORMAL_ONLY_SHAPES = ("linreg", "ex01")
 LEAPFROG_SHAPES = ("floor", "conjugate")
 LEAPFROG_STEPS = (1, 8, 32)
 LOGREG_SHAPES = ("floor", "mxu")
@@ -199,13 +239,16 @@ SOURCES = ("glm_vg", "leapfrog")
 # each value+grad kernel's shape on its main path (phase 3 and 6 for K1,
 # K2 and K6)
 MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor", "logreg_f32": "floor"}
-# K3 runs on seven main paths and K4 on three, one entry each in the
-# summary, and K1 has entries for the pipelined, the auxiliaries' and the
-# sharded floor beside its own: (section and run of RESULTS, phase-2 shape)
+# K3 runs on eight main paths and K4 on three, one entry each in the
+# summary, and K1 has entries for the pipelined, the auxiliaries', the
+# sharded floor and example 02 beside its own: (section and run of RESULTS,
+# phase-2 shape)
 VG_PATHS = {"glm_bernoulli_f32": ((("floor_pipelined", "auto"), "floor"),
                                   (("aux", "aux/floor"), "floor"),
-                                  (("sharded_floor", "auto"), "floor")),
+                                  (("sharded_floor", "auto"), "floor"),
+                                  (("examples", "02"), "ex02")),
             "glm_normal_f32": ((("conjugate", "auto"), "conjugate"),
+                               (("examples", "01"), "ex01"),
                                (("sharded_dense", "auto"), "conjugate"),
                                (("mxu_linreg", "auto"), "linreg"),
                                (("ar1", "auto"), "ar1"), (("ar2", "auto"), "ar2"),
@@ -270,6 +313,17 @@ AR_DATA = {1: (2000, (0.7,)), 2: (1000, (0.5, 0.2))}
 AR_NOISE = 0.3
 AR_CHAINS = 512
 AR_WARMUP, AR_DRAWS = 400, 800
+# phase 11's AR(1) NUTS draws ("auto", "bf16", "off"), cut from AR_DRAWS for
+# time (printed as "reduced"): their ESS sat at its cap (512 x 800) with
+# R-hat 1.0000 on an H100 (PERF.md)
+AR1_DRAWS = 400
+# AR(2)'s warmup and draws, cut from AR_WARMUP + AR_DRAWS for time in phases
+# 11 and 13 (printed as "reduced"): its lockstep run fills 24 leaves a draw,
+# and with phase 18 added the script read 1186.3 s on an H100 (700 W), then
+# ran over 1200 s on a slow host at 400 + 400 (PERF.md).  The dense run
+# keeps AR_WARMUP: at 300 its stage B adapted a worse metric, 15.2 leaves a
+# draw against 3.0, and took longer.
+AR2_WARMUP, AR2_DRAWS = 300, 300
 # phase 2's K5 rows at AR(1): a diagonal inverse mass of the posterior's
 # scale (sd about 0.016 in both coordinates at T=2000) and a step size
 # well inside the integrator's stability limit there (about 2)
@@ -734,7 +788,7 @@ def _floor_model():
     return x, y, logistic_regression_model(x, y)
 
 
-def _floor_run(section, tag, kname, phase, draws, warmup=500, **kw):
+def _floor_run(section, tag, kname, phase, draws, warmup=500, reduced=None, **kw):
     """One sample() run on the floor model (1024 chains): its line with
     min-ESS, min-ESS/s and R-hat over w; fails unless R-hat < 1.01 and the
     means are finite, and (after phase 3) holds the means within 5 MCSE of
@@ -751,6 +805,7 @@ def _floor_run(section, tag, kname, phase, draws, warmup=500, **kw):
         "phase": phase, "num_warmup": warmup, "num_samples": draws, "min_ess": float(ess.min()),
         "ess_per_second": float(ess.min()) / info["sampler_seconds"],
         "max_rhat": float(rhat.max()),
+        **({"reduced": reduced} if reduced else {}),
     })
     emit(info)
     RESULTS.setdefault(section, {})[tag] = info
@@ -764,6 +819,11 @@ def _floor_run(section, tag, kname, phase, draws, warmup=500, **kw):
     return mean, sd, ess
 
 
+# the warmup of phase 3's "bf16" and "off" runs, cut from 500 for time
+# ("reduced"; their ESS sat at its cap, R-hat 0.998; PERF.md)
+FLOOR_SIDE_WARMUP = 250
+
+
 def phase_floor():
     from brancher_torch.inference import NUTS
 
@@ -771,8 +831,10 @@ def phase_floor():
     for tag, fp, kname, draws in (("auto", "auto", "glm_bernoulli_f32", 1000),
                                   ("bf16", "bf16", "glm_bernoulli_bf16", 250),
                                   ("off", "off", None, 250)):
-        runs[tag] = _floor_run("floor", tag, kname, 3, draws, kernel=NUTS(max_depth=8),
-                               fused_potential=fp)
+        warmup = 500 if tag == "auto" else FLOOR_SIDE_WARMUP
+        runs[tag] = _floor_run("floor", tag, kname, 3, draws, warmup=warmup,
+                               kernel=NUTS(max_depth=8), fused_potential=fp,
+                               reduced=None if warmup == 500 else {"num_warmup": [500, warmup]})
     for tag in ("auto", "bf16"):
         _mcse_compare(3, f"{tag} vs off", runs["off"], runs[tag], "floor")
     RESULTS["floor_auto_moments"] = runs["auto"]
@@ -974,23 +1036,29 @@ def phase_hmc():
 
 
 ARD_N, ARD_D, ARD_TAU_SD = 100, 32, 0.75
-# bench.py's ARD_DRAWS, not cut although the phase takes 300-470 s on an
-# H100 (126 leaves a transition at 1.3-1.5 ms): where the slowest
-# coordinate's autocorrelation time tau is 12-16 draws, as on the card,
-# split R-hat reads about 1 + (tau - 1) / draws, and 1400 draws read
-# 1.0114, over the 1.01 limit (PERF.md).  A cut would be printed as
-# "reduced" in phase 8's line.
+# bench.py's ARD_DRAWS, not cut although the phase took 300-470 s on an
+# H100 with the potential run eagerly (126 leaves a transition at 1.0-1.5
+# ms): where the slowest coordinate's autocorrelation time tau is 12-16
+# draws, as on the card, split R-hat reads about 1 + (tau - 1) / draws, and
+# 1400 draws read 1.0114, over the 1.01 limit (PERF.md).  A cut would be
+# printed as "reduced" in phase 8's line.
 ARD_DRAWS = 2000
 ARD_WARMUP = 500
+# the chains on which phase 8 holds the device diagnostics to the host's:
+# the host's numpy took 12.2-14.7 s over all 1024 (PERF.md)
+ARD_DIAG_CHAINS = 256
 
 
 def _ard_model_and_potential():
     """bench.py:195-227: the non-centered ARD model from the ported DSL and
-    bench's hand-fused value+grad of its z-density, z = [log tau, w_raw]."""
+    bench's hand-fused value+grad of its z-density, z = [log tau, w_raw],
+    replayed from a CUDA graph as bench jit-compiles it (the same kernels
+    on the same numbers; the eager call is the wrapper's ``fn``)."""
     import numpy as np
     import torch
     import brancher_torch as BT
     import brancher_torch.functions as BF
+    from brancher_torch.inference.hmc import GraphedValueAndGrad
     from brancher_torch.models import make_logreg_data
 
     x, y, _ = make_logreg_data(ARD_N, ARD_D, seed=0)
@@ -1011,7 +1079,7 @@ def _ard_model_and_potential():
         s = (yt - torch.sigmoid(logits)) @ xt
         return val, torch.cat([s * wr * tau_ - v / sd2, s * tau_ - wr], -1)
 
-    return BT.ProbabilisticModel([yv]), fused
+    return BT.ProbabilisticModel([yv]), GraphedValueAndGrad(fused)
 
 
 def phase_ard():
@@ -1032,6 +1100,13 @@ def phase_ard():
     grad_ok = bool(torch.all(torch.abs(gf - ga) <= 2e-3 * (1.0 + torch.abs(ga))))
     check(const_sd < 1e-2 and grad_ok,
           f"ard: the fused potential disagrees with autodiff (sd {const_sd}, grad_ok {grad_ok})")
+    # the replayed graph against the eager call, bit for bit, at the run's shape
+    zc = 0.5 * torch.randn((1024, 2 * ARD_D), generator=torch.Generator("cuda").manual_seed(10),
+                           device="cuda")
+    graph_same = all(torch.equal(a, b) for a, b in zip(fused(zc), fused.fn(zc)))
+    check(graph_same and len(fused.graphs) == 2 and not fused.eager_shapes,
+          f"ard: the graphed potential ({len(fused.graphs)} graphs) differs from its eager call")
+    potential_ms = {"graphed": time_ms(lambda: fused(zc)), "eager": time_ms(lambda: fused.fn(zc))}
 
     res, run = _run_sample(model, "ard/fused", None, kernel=NUTS(max_depth=8),
                            num_warmup=ARD_WARMUP, num_samples=ARD_DRAWS, num_chains=1024, key=6,
@@ -1041,8 +1116,9 @@ def phase_ard():
     ess = np.concatenate([np.ravel(d["ess"][n]) for n in ("w", "tau")])
     rhat = np.concatenate([np.ravel(d["r_hat"][n]) for n in ("w", "tau")])
 
-    # the device diagnostics against the host ones, on the same draws
-    draws = [res.samples[n] for n in ("w", "tau")]
+    # the device diagnostics against the host ones, on the same draws (the
+    # first ARD_DIAG_CHAINS chains)
+    draws = [res.samples[n][:ARD_DIAG_CHAINS] for n in ("w", "tau")]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dev = [(dg.effective_sample_size_device(x), dg.potential_scale_reduction_device(x)) for x in draws]
@@ -1059,8 +1135,12 @@ def phase_ard():
         "num_samples": ARD_DRAWS, "min_ess": float(ess.min()),
         "ess_cap": float(1024 * ARD_DRAWS), "ess_per_second": float(ess.min()) / run["sampler_seconds"],
         "max_rhat": float(rhat.max()), "diagnostics_backend": d["diagnostics_backend"],
-        "fused_potential_const_sd": const_sd, "device_diag_seconds": device_s,
-        "host_diag_seconds": host_s, "device_vs_host_ess_max_rel": ess_rel,
+        "fused_potential_const_sd": const_sd, "potential_graphed": True,
+        "graph_vs_eager_bit_identical": graph_same, "capture_seconds": fused.capture_seconds,
+        "potential_ms": potential_ms,
+        "device_diag_seconds": device_s,
+        "host_diag_seconds": host_s, "diag_chains": ARD_DIAG_CHAINS,
+        "device_vs_host_ess_max_rel": ess_rel,
         "device_vs_host_rhat_max_abs": rhat_abs,
         **({"reduced": {"num_samples": [2000, ARD_DRAWS]}} if ARD_DRAWS != 2000 else {}),
     })
@@ -1144,7 +1224,7 @@ def phase_vae():
     RESULTS["vae"] = {"adam": info}
 
 
-def _ar_run(model, section, tag, kname, trans=None, phase=11, **kw):
+def _ar_run(model, section, tag, kname, trans=None, phase=11, reduced=None, **kw):
     """One sample() run on an AR model (AR_CHAINS chains, AR_WARMUP +
     AR_DRAWS unless given): the run's line with min-ESS, min-ESS/s and
     R-hat over [coefficients, noise scale]; fails unless R-hat < 1.01, the
@@ -1164,6 +1244,7 @@ def _ar_run(model, section, tag, kname, trans=None, phase=11, **kw):
         "post_mean": mean.tolist(), "post_sd": sd.tolist(), "min_ess": float(ess.min()),
         "ess_per_second": float(ess.min()) / info["sampler_seconds"],
         "max_rhat": float(rhat.max()),
+        **({"reduced": reduced} if reduced else {}),
     })
     emit(info)
     RESULTS.setdefault(section, {})[tag] = info
@@ -1196,7 +1277,8 @@ def phase_ar():
     for tag, fp, kname in (("auto", "auto", "glm_normal_f32"), ("bf16", "bf16", "glm_normal_bf16"),
                            ("off", "off", None)):
         runs[tag] = _ar_run(model, "ar1", tag, kname, kernel=NUTS(max_depth=8),
-                            fused_potential=fp, key=11)
+                            fused_potential=fp, key=11, num_samples=AR1_DRAWS,
+                            reduced={"num_samples": [AR_DRAWS, AR1_DRAWS]})
     for tag in ("auto", "bf16"):
         _mcse_compare(11, f"ar1/{tag} vs off", runs["off"], runs[tag], "ar1")
     RESULTS["ar1_off_moments"] = runs["off"]
@@ -1210,7 +1292,10 @@ def phase_ar():
     length, coeffs = AR_DATA[2]
     data = make_ar_data(length, coeffs, AR_NOISE, seed=0)
     mean, sd, ess = _ar_run(ar_model(data, 2), "ar2", "auto", "glm_normal_f32",
-                            kernel=NUTS(max_depth=8), fused_potential="auto", key=13)
+                            kernel=NUTS(max_depth=8), fused_potential="auto", key=13,
+                            num_warmup=AR2_WARMUP, num_samples=AR2_DRAWS,
+                            reduced={"num_warmup": [AR_WARMUP, AR2_WARMUP],
+                                     "num_samples": [AR_DRAWS, AR2_DRAWS]})
     RESULTS["ar2_auto_moments"] = (mean, sd, ess)
     lsq = _ar_least_squares(data, 2)
     line = {"phase": 11, "compare": "ar2/auto vs least squares", "least_squares": lsq.tolist(),
@@ -1229,8 +1314,15 @@ def phase_ar():
 # run resumes from phase 8's resume_state with no warmup, also printed as
 # "reduced": the pipelined engine warms up with the lockstep engine, so its
 # 500 warmup transitions (about 79 s of the run's 129 s on an H100) repeat
-# phase 8's warmup at the same key.
-ARD13_DRAWS = 150
+# phase 8's warmup at the same key.  With phase 18 added the script read
+# 1186.3 s (150 draws: 27.4 s, R-hat 1.0034), so 100.
+ARD13_DRAWS = 100
+# the pipelined floor's warmup and draws, cut from phase 3's 500 + 1000 for
+# time ("reduced"; its ESS sits at the cap, and phase 18 reruns the engine
+# bit for bit), and the per-chain engine's conjugate run, cut from 500 +
+# 1000 (its ESS read 4.7k of 64k draws, R-hat 1.0008; PERF.md)
+PIPELINED_FLOOR_WARMUP, PIPELINED_FLOOR_DRAWS = 250, 300
+CONJUGATE_VMAP_DEPTH = (250, 500)
 
 
 def _roundtrip(state):
@@ -1268,7 +1360,8 @@ def phase_modes():
     ar2 = ar_model(data, 2)
     lsq = _ar_least_squares(data, 2)
     mean, sd, _ = _ar_run(ar2, "ar2_dense", "auto", "glm_normal_f32", phase=13,
-                          kernel=NUTS(max_depth=8), mass="dense", key=14)
+                          kernel=NUTS(max_depth=8), mass="dense", key=14, num_samples=AR2_DRAWS,
+                          reduced={"num_samples": [AR_DRAWS, AR2_DRAWS]})
     _lsq_check("ar2_dense", "auto", mean, sd, lsq)
     rs = _roundtrip(RESULTS["resume_states"]["ar2_dense/auto"])
     mean, sd, _ = _ar_run(ar2, "ar2_dense", "resume", "glm_normal_f32", phase=13,
@@ -1282,13 +1375,18 @@ def phase_modes():
 
     # the draw-pipelined engine on AR(2) (K3) and the floor (K1)
     mean, sd, ess = _ar_run(ar2, "ar2_pipelined", "auto", "glm_normal_f32", phase=13,
-                            kernel=NUTS(max_depth=8, pipelined=True), key=16)
+                            kernel=NUTS(max_depth=8, pipelined=True), key=16,
+                            num_warmup=AR2_WARMUP, num_samples=AR2_DRAWS,
+                            reduced={"num_warmup": [AR_WARMUP, AR2_WARMUP],
+                                     "num_samples": [AR_DRAWS, AR2_DRAWS]})
     _lsq_check("ar2_pipelined", "auto", mean, sd, lsq)
     if "ar2_auto_moments" in RESULTS:  # phase 11 ran
         _mcse_compare(13, "ar2_pipelined/auto vs ar2/auto", RESULTS["ar2_auto_moments"],
                       (mean, sd, ess), "ar2_pipelined")
-    _floor_run("floor_pipelined", "auto", "glm_bernoulli_f32", 13, 1000,
-               kernel=NUTS(max_depth=8, pipelined=True))
+    _floor_run("floor_pipelined", "auto", "glm_bernoulli_f32", 13, PIPELINED_FLOOR_DRAWS,
+               warmup=PIPELINED_FLOOR_WARMUP, kernel=NUTS(max_depth=8, pipelined=True),
+               reduced={"num_warmup": [500, PIPELINED_FLOOR_WARMUP],
+                        "num_samples": [1000, PIPELINED_FLOOR_DRAWS]})
 
     # AR(1) ChEES resumed with K5, its adapted trajectory length carried
     length, coeffs = AR_DATA[1]
@@ -1314,9 +1412,11 @@ def phase_modes():
     _floor_run("floor_vmap", "auto", None, 13, 200, warmup=200, kernel=NUTS(max_depth=8),
                chain_method="vmap")
     model, info = conjugate_normal_model()
+    warm, draws = CONJUGATE_VMAP_DEPTH
     res, run = _run_sample(model, "conjugate_vmap/auto", None, kernel=NUTS(max_depth=8),
-                           chain_method="vmap", num_warmup=500, num_samples=1000, num_chains=64,
+                           chain_method="vmap", num_warmup=warm, num_samples=draws, num_chains=64,
                            key=1)
+    run["reduced"] = {"num_warmup": [500, warm], "num_samples": [1000, draws]}
     RESULTS["conjugate_vmap"] = {"auto": run}
     _check_conjugate(res, run, info, 13, "conjugate_vmap/auto", family=None)
     check(run["max_rhat"] < 1.01, f"conjugate_vmap/auto: R-hat {run['max_rhat']}")
@@ -1497,16 +1597,21 @@ def phase_particles():
     common = dict(log_prior=lambda th: -0.5 * torch.sum((th / 1.5) ** 2, dim=-1),
                   theta0=[float(np.arctanh(0.7))], num_samples=400, num_warmup=200,
                   num_chains=8, device="cuda")
+    warm, draws = PMMH17_DEPTH  # phase 17's cut, for time ("reduced")
     res, info = _particle_run("particles/pmmh", lambda: pmmh_sample(
-        _lgssm_ssm_of_theta, ys, num_particles=128, key=24, **common))
-    info.update({"T": 60, "particles": 128, "chains": 8, "num_warmup": 200, "num_samples": 400,
-                 "particle_steps_per_second": 8 * 128 * 60 * 601 / info["seconds"]})
+        _lgssm_ssm_of_theta, ys, num_particles=128, key=24,
+        **{**common, "num_warmup": warm, "num_samples": draws}))
+    info.update({"T": 60, "particles": 128, "chains": 8, "num_warmup": warm, "num_samples": draws,
+                 "particle_steps_per_second": 8 * 128 * 60 * (warm + draws + 1) / info["seconds"],
+                 "reduced": {"num_warmup": [200, warm], "num_samples": [400, draws]}})
     _grid_check("pmmh", info, np.tanh(res.thetas[..., 0].cpu().numpy().ravel()),
                 float(res.accept_rate), grid, (0.05, 0.8))
     res, info = _particle_run("particles/pgas", lambda: particle_gibbs_sample(
-        _lgssm_ssm_of_theta, ys, num_particles=32, key=25, **common))
-    info.update({"T": 60, "particles": 32, "chains": 8, "num_warmup": 200, "num_samples": 400,
-                 "particle_steps_per_second": 8 * 32 * 60 * 600 / info["seconds"]})
+        _lgssm_ssm_of_theta, ys, num_particles=32, key=25,
+        **{**common, "num_warmup": warm, "num_samples": draws}))
+    info.update({"T": 60, "particles": 32, "chains": 8, "num_warmup": warm, "num_samples": draws,
+                 "particle_steps_per_second": 8 * 32 * 60 * (warm + draws) / info["seconds"],
+                 "reduced": {"num_warmup": [200, warm], "num_samples": [400, draws]}})
     _grid_check("pgas", info, np.tanh(res.thetas[..., 0].cpu().numpy().ravel()),
                 float(res.accept_rate), grid, (0.05, 0.9))
 
@@ -1520,12 +1625,14 @@ def phase_particles():
 # an H100 (700 W), against its 1200 s limit, and the GP fills NUTS's tree (131
 # leaves a transition), so its 400 + 400 alone would cost about 85 s of the
 # phase's 180 (PERF.md §6).  The softmax run's draws are cut from 500 to 300
-# (its 500 took 95.8 s of a 1124.4 s script with phase 17; PERF.md).
+# (its 500 took 95.8 s of a 1124.4 s script with phase 17; PERF.md), and
+# its warmup from 300 to 200 and eight schools' and the GP's depths cut
+# again when the script with phase 18 ran over its 1200 s on a slow host.
 SOFTMAX_N, SOFTMAX_D, SOFTMAX_K = 2000, 32, 10
 ZOO_RUNS = {  # tag: (chains, max_depth, warmup, draws, the reference's (warmup, draws))
-    "softmax": (256, 7, 300, 300, (300, 500)),
-    "eight_schools": (16, 9, 400, 400, (800, 800)),
-    "gp": (8, 8, 150, 50, (400, 400)),
+    "softmax": (256, 7, 200, 300, (300, 500)),
+    "eight_schools": (16, 9, 300, 300, (800, 800)),
+    "gp": (8, 8, 100, 50, (400, 400)),
     "gmm": (8, 7, 400, 300, (400, 300)),
 }
 
@@ -1836,16 +1943,23 @@ ENUM_T = 500
 ENUM_LENGTHS = (100, 10_000)
 ENUM_LENGTH_CHAINS = 256
 ENUM_RUNS = {  # tag: (chains, NUTS max_depth (None: NUTS()), warmup, draws, the JAX test's chains)
-    "sequence_hmm": (256, None, 200, 200, 4),
-    "mixture": (256, 8, 400, 400, 4),
-    "gaussian_hmm": (256, 7, 400, 400, 4),
-    "poisson_hmm": (4, 7, 400, 400, 4),
+    "sequence_hmm": (256, None, 100, 100, 4),
+    "mixture": (256, 8, 200, 200, 4),
+    "gaussian_hmm": (256, 7, 200, 200, 4),
+    "poisson_hmm": (4, 7, 200, 200, 4),
     "chain": (2, 6, 200, 200, 2),
     "factor": (2, 6, 300, 400, 2),
     "group": (4, None, 300, 400, 4),
 }
 # the runs held at 256 chains: a cut for time is printed as "reduced"
 ENUM_TARGET_CHAINS = {"sequence_hmm": 256, "mixture": 256, "gaussian_hmm": 256}
+# runs whose warmup and draws were cut for time, "reduced" from these: the
+# sequence HMM took 40.0 s at 200 + 200 and the Poisson HMM 26.8 s at 400 +
+# 400 of a script that read 1186.3 s with phase 18, and the mixture and the
+# Gaussian HMM, whose ESS sat at its cap at 400 + 400, are halved with
+# phase 18's other cuts (PERF.md)
+ENUM_DEPTH_CUTS = {"sequence_hmm": (200, 200), "poisson_hmm": (400, 400),
+                   "mixture": (400, 400), "gaussian_hmm": (400, 400)}
 
 
 def _enum_line(info: dict, tag: str) -> dict:
@@ -1857,8 +1971,12 @@ def _enum_line(info: dict, tag: str) -> dict:
         info.update({"chains": chains, "max_depth": depth, "num_warmup": warmup,
                      "num_samples": draws})
         target = ENUM_TARGET_CHAINS.get(tag, chains)
-        if chains != target:
-            info["reduced"] = {"chains": [target, chains]}
+        reduced = {"chains": [target, chains]} if chains != target else {}
+        if tag in ENUM_DEPTH_CUTS:
+            ref_warmup, ref_draws = ENUM_DEPTH_CUTS[tag]
+            reduced.update({"num_warmup": [ref_warmup, warmup], "num_samples": [ref_draws, draws]})
+        if reduced:
+            info["reduced"] = reduced
     return info
 
 
@@ -2472,11 +2590,17 @@ def _phase_aux(work):
 
 # ---------------------------------------------------------------------------
 # Phase 17: every sharded mode through a one-rank NCCL group.  PMMH's depth
-# (warmup, draws) is cut from phase 12's 200 + 400 to 100 + 200, printed as
-# "reduced": at 200 + 400 its two runs took 68.4 s of the phase's 117.9 on an
-# H100 (700 W), and at 150 + 300 56.6 s of a whole script of 1124.4 s on a
-# slow host (PERF.md).
-PMMH17_DEPTH = (100, 200)
+# (warmup, draws), here and in phase 12, is cut from the JAX tests' 200 +
+# 400 to 50 + 100, printed as "reduced": at 200 + 400 its two runs took
+# 68.4 s of the phase's 117.9 on an H100 (700 W), at 150 + 300 56.6 s of a
+# whole script of 1124.4 s on a slow host, and at 100 + 200 the four runs
+# of phases 12 and 17 took 55.8 s of a script that ran over its 1200 s on
+# a slow host (PERF.md).
+PMMH17_DEPTH = (50, 100)
+# the sharded floor's draws and the sharded dense run's depth, cut for time
+# ("reduced"; phase 3's floor is compared by ms a leaf iteration)
+SHARDED_FLOOR_DRAWS = 500
+SHARDED_DENSE_DEPTH = (250, 500)
 COLLECTIVE_TIMEOUT_S = 300
 
 
@@ -2496,13 +2620,15 @@ def _sharded_mcmc(meshes):
 
     chain = meshes["chain"]
     # floor NUTS, phase 3's config, the rank's [C / n, D] block on K1
-    _floor_run("sharded_floor", "auto", "glm_bernoulli_f32", 17, 1000, kernel=NUTS(max_depth=8),
-               fused_potential="auto", mesh=chain)
+    _floor_run("sharded_floor", "auto", "glm_bernoulli_f32", 17, SHARDED_FLOOR_DRAWS,
+               kernel=NUTS(max_depth=8), fused_potential="auto", mesh=chain,
+               reduced={"num_samples": [1000, SHARDED_FLOOR_DRAWS]})
     run = RESULTS["sharded_floor"]["auto"]
     if "floor" in RESULTS:  # phase 3 ran: the same run without a mesh, on the same card
-        run["unsharded_sampler_seconds"] = RESULTS["floor"]["auto"]["sampler_seconds"]
-        emit({"phase": 17, "compare": "sharded_floor/auto vs floor/auto seconds",
-              "sharded": run["sampler_seconds"], "unsharded": run["unsharded_sampler_seconds"]})
+        key = "sampling_ms_per_iteration"
+        run["unsharded_" + key] = RESULTS["floor"]["auto"][key]
+        emit({"phase": 17, "compare": f"sharded_floor/auto vs floor/auto {key}",
+              "sharded": run[key], "unsharded": run["unsharded_" + key]})
 
     # floor ChEES with K5 on the rank's block
     _, _, model = _floor_model()
@@ -2531,9 +2657,11 @@ def _sharded_mcmc(meshes):
 
     # dense mass with a mesh on the conjugate model (K3 in both stages)
     model, truth = conjugate_normal_model()
+    warm, draws = SHARDED_DENSE_DEPTH
     res, run = _run_sample(model, "sharded_dense/auto", "glm_normal_f32",
-                           kernel=NUTS(max_depth=8), mass="dense", num_warmup=500,
-                           num_samples=1000, num_chains=64, key=1, mesh=chain)
+                           kernel=NUTS(max_depth=8), mass="dense", num_warmup=warm,
+                           num_samples=draws, num_chains=64, key=1, mesh=chain)
+    run["reduced"] = {"num_warmup": [500, warm], "num_samples": [1000, draws]}
     RESULTS["sharded_dense"] = {"auto": run}
     _check_conjugate(res, run, truth, 17, "sharded_dense/auto")
     check(tuple(res.diagnostics["inv_mass"].shape) == (1, 1), "sharded_dense: not a dense metric")
@@ -2644,6 +2772,430 @@ def phase_sharded():
             dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the port's programs and the suite's cross-cutting checks on the
+# card.  examples/torch/NN_*.py through main() at each example's own sizes;
+# 06 reads scikit-learn's digits, which the card's machine lacks, so it runs
+# in the CPU tests only.  A size cut for time is printed as "reduced":
+# stem -> {size: (the example's, used)}.
+# The whole script read 1186.3 s with every example at its size but 02's, and
+# later ran over its 1200 s on a slow host with 07's and 05's depths halved
+# (PERF.md): 02's trees fill (about 117 leaves a transition at its 64
+# chains; the JAX package's CPU run reads 148 a chain), 118.8 s at 500 +
+# 500, so its NUTS run is cut; 01's, 05's and 07's runs are cut too; and 03
+# does not run here, as phase 11 runs its AR(2) (T=1000, K3) at 512 chains.
+EXAMPLES_ON_CARD = ("01", "02", "04", "05", "07")
+EXAMPLES_NOT_RUN = {"03": "phase 11 runs its AR(2), T=1000, on K3 at 512 chains"}
+EXAMPLE_CUTS = {"01": {"svi_iterations": (2000, 1000), "num_warmup": (500, 250),
+                       "num_samples": (1000, 500)},
+                "02": {"num_warmup": (500, 50), "num_samples": (500, 50),
+                       "svi_iterations": (2000, 1000)},
+                "05": {"iterations": (2000, 500)},
+                "07": {"num_warmup": (1000, 300), "num_samples": (1000, 300)}}
+# the value+grad kernel each example's NUTS run launches once a call
+EXAMPLE_KERNELS = {"01": "glm_normal_f32", "02": "glm_bernoulli_f32"}
+# rerun pairs at the floor (make_logreg_data(1000, 32), 1024 chains), cut
+# from phase 3's 500 + 1000 (bit-identity needs no depth): each pair runs
+# twice at one key
+RERUN_WARMUP, RERUN_DRAWS = 20, 20
+RERUN_SVI_STEPS = 300
+# SBC at tests/test_calibration.py's sizes, at the first of the seeds the
+# CPU tests hold (0, 1, 2); the hierarchy's warmup and draws halved for time
+# ("reduced": 35.6 s at 500 + 511), its draws thinned by 8 to the same 32
+SBC_REPS, SBC_N_OBS, SBC_PRIOR, SBC_LIK = 128, 10, 2.0, 1.0
+SBC_SEEDS = {"nuts": (0,), "chees": (0,), "hierarchy": (0,)}
+SBC_HIERARCHY_WARMUP, SBC_HIERARCHY_DRAWS = 250, 255
+SBC_P_MIN = 0.005
+# the funnel at tests/test_divergences.py's run (16 chains, 500 + 500,
+# NUTS() at max_depth 10), cut for time ("reduced"): NUTS's depth first (at
+# depth 6 it read 53 leaves a draw, 56.1 s, and 313 divergences; at depth 5
+# and 200 + 200, 1), then every engine's warmup and draws (at 150 + 150
+# NUTS read 25 divergences, ChEES 87 and HMC 233)
+FUNNEL_CHAINS, FUNNEL_WARMUP, FUNNEL_DRAWS = 16, 100, 100
+FUNNEL_NUTS_DEPTH = 6
+
+
+def _load_example(stem):
+    import importlib.util
+
+    path = next((HERE / "examples" / "torch").glob(f"{stem}_*.py"))
+    spec = importlib.util.spec_from_file_location(f"torch_example_{stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _example_limits(stem, out, module):
+    """(name, value, "<=" or ">=", limit) for each of the example's
+    reference limits: the closed form (01), corr >= 0.9 (02), the least
+    squares fit (03), the Kalman filter (04), a falling loss (05), Stan's
+    posterior (07)."""
+    import numpy as np
+
+    if stem == "01":
+        mcse = math.sqrt(out["nuts_var"] / out["min_ess"])
+        return [("nuts_mean_err_in_mcse", abs(out["nuts_mean"] - out["analytic_mean"]) / mcse, "<=", 5.0),
+                ("nuts_var_rel_err", abs(out["nuts_var"] / out["analytic_var"] - 1), "<=", 0.1),
+                ("svi_mean_abs_err", abs(out["svi_mean"] - out["analytic_mean"]), "<=", 0.05),
+                ("svi_var_rel_err", abs(out["svi_var"] / out["analytic_var"] - 1), "<=", 0.25),
+                ("r_hat", out["r_hat"], "<=", 1.01)]
+    if stem == "02":
+        return [("corr_nuts_truth", out["corr_nuts_truth"], ">=", 0.9),
+                ("corr_svi_nuts", out["corr_svi_nuts"], ">=", 0.9),
+                ("max_r_hat", out["max_r_hat"], "<=", 1.01)]
+    if stem == "03":
+        return [("coeffs_err_in_sd", float(np.max(np.abs(out["coeffs"] - out["lsq_coeffs"])
+                                                  / out["coeffs_sd"])), "<=", 4.0),
+                ("noise_abs_err", abs(out["noise_scale"] - out["lsq_noise"]), "<=", 0.02),
+                ("max_r_hat", out["max_r_hat"], "<=", 1.01)]
+    if stem == "04":
+        return [("log_marginal_abs_err", abs(out["smc_log_marginal"] - out["kalman_log_marginal"]),
+                 "<=", 0.5),
+                ("max_filter_mean_error", out["max_filter_mean_error"], "<=", 0.08),
+                ("min_ess", out["min_ess"], ">=", 100.0)]
+    if stem == "05":
+        return [("loss_last_over_first_tenth", out["loss_last_tenth_mean"]
+                 / out["loss_first_tenth_mean"], "<=", 0.9)]
+    # 07: Stan's mu 4.4 and tau 3.6, within 5 MCSE plus the 0.05 of their rounding
+    return [(f"{n}_abs_err_over_limit", abs(out[f"{n}_mean"] - ref)
+             / (5 * out[f"{n}_sd"] / math.sqrt(out[f"{n}_ess"]) + 0.05), "<=", 1.0)
+            for n, ref in (("mu", module.STAN_MU), ("tau", module.STAN_TAU))] + [
+            ("r_hat_mu", out["r_hat_mu"], "<=", 1.01)]
+
+
+def _jsonable(v):
+    import numpy as np
+
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, (np.floating, np.integer)):
+        return v.item()
+    return v
+
+
+def _phase18_examples():
+    import torch
+
+    for stem, why in EXAMPLES_NOT_RUN.items():
+        emit({"phase": 18, "example": stem, "reduced": f"not run: {why}"})
+    for stem in EXAMPLES_ON_CARD:
+        module = _load_example(stem)
+        sizes = {k: used for k, (_, used) in EXAMPLE_CUTS.get(stem, {}).items()}
+        _reset_launches()
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = module.main(device="cuda", **sizes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in _all_kernels().items()}
+        kname = EXAMPLE_KERNELS.get(stem)
+        limits = _example_limits(stem, out, module)
+        line = {"phase": 18, "example": stem, "file": f"examples/torch/{Path(module.__file__).name}",
+                "wall_seconds": wall, "launches": launches,
+                "numbers": {k: _jsonable(v) for k, v in out.items()},
+                "limits": [{"name": n, "value": v, "op": op, "limit": lim,
+                            "ok": bool(v <= lim if op == "<=" else v >= lim)}
+                           for n, v, op, lim in limits]}
+        if stem in EXAMPLE_CUTS:
+            line["reduced"] = {k: list(v) for k, v in EXAMPLE_CUTS[stem].items()}
+        emit(line)
+        RESULTS.setdefault("examples", {})[stem] = line
+        for name, count in launches.items():
+            want = out["value_and_grad_calls"] if name == kname else 0
+            check(count == want, f"example {stem}: {name} launched {count} times, expected {want}")
+        if kname is not None:
+            check(out["fused_family"] is not None and out["value_and_grad_calls"] > 0,
+                  f"example {stem}: the fused potential did not run")
+        for lim in line["limits"]:
+            check(lim["ok"], f"example {stem}: {lim['name']} {lim['value']} not {lim['op']} {lim['limit']}")
+
+
+def _nondeterminism_probe(fn):
+    """The operations torch names as nondeterministic while ``fn`` runs
+    under ``use_deterministic_algorithms(True, warn_only=True)``."""
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).splitlines()[0] for w in caught})
+
+
+def _rerun_line(tag, first, second, pairs, rerun):
+    """A pair's line; fails, after naming what torch calls nondeterministic
+    in one more run, unless every pair of tensors is equal bit for bit."""
+    import torch
+
+    same = {k: bool(torch.equal(a, b)) for k, (a, b) in pairs.items()}
+    line = {"phase": 18, "rerun": tag, "bit_identical": all(same.values()), "compared": same,
+            **first, "second": second}
+    if not line["bit_identical"]:
+        line["nondeterministic_ops"] = _nondeterminism_probe(rerun)
+    emit(line)
+    RESULTS.setdefault("reruns", {})[tag] = line
+    check(line["bit_identical"], f"rerun {tag}: two runs at one key differ: {same}")
+
+
+def _rerun_sample(tag, kname, trans=None, **kw):
+    """Two floor runs at one key through _run_sample (launch checks each)."""
+    _, _, model = _floor_model()
+    base = dict(num_warmup=RERUN_WARMUP, num_samples=RERUN_DRAWS, num_chains=1024, key=0)
+    runs = [_run_sample(model, f"reruns/{tag}", kname, transition_kernel=trans, **base, **kw)
+            for _ in range(2)]
+    (r1, i1), (r2, i2) = runs
+    keep = ("launches", "sampler_seconds", "value_and_grad_calls", "fused_family", "fused_dtype",
+            "fused_leapfrog", "leaves_per_draw", "divergences")
+    first = {k: i1[k] for k in keep}
+    first.update({"num_warmup": RERUN_WARMUP, "num_samples": RERUN_DRAWS, "chains": 1024,
+                  "reduced": {"num_warmup": [500, RERUN_WARMUP], "num_samples": [1000, RERUN_DRAWS]}})
+    second = {k: i2[k] for k in ("launches", "sampler_seconds", "value_and_grad_calls")}
+    for k in ("value_and_grad_graphed", "value_and_grad_captures", "value_and_grad_capture_seconds"):
+        first[k], second[k] = r1.diagnostics[k], r2.diagnostics[k]
+    pairs = {"samples": (r1.samples["w"], r2.samples["w"]),
+             "accept_prob": (r1.stats["accept_prob"], r2.stats["accept_prob"])}
+    _rerun_line(tag, first, second, pairs,
+                lambda: _run_sample(model, f"reruns/{tag}", kname, transition_kernel=trans,
+                                    **base, **kw))
+    if r1.diagnostics["value_and_grad_graphed"]:
+        check(second["value_and_grad_captures"] == 0 and second["value_and_grad_capture_seconds"] == 0,
+              f"rerun {tag}: the second call captured {second['value_and_grad_captures']} graphs")
+        check(first["value_and_grad_captures"] > 0, f"rerun {tag}: the first call captured nothing")
+
+
+def _phase18_reruns():
+    import numpy as np
+    import torch
+    from brancher_torch.inference import HMC, NUTS, ChEESHMC, smc_sample
+    from brancher_torch.models import LGSSMParams, lgssm_state_space, make_lgssm_data
+    from brancher_torch.ops import glm
+
+    _rerun_sample("nuts_auto", "glm_bernoulli_f32", kernel=NUTS(max_depth=8), fused_potential="auto")
+    _rerun_sample("nuts_bf16", "glm_bernoulli_bf16", kernel=NUTS(max_depth=8), fused_potential="bf16")
+    _rerun_sample("nuts_pipelined", "glm_bernoulli_f32", kernel=NUTS(max_depth=8, pipelined=True))
+    # the autodiff value+grad, replayed from a CUDA graph: the second call
+    # reuses the first one's graphs (captures 0, 0 s)
+    _rerun_sample("nuts_off", None, kernel=NUTS(max_depth=8), fused_potential="off")
+    _rerun_sample("hmc8_fused", "glm_bernoulli_f32", "leapfrog_f32",
+                  kernel=HMC(num_integration_steps=8), fused_leapfrog=True)
+    _rerun_sample("chees_fused", "glm_bernoulli_f32", "leapfrog_f32", kernel=ChEESHMC(),
+                  fused_leapfrog=True)
+
+    # the bootstrap filter at example 04's config
+    params = LGSSMParams(a=0.9, q=0.3, c=1.0, r=0.5)
+    _, ys = make_lgssm_data(200, params)
+    ssm = lgssm_state_space(params)
+    (a, b), info = _particle_run("reruns/bootstrap", lambda: [smc_sample(
+        ssm, ys, num_particles=8192, key=0, device="cuda") for _ in range(2)], phase=18)
+    _rerun_line("bootstrap", {**info, "T": 200, "particles": 8192}, {},
+                {f: (getattr(a, f), getattr(b, f))
+                 for f in ("log_marginal", "particles", "weights", "filter_means", "ess_history")},
+                lambda: smc_sample(ssm, ys, num_particles=8192, key=0, device="cuda"))
+
+    # floor SVI, RERUN_SVI_STEPS steps
+    _, _, model = _floor_model()
+    svi = [_run_svi("reruns/svi", model, RERUN_SVI_STEPS, False, number_samples=16, lr=0.02, key=7)
+           for _ in range(2)]
+    (s1, i1), (s2, i2) = svi
+    _rerun_line("svi", {"launches": i1["launches"], "wall_seconds": i1["wall_seconds"],
+                        "number_iterations": RERUN_SVI_STEPS,
+                        "reduced": {"number_iterations": [1500, RERUN_SVI_STEPS]}},
+                {"wall_seconds": i2["wall_seconds"]},
+                {"loss_curve": (torch.as_tensor(np.asarray(s1.loss_curve)),
+                                torch.as_tensor(np.asarray(s2.loss_curve))),
+                 "q_loc": (s1.params["q"]["loc"].detach(), s2.params["q"]["loc"].detach())},
+                lambda: _run_svi("reruns/svi", model, RERUN_SVI_STEPS, False, number_samples=16,
+                                 lr=0.02, key=7))
+
+    # the softmax family's scatter_add (ops/glm.py: one contributor per
+    # cell), at phase 14's softmax shape: the same bits on two calls
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    c, n, m, k = 256, 2000, 33, 10
+    z = torch.randn((c, m * k), generator=gen, device="cuda")
+    x = torch.randn((n, m), generator=gen, device="cuda")
+    y1h = torch.nn.functional.one_hot(torch.randint(0, k, (n,), generator=gen, device="cuda"), k).float()
+    cells = torch.arange(m * k, device="cuda")
+    args = (z, x, y1h, torch.zeros((n, k), device="cuda"), cells // k, cells % k,
+            torch.zeros(m * k, device="cuda"), torch.ones(m * k, device="cuda"))
+    v1, g1 = glm.categorical_vg_reference(*args)
+    v2, g2 = glm.categorical_vg_reference(*args)
+    _rerun_line("categorical_vg", {"shape": [c, n, m, k]}, {},
+                {"val": (v1, v2), "grad": (g1, g2)}, lambda: glm.categorical_vg_reference(*args))
+
+
+def _chisquare_p(ranks, n_draws):
+    import numpy as np
+    import scipy.stats as st
+
+    counts = np.bincount(ranks, minlength=n_draws + 1)
+    return float(st.chisquare(counts)[1]), counts.tolist()
+
+
+def _sbc_conjugate(seed):
+    """tests/test_torch_calibration.py's conjugate target: (mu_true, data,
+    value+grad, z0) on the card."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    mu_true = SBC_PRIOR * rs.normal(size=SBC_REPS)
+    data = mu_true[:, None] + SBC_LIK * rs.normal(size=(SBC_REPS, SBC_N_OBS))
+    z0 = torch.as_tensor(SBC_PRIOR * rs.normal(size=(SBC_REPS, 1)), dtype=torch.float32, device="cuda")
+    d = torch.as_tensor(data, dtype=torch.float32, device="cuda")
+
+    def vg(z):
+        mu = z[:, 0]
+        lp = -0.5 * (mu / SBC_PRIOR) ** 2
+        ll = -0.5 * torch.sum((d - mu[:, None]) ** 2, -1) / SBC_LIK**2
+        grad = -mu / SBC_PRIOR**2 + torch.sum(d - mu[:, None], -1) / SBC_LIK**2
+        return lp + ll, grad[:, None]
+
+    return torch.as_tensor(mu_true, dtype=torch.float32), data, vg, z0
+
+
+def _sbc_hierarchy(seed):
+    """tests/test_torch_calibration.py's non-centered hierarchy, its
+    autograd value+grad replayed from a CUDA graph."""
+    import numpy as np
+    import torch
+    from brancher_torch.inference.hmc import GraphedValueAndGrad
+
+    j_n, n_obs, s_tau, sigma = 4, 5, 0.75, 1.0
+    rs = np.random.RandomState(seed)
+    u_true = s_tau * rs.normal(size=SBC_REPS)
+    raw_true = rs.normal(size=(SBC_REPS, j_n))
+    theta_true = np.exp(u_true)[:, None] * raw_true
+    data = torch.as_tensor(theta_true[:, :, None] + sigma * rs.normal(size=(SBC_REPS, j_n, n_obs)),
+                           dtype=torch.float32, device="cuda")
+    z0 = torch.as_tensor(0.1 * rs.normal(size=(SBC_REPS, 1 + j_n)), dtype=torch.float32,
+                         device="cuda")
+
+    def logp_all(z):
+        u, raw = z[:, 0], z[:, 1:]
+        theta = torch.exp(u)[:, None] * raw
+        lp = -0.5 * (u / s_tau) ** 2 - 0.5 * torch.sum(raw**2, -1)
+        return lp - 0.5 * torch.sum((data - theta[:, :, None]) ** 2, (-1, -2)) / sigma**2
+
+    def vg(z):
+        with torch.enable_grad():
+            zg = z.detach().requires_grad_(True)
+            val = logp_all(zg)
+            grad, = torch.autograd.grad(val.sum(), zg)
+        return val.detach(), grad
+
+    return u_true, theta_true, GraphedValueAndGrad(vg), z0
+
+
+def _phase18_sbc():
+    import numpy as np
+    import torch
+    from brancher_torch.inference.chees import chees_hmc
+    from brancher_torch.inference.vectorized_nuts import nuts_batched
+
+    post_var = 1.0 / (1 / SBC_PRIOR**2 + SBC_N_OBS / SBC_LIK**2)
+    for engine, seeds in SBC_SEEDS.items():
+        for seed in seeds:
+            _reset_launches()
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            t0 = time.perf_counter()
+            line = {"phase": 18, "sbc": engine, "seed": seed, "reps": SBC_REPS}
+            if engine == "hierarchy":
+                u_true, theta_true, vg, z0 = _sbc_hierarchy(seed)
+                res = nuts_batched(vg, z0, num_warmup=SBC_HIERARCHY_WARMUP,
+                                   num_samples=SBC_HIERARCHY_DRAWS, generator=gen, max_depth=8,
+                                   target_accept=0.9)
+                thin = res.samples[:, ::(SBC_HIERARCHY_DRAWS + 1) // 32].cpu()
+                ranks_u = (thin[:, :, 0] < torch.as_tensor(u_true)[:, None]).sum(1).numpy()
+                theta1 = torch.exp(thin[:, :, 0]) * thin[:, :, 1]
+                ranks_t = (theta1 < torch.as_tensor(theta_true[:, 0])[:, None]).sum(1).numpy()
+                line["p_u"], line["counts_u"] = _chisquare_p(ranks_u, 32)
+                line["p_theta1"], line["counts_theta1"] = _chisquare_p(ranks_t, 32)
+                line.update({"warmup": SBC_HIERARCHY_WARMUP, "draws": SBC_HIERARCHY_DRAWS,
+                             "max_depth": 8, "target_accept": 0.9,
+                             "p_values": [line["p_u"], line["p_theta1"]]})
+                if (SBC_HIERARCHY_WARMUP, SBC_HIERARCHY_DRAWS) != (500, 511):
+                    line["reduced"] = {"num_warmup": [500, SBC_HIERARCHY_WARMUP],
+                                       "num_samples": [511, SBC_HIERARCHY_DRAWS]}
+            else:
+                mu_true, data, vg, z0 = _sbc_conjugate(seed)
+                if engine == "nuts":
+                    res = nuts_batched(vg, z0, num_warmup=300, num_samples=255, generator=gen,
+                                       max_depth=6)
+                    line.update({"warmup": 300, "draws": 255, "max_depth": 6})
+                else:
+                    res = chees_hmc(vg, z0, num_warmup=400, num_samples=255, generator=gen)
+                    line.update({"warmup": 400, "draws": 255,
+                                 "divergences": int(res.diverging.sum())})
+                draws = res.samples[:, :, 0].cpu()
+                ranks = (draws[:, ::8] < mu_true[:, None]).sum(1).numpy()
+                line["p"], line["counts"] = _chisquare_p(ranks, 32)
+                line["p_values"] = [line["p"]]
+                analytic = post_var * data.sum(-1) / SBC_LIK**2
+                line["median_mean_err"] = float(np.median(np.abs(draws.mean(-1).numpy() - analytic)))
+                line["median_mean_err_limit"] = 3 * math.sqrt(post_var / 32)
+            torch.cuda.synchronize()
+            line["seconds"] = time.perf_counter() - t0
+            line["launches"] = {name: k.launches for name, k in _all_kernels().items()}
+            emit(line)
+            RESULTS.setdefault("sbc", {})[f"{engine}/{seed}"] = line
+            check(not any(line["launches"].values()), f"sbc {engine}: a kernel launched")
+            check(all(p > SBC_P_MIN for p in line["p_values"]),
+                  f"sbc {engine} seed {seed}: p {line['p_values']} <= {SBC_P_MIN}")
+            if "median_mean_err" in line:
+                check(line["median_mean_err"] < line["median_mean_err_limit"],
+                      f"sbc {engine} seed {seed}: posterior means off the closed form")
+            if engine == "chees":
+                check(line["divergences"] == 0, f"sbc chees seed {seed}: divergences")
+
+
+def _phase18_funnel():
+    import torch
+    import brancher_torch.functions as BF
+    from brancher_torch import NormalVariable, ProbabilisticModel
+    from brancher_torch.inference import HMC, NUTS, ChEESHMC
+
+    v = NormalVariable(0.0, 3.0, "v")
+    x = NormalVariable(torch.zeros(9), BF.exp(v / 2.0), "x")
+    model = ProbabilisticModel([v, x])
+    for name, kern in (("nuts", NUTS(max_depth=FUNNEL_NUTS_DEPTH)), ("chees", ChEESHMC()),
+                       ("hmc", HMC())):
+        res, info = _run_sample(model, f"funnel/{name}", None, kernel=kern,
+                                num_warmup=FUNNEL_WARMUP, num_samples=FUNNEL_DRAWS,
+                                num_chains=FUNNEL_CHAINS, key=0)
+        info.update({"phase": 18, "funnel": name, "chains": FUNNEL_CHAINS,
+                     "num_warmup": FUNNEL_WARMUP, "num_samples": FUNNEL_DRAWS,
+                     "diverging_shape_ok": res.stats["diverging"].shape == res.stats["accept_prob"].shape})
+        reduced = {}
+        if name == "nuts" and FUNNEL_NUTS_DEPTH != 10:
+            reduced["max_depth"] = [10, FUNNEL_NUTS_DEPTH]
+        if (FUNNEL_WARMUP, FUNNEL_DRAWS) != (500, 500):
+            reduced.update({"num_warmup": [500, FUNNEL_WARMUP], "num_samples": [500, FUNNEL_DRAWS]})
+        if reduced:
+            info["reduced"] = reduced
+        emit(info)
+        RESULTS.setdefault("funnel", {})[name] = info
+        check(info["diverging_shape_ok"], f"funnel/{name}: diverging shaped unlike accept_prob")
+        check(info["divergences"] > 0, f"funnel/{name}: no divergence on the funnel")
+
+
+def phase_programs():
+    import torch
+
+    for part in (_phase18_examples, _phase18_reruns, _phase18_sbc, _phase18_funnel):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        part()
+        RESULTS.setdefault("phase18_seconds", {})[part.__name__] = time.perf_counter() - t0
+    emit({"phase": 18, "part_seconds": RESULTS["phase18_seconds"],
+          "nvidia_smi": RESULTS["environment"]["nvidia_smi"]})
+
+
 def _main_launches():
     totals = {name: 0 for name in _all_kernels()}
     for section in ("floor", "conjugate", "mxu", "mxu_linreg", "chees", "hmc_conjugate",
@@ -2651,7 +3203,7 @@ def _main_launches():
                     "particles", "ar2_dense", "ar2_pipelined", "floor_pipelined", "floor_vmap",
                     "conjugate_vmap", "ard_pipelined", "zoo", "enum", "aux", "sharded_floor",
                     "sharded_chees", "sharded_shard_map", "sharded_dense", "sharded_svi",
-                    "sharded_particles"):
+                    "sharded_particles", "examples", "reruns", "sbc", "funnel"):
         for run in RESULTS.get(section, {}).values():
             for name, count in run.get("launches", {}).items():
                 totals[name] += count
@@ -2707,12 +3259,12 @@ def summary_line():
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,
          5: phase_mxu, 6: phase_chees, 7: phase_hmc, 8: phase_ard, 9: phase_svi_floor,
          10: phase_vae, 11: phase_ar, 12: phase_particles, 13: phase_modes, 14: phase_zoo,
-         15: phase_enumeration, 16: phase_aux, 17: phase_sharded}
+         15: phase_enumeration, 16: phase_aux, 17: phase_sharded, 18: phase_programs}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="", help="comma-separated subset of 1-17 (default: all)")
+    parser.add_argument("--phases", default="", help="comma-separated subset of 1-18 (default: all)")
     args = parser.parse_args()
     try:
         import torch
@@ -2739,7 +3291,7 @@ def main() -> int:
         STEPS[num]()
         RESULTS.setdefault("phase_seconds", {})[num] = time.perf_counter() - t
     RESULTS["total_seconds"] = time.perf_counter() - t0
-    emit({"phase": 18, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
+    emit({"phase": 19, "phase_seconds": RESULTS["phase_seconds"], "total_seconds": RESULTS["total_seconds"]})
     if chosen != sorted(STEPS):
         return 0  # a subset: no summary, no "ok" line
     emit(summary_line())

@@ -1,6 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor brancher_tpu
-and builds nothing, and no module of it (nor chip_smoke.py) imports the
-JAX package."""
+and builds nothing, and no module of it (nor chip_smoke.py, nor an example
+or tutorial of the port) imports the JAX package."""
 import ast
 import json
 import subprocess
@@ -39,9 +39,10 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {"jax": False, "tpu": False, "loaded": []}
 
 
-def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
+def _jax_imports(paths):
+    """``file: module`` for every import of the JAX stack or brancher_tpu."""
     offenders = []
-    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -52,6 +53,21 @@ def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
             for name in names:
                 if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "brancher_tpu"):
                     offenders.append(f"{path.relative_to(ROOT)}: {name}")
+    return offenders
+
+
+def test_no_example_or_tutorial_of_the_port_imports_jax_or_brancher_tpu():
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    tutorials = sorted((ROOT / "tutorials" / "torch").glob("*.py"))
+    # the seven examples and eight tutorials of the JAX package, by name
+    assert [p.name for p in examples] == sorted(p.name for p in (ROOT / "examples").glob("0*.py"))
+    assert [p.name for p in tutorials] == sorted(p.name for p in (ROOT / "tutorials").glob("0*.py"))
+    offenders = _jax_imports(examples + tutorials)
+    assert not offenders, offenders
+
+
+def test_no_module_of_the_port_imports_jax_or_brancher_tpu():
+    offenders = _jax_imports(sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"])
     assert not offenders, offenders
     for source in ("glm_vg.cu", "leapfrog.cu"):
         assert (PORT / "csrc" / source).exists()

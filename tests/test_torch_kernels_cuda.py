@@ -445,6 +445,26 @@ def test_graphed_enumerated_value_and_grad_matches_eager(cuda):
     assert len(graphed.graphs) == 1 and not graphed.eager_shapes
 
 
+def test_sample_twice_replays_the_first_calls_graphs(cuda):
+    """A second ``sample()`` on the same model and data takes the graphed
+    value+grad of the first from the compiled model: it captures no graph
+    (0 new graphs, 0 s) and gives the first call's bits."""
+    from brancher_torch.inference import NUTS, sample
+
+    model = _sequence_hmm()
+    kw = dict(kernel=NUTS(max_depth=5), num_samples=20, num_warmup=20, num_chains=16, key=0,
+              device=cuda, enumerate_discrete=True)
+    r1 = sample(model, **kw)
+    r2 = sample(model, **kw)
+    d1, d2 = r1.diagnostics, r2.diagnostics
+    assert d1["value_and_grad_graphed"] and d2["value_and_grad_graphed"]
+    assert d1["value_and_grad_captures"] >= 1 and d1["value_and_grad_capture_seconds"] > 0
+    assert d2["value_and_grad_captures"] == 0 and d2["value_and_grad_capture_seconds"] == 0
+    for name in r1.samples:
+        assert torch.equal(r1.samples[name], r2.samples[name])
+    assert torch.equal(r1.stats["accept_prob"], r2.stats["accept_prob"])
+
+
 def test_a_value_and_grad_that_waits_on_the_card_runs_eagerly(cuda):
     from brancher_torch.inference.hmc import GraphedValueAndGrad
 

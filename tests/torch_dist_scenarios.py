@@ -1,6 +1,6 @@
 """The sharded runs the gloo groups of ``tests/torch_dist.py`` make: the
-MCMC and SVI suite ("mcmc", two ranks) and the particle suite ("smc", two
-and four ranks).  Each scenario takes (world, rank) and returns a dict
+MCMC and SVI suite ("mcmc", two ranks), the particle suite ("smc", two
+and four ranks) and the reruns at one key ("determinism", two ranks).  Each scenario takes (world, rank) and returns a dict
 (None: not run at this world size); keys starting with "local_" hold
 what is this rank's own (its value+grad calls), the rest must be the same
 on every rank.  Imports torch and brancher_torch only."""
@@ -349,3 +349,64 @@ def _pmmh_both_scenario(world, rank):
     if world != 4:
         return None
     return _pmmh(make_mesh({"chain": 2, "particle": 2}, device="cpu"), "both", 128, 8)
+
+
+# ---------------------------------------------------------------------------
+# reruns at one key (two ranks): tests/test_torch_determinism.py
+def determinism_logreg_model(n=50, d=4, seed=0):
+    """tests/test_determinism.py::_logreg_model in the port's DSL."""
+    import brancher_torch.functions as BF
+    from brancher_torch import BernoulliVariable, NormalVariable, ProbabilisticModel
+
+    rng = np.random.RandomState(seed)
+    x = rng.normal(0, 1, size=(n, d)).astype(np.float32)
+    w_true = rng.normal(0, 1, size=(d,)).astype(np.float32)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-x @ w_true))).astype(np.float32)
+    w = NormalVariable(np.zeros(d, np.float32), np.ones(d, np.float32), "w")
+    obs = BernoulliVariable(logits=BF.matmul(torch.as_tensor(x), w), name="y")
+    obs.observe(y)
+    return ProbabilisticModel([obs])
+
+
+CONDITIONED_N = 64
+
+
+def conditioned_data():
+    """tests/test_determinism.py::test_eager_sharded_conditioned_bit_identical's x."""
+    return np.random.RandomState(3).randn(CONDITIONED_N).astype(np.float32)
+
+
+@register("determinism")
+def _sharded_reruns_scenario(world, rank):
+    """Sharded NUTS three times at one key: twice by default, once with
+    ``jit_runner=False``."""
+    from brancher_torch.inference import NUTS, sample
+    from brancher_torch.parallel import chain_mesh
+
+    model = determinism_logreg_model()
+    kw = dict(kernel=NUTS(max_depth=6), num_samples=60, num_warmup=60, num_chains=8, key=0,
+              mesh=chain_mesh(device="cpu"))
+    runs = [sample(model, **kw), sample(model, **kw), sample(model, jit_runner=False, **kw)]
+    out = {"family": runs[0].diagnostics["fused_family"]}
+    for i, r in enumerate(runs):
+        out[f"w{i}"], out[f"accept{i}"] = r.samples["w"], r.stats["accept_prob"]
+    return out
+
+
+@register("determinism")
+def _conditioned_reruns_scenario(world, rank):
+    """The conditioned (``given=``) sharded run with ``jit_runner=False``,
+    twice at one key."""
+    from brancher_torch import NormalVariable, ProbabilisticModel
+    from brancher_torch.inference import NUTS, sample
+    from brancher_torch.parallel import chain_mesh
+
+    mu = NormalVariable(0.0, 1.0, "mu")
+    x = NormalVariable(mu, 1.0, "x", plate_shape=(CONDITIONED_N,))
+    model = ProbabilisticModel([x])
+    kw = dict(kernel=NUTS(max_depth=6), num_samples=60, num_warmup=60, num_chains=8, key=0,
+              mesh=chain_mesh(device="cpu"), jit_runner=False,
+              given={"x": torch.as_tensor(conditioned_data())}, given_key="d1")
+    r1, r2 = sample(model, **kw), sample(model, **kw)
+    return {"mu1": r1.samples["mu"], "mu2": r2.samples["mu"],
+            "accept1": r1.stats["accept_prob"], "accept2": r2.stats["accept_prob"]}
