@@ -28,6 +28,8 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from .. import metrics as _metrics
+
 Tensor = torch.Tensor
 VG = Callable[[Tensor], Tuple[Tensor, Tensor]]
 
@@ -66,7 +68,8 @@ class GraphedValueAndGrad:
     capture (one that waits on the card, for example) runs eagerly at that
     shape from then on (``eager_shapes``).  Inputs on the CPU run eagerly.
     ``capture_seconds`` sums the wall time of the captures, warm-up calls
-    included, each ended by a device synchronize."""
+    included, each ended by a device synchronize; with ``metrics.tracing()``
+    on, each capture is a ``vg.capture`` span of that interval."""
 
     def __init__(self, fn: VG):
         self.fn = fn
@@ -82,10 +85,14 @@ class GraphedValueAndGrad:
             return self.fn(z)
         entry = self.graphs.get(key)
         if entry is None:
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             entry = self._capture(z, key)
             torch.cuda.synchronize(z.device)
-            self.capture_seconds += time.perf_counter() - t0
+            t1 = time.perf_counter_ns()
+            self.capture_seconds += (t1 - t0) * 1e-9
+            tr = _metrics._tracer
+            if tr is not None:
+                tr.span("vg.capture", t0, t1)
             if entry is None:
                 return self.fn(z)
         graph, static_z, v, g = entry

@@ -79,6 +79,14 @@ statistics of the gathered draws and runs stage B sharded (``:819`` and
 ``:863``); the pipelined engine's warmup is sharded and its draws need no
 collective.  ``chain_method="vmap"`` ignores ``mesh``, as in JAX.
 ``value_and_grad_calls`` and ``host_syncs`` count this rank's.
+
+With ``metrics.tracing()`` on, a call is a ``sample`` span with a call id
+of its own, cut into ``sample.prepare`` (with ``sample.recognize``, the
+GLM recognizer's probe and the fused value+grad's build, where the call
+asks for them), ``sample.engine`` (whose duration
+is ``sampler_seconds``), ``sample.constrain`` and ``sample.diagnostics``;
+the engine's counters on the device are read once, at the end of
+``sample.engine``.  Off, ``sampler_seconds`` is timed on the same stamps.
 """
 from __future__ import annotations
 
@@ -91,6 +99,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import metrics as _metrics
 from ..compiler import CompiledModel
 from ..config import make_generator
 from ..parallel.collectives import Axis, all_gather, fold_in, local_block, mesh_axis
@@ -456,6 +465,7 @@ def _run_dense(kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init
     return zs, stats, info, ckpt, stage_a
 
 
+@_metrics.traced_call("sample")
 def sample(
     model,
     kernel=None,
@@ -525,6 +535,9 @@ def sample(
     engine, ended by a device synchronize.
     """
     del jit_runner, given_key
+    tr = _metrics._tracer
+    if tr is not None:
+        stage = tr.open("sample.prepare")
     if chain_method not in ("vectorized", "vmap", "shard_map"):
         raise ValueError(f"unknown chain_method {chain_method!r}")
     axis = None
@@ -579,6 +592,8 @@ def sample(
     fam_name, bf16_active, leapfrog_fn = None, False, None
     if (value_and_grad_fn is None and not per_chain and fused_potential in ("auto", "bf16")
             and params is comp.initial_params and not given):
+        if tr is not None:
+            recognize = tr.open("sample.recognize")
         if not hasattr(comp, "_fused_family_cache"):
             from ..ops.glm import recognize_fused_family
 
@@ -600,6 +615,8 @@ def sample(
                 if not hasattr(comp, "_fused_leapfrog_built"):
                     comp._fused_leapfrog_built = fam.leapfrog()
                 leapfrog_fn = comp._fused_leapfrog_built
+        if tr is not None:
+            tr.close(recognize)
     if fused_potential == "bf16" and not bf16_active:
         warnings.warn(
             "fused_potential='bf16' was requested but the bf16 fused "
@@ -685,7 +702,10 @@ def sample(
     run_gen = gen if axis is None else fold_in(gen, axis.index)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    t_engine = time.perf_counter()
+    t_engine = time.perf_counter_ns()
+    if tr is not None:
+        tr.close(stage, t_engine)
+        stage = tr.open("sample.engine", t_engine)
     dense_ckpt, stage_a = None, None
     if per_chain:
         zs, stats, info = _run_single_chain(
@@ -702,7 +722,12 @@ def sample(
             axis=axis)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    sampler_seconds = time.perf_counter() - t_engine
+    t_end = time.perf_counter_ns()
+    sampler_seconds = (t_end - t_engine) * 1e-9
+    if tr is not None:
+        tr.close(stage, t_end)
+        tr.flush()
+        stage = tr.open("sample.constrain")
     # K5 ran when the engine integrated with leapfrog_fn (NUTS, the
     # per-chain engines and dense mass take none; ChEES drops it under its
     # own dense mass) and that is K5's wrapper on the card
@@ -742,6 +767,9 @@ def sample(
         flat_vals = torch.func.vmap(one)(zs.reshape(c * s, dim))
     samples = {k: v.reshape((c, s) + tuple(v.shape[1:])) for k, v in flat_vals.items()}
 
+    if tr is not None:
+        tr.close(stage)
+        stage = tr.open("sample.diagnostics")
     diagnostics: Dict[str, Any] = {
         "num_divergences": int(stats["diverging"].sum()),
         "mean_accept_prob": float(stats["accept_prob"].mean()),
@@ -809,4 +837,6 @@ def sample(
     if dense_ckpt is not None:
         resume.update(dense_ckpt)
     diagnostics["resume_state"] = resume
+    if tr is not None:
+        tr.close(stage)
     return MCMCResult(samples, stats, diagnostics)

@@ -37,6 +37,13 @@ summed over ranks (one all-reduce at the window's end: the sums are
 linear, so this is JAX's psum of each rank's running sums).  The tree's
 loop and the pipelined loop run no collective, since each rank's loop
 ends on its own chains' U-turns.
+
+With ``metrics.tracing()`` on, the lockstep engine records its spans and
+counters (``nuts.warmup``, ``nuts.window``, ``nuts.draws``, ``nuts.leaf``,
+``nuts.sync``; ``nuts.leaves``, ``nuts.live_leaves``, ``nuts.depth_hist``:
+``metrics.tracing``'s docstring).  A transition reads the recorder once;
+off, each point in its loop is one ``is None`` test.  The counters are
+summed on the device and change no number the engine computes.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import metrics as _metrics
 from .adaptation import (
     build_warmup_schedule, da_init, da_restart, da_update, diag_mass_update, pmean_if, psum_if,
 )
@@ -135,6 +143,7 @@ def nuts_transition_batched(
     ``rng`` provides the randomness (see ``TorchNutsRandom``)."""
     c, d = z.shape
     kdim = max_depth + 1
+    tr = _metrics._tracer
     r0 = rng.momentum(z) / torch.sqrt(inv_mass)[None, :]
     h0 = -val + _ke(r0, inv_mass)
 
@@ -164,8 +173,14 @@ def nuts_transition_batched(
     syncs = 0
     while n < max_n:
         syncs += 1
+        if tr is not None:
+            t_sync = time.perf_counter_ns()
         if not bool(active.any()):
+            if tr is not None:
+                tr.span("nuts.sync", t_sync, time.perf_counter_ns())
             break
+        if tr is not None:
+            t_leaf = time.perf_counter_ns()
         # static-schedule metadata (host ints)
         depth = n.bit_length() - 1
         m = n - (1 << depth)
@@ -257,11 +272,40 @@ def nuts_transition_batched(
             full_turn = _turning(r_sum, left_r, right_r, inv_mass)
             # deactivate: failed subtree (discarded) or full-tree U-turn
             active = active & ~s_failed & ~(merging & full_turn)
+        if tr is not None:
+            tr.span("nuts.sync", t_sync, t_leaf,
+                    parent=tr.span("nuts.leaf", t_sync, time.perf_counter_ns()))
         n += 1
 
+    if tr is not None:
+        _count_tree(tr, n - 1, cnt, kdim)
     accept_prob = sum_acc / torch.clamp(cnt, min=1.0)
     return Transition(prop_z, prop_val, prop_grad, accept_prob, diverging,
                       n - 1, torch.mean(cnt), syncs)
+
+
+def _count_tree(tr, leaves: int, cnt: Tensor, kdim: int) -> None:
+    """Adds a lockstep tree to the recorder's counters: its leaves, the sum
+    of its chains' live leaves, and each chain's own depth.  A chain's live
+    leaves fill every doubling before the one it stopped in, so its depth
+    (the doublings it ran) is the number of powers of two up to its count;
+    compared in floats (exact for counts under 2**24), so that nothing is
+    read from the device."""
+    tr.count("nuts.leaves", leaves)
+    tr.count("nuts.live_leaves", cnt.to(torch.int64).sum())
+    pow2 = torch.exp2(torch.arange(kdim, device=cnt.device, dtype=cnt.dtype))
+    depth = (cnt[:, None] >= pow2[None, :]).sum(1)
+    tr.count("nuts.depth_hist",
+             (depth[:, None] == torch.arange(kdim, device=cnt.device)[None, :]).sum(0))
+
+
+def _warmup_windows(in_slow, window_end) -> list:
+    """[(start, stop)] iterations of each adaptation window of a warmup
+    schedule: the initial buffer, each slow window, the terminal buffer."""
+    cuts = [i + 1 for i in range(len(in_slow) - 1)
+            if window_end[i] or in_slow[i] != in_slow[i + 1]]
+    edges = [0] + cuts + [len(in_slow)] if len(in_slow) else []
+    return list(zip(edges, edges[1:]))
 
 
 def _pipelined_sampling(
@@ -479,6 +523,7 @@ def nuts_batched(
     count is reported as the amortised iterations a draw."""
     c, d = z0.shape
     dtype, dev = z0.dtype, z0.device
+    tr = _metrics._tracer
     rng = TorchNutsRandom(generator) if rng is None else rng
     z, (val, grad) = z0, value_and_grad_fn(z0)
     in_slow, window_end = build_warmup_schedule(num_warmup)
@@ -497,37 +542,51 @@ def nuts_batched(
     n_acc = 0
     warmup_leapfrog = 0
     syncs = 0
-    for i in range(num_warmup):
-        t = transition(z, val, grad, torch.exp(da.log_step), inv_mass)
-        z, val, grad = t.z, t.val, t.grad
-        warmup_leapfrog += t.num_leaves
-        syncs += t.host_syncs
-        da = da_update(da, pmean_if(torch.mean(t.accept_prob), axis),
-                       target_accept=target_accept)
-        if in_slow[i]:
-            s1 = s1 + torch.sum(z, dim=0)
-            s2 = s2 + torch.sum(z * z, dim=0)
-            n_acc += c
-        if window_end[i]:
-            s1g, s2g = psum_if(torch.stack([s1, s2]), axis)
-            inv_mass = diag_mass_update(s1g, s2g, n_acc * (1 if axis is None else axis.size))
-            s1, s2, n_acc = torch.zeros_like(s1), torch.zeros_like(s2), 0
-            da = da_restart(da)
+    if tr is not None:
+        warmup = tr.open("nuts.warmup")
+    for start, stop in _warmup_windows(in_slow, window_end):
+        if tr is not None:
+            window, leaves0 = tr.open("nuts.window"), warmup_leapfrog
+        for i in range(start, stop):
+            t = transition(z, val, grad, torch.exp(da.log_step), inv_mass)
+            z, val, grad = t.z, t.val, t.grad
+            warmup_leapfrog += t.num_leaves
+            syncs += t.host_syncs
+            da = da_update(da, pmean_if(torch.mean(t.accept_prob), axis),
+                           target_accept=target_accept)
+            if in_slow[i]:
+                s1 = s1 + torch.sum(z, dim=0)
+                s2 = s2 + torch.sum(z * z, dim=0)
+                n_acc += c
+            if window_end[i]:
+                s1g, s2g = psum_if(torch.stack([s1, s2]), axis)
+                inv_mass = diag_mass_update(s1g, s2g, n_acc * (1 if axis is None else axis.size))
+                s1, s2, n_acc = torch.zeros_like(s1), torch.zeros_like(s2), 0
+                da = da_restart(da)
+        if tr is not None:
+            tr.close(window, iterations=stop - start, leaves=warmup_leapfrog - leaves0)
+    if tr is not None:
+        tr.close(warmup, iterations=num_warmup, leaves=warmup_leapfrog)
     eps_final = (torch.exp(da.log_step_avg) if num_warmup > 0
                  else torch.tensor(init_step_size, dtype=dtype, device=dev))
 
-    t_sampling = time.perf_counter()
+    t_sampling = time.perf_counter_ns()
+    if tr is not None:
+        draws = tr.open("nuts.draws", t_sampling)
     if pipeline:
         zs, aps, dvgs, iters, c_leaps, pipe_syncs = _pipelined_sampling(
             value_and_grad_fn, z, val, grad, eps_final, inv_mass, rng, num_samples,
             max_depth, max_delta_energy, lookahead=lookahead,
         )
+        t_end = time.perf_counter_ns()
+        if tr is not None:
+            tr.close(draws, t_end, iterations=iters)
         return VectorizedNUTSResult(
             samples=zs, accept_prob=aps, diverging=dvgs,
             num_leapfrog=torch.full((num_samples,), -(-iters // max(num_samples, 1)), dtype=torch.int64),
             step_size=eps_final, inv_mass=inv_mass, warmup_leapfrog=warmup_leapfrog,
             chain_leapfrog=c_leaps, host_syncs=syncs + pipe_syncs,
-            sampling_seconds=time.perf_counter() - t_sampling,
+            sampling_seconds=(t_end - t_sampling) * 1e-9,
         )
 
     zs = torch.empty((num_samples, c, d), dtype=dtype, device=dev)
@@ -541,15 +600,19 @@ def nuts_batched(
         zs[s], aps[s], dvgs[s], c_leaps[s] = z, t.accept_prob, t.diverging, t.mean_live
         n_leaps.append(t.num_leaves)
         syncs += t.host_syncs
+    num_leapfrog = torch.tensor(n_leaps, dtype=torch.int64)
+    t_end = time.perf_counter_ns()
+    if tr is not None:
+        tr.close(draws, t_end, leaves=sum(n_leaps))
     return VectorizedNUTSResult(
         samples=zs.transpose(0, 1),
         accept_prob=aps.transpose(0, 1),
         diverging=dvgs.transpose(0, 1),
-        num_leapfrog=torch.tensor(n_leaps, dtype=torch.int64),
+        num_leapfrog=num_leapfrog,
         step_size=eps_final,
         inv_mass=inv_mass,
         warmup_leapfrog=warmup_leapfrog,
         chain_leapfrog=c_leaps,
         host_syncs=syncs,
-        sampling_seconds=time.perf_counter() - t_sampling,
+        sampling_seconds=(t_end - t_sampling) * 1e-9,
     )
