@@ -66,7 +66,10 @@ class GraphedValueAndGrad:
     buffer, and replays it; later calls copy z into the buffer, replay, and
     return copies of the static outputs.  A function the card cannot
     capture (one that waits on the card, for example) runs eagerly at that
-    shape from then on (``eager_shapes``).  Inputs on the CPU run eagerly.
+    shape from then on (``eager_shapes``).  Inputs on the CPU run eagerly,
+    and so does a call inside another capture (the lockstep NUTS engine's
+    leaf graph): ``fn``'s kernels then join that graph.  ``lockstep_trees``
+    is where that engine keeps its graphs over this function.
     ``capture_seconds`` sums the wall time of the captures, warm-up calls
     included, each ended by a device synchronize; with ``metrics.tracing()``
     on, each capture is a ``vg.capture`` span of that interval."""
@@ -76,9 +79,10 @@ class GraphedValueAndGrad:
         self.graphs = {}
         self.eager_shapes = set()
         self.capture_seconds = 0.0
+        self.lockstep_trees = {}
 
     def __call__(self, z):
-        if z.device.type != "cuda":
+        if z.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
             return self.fn(z)
         key = (tuple(z.shape), z.dtype, z.device)
         if key in self.eager_shapes:

@@ -243,14 +243,20 @@ def make_enum_potential(comp: CompiledModel, params, given, unravel) -> Callable
 
 
 class _Counted:
-    """Counts the calls of a value-and-grad function."""
+    """Counts the calls of a value-and-grad function.  A call inside a
+    CUDA-graph capture computes nothing and is not counted: the lockstep
+    NUTS engine reports the calls its graphs replay (``graph_leaves``).
+    The function's ``lockstep_trees``, where it has them, are where that
+    engine keeps its graphs from one call of ``sample()`` to the next."""
 
     def __init__(self, fn):
         self.fn = fn
         self.calls = 0
+        self.lockstep_trees = getattr(fn, "lockstep_trees", None)
 
     def __call__(self, z):
-        self.calls += 1
+        if not (z.is_cuda and torch.cuda.is_current_stream_capturing()):
+            self.calls += 1
         return self.fn(z)
 
 
@@ -325,7 +331,8 @@ def _run_vectorized(kernel, vg, z0, num_warmup, num_samples, gen, target_accept,
                 "sampling_seconds": res.sampling_seconds}
     stats = {"accept_prob": res.accept_prob, "diverging": res.diverging, "num_steps": num_steps}
     info.update(step_size=res.step_size, inv_mass=res.inv_mass, host_syncs=res.host_syncs,
-                used_leapfrog_fn=getattr(res, "used_leapfrog_fn", False))
+                used_leapfrog_fn=getattr(res, "used_leapfrog_fn", False),
+                graph_leaves=getattr(res, "graph_leaves", 0))
     if axis is not None:
         # each rank's loop counts differ: reported as their mean over ranks
         for k in ("warmup_leapfrog", "chain_leapfrog"):
@@ -450,7 +457,7 @@ def _run_dense(kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init
         stage_a = {"num_warmup": warm_a, "num_samples": draws_a,
                    "warmup_leapfrog": info_a.get("warmup_leapfrog"),
                    "sampling_leapfrog": int(stats_a["num_steps"][0].sum()),
-                   "value_and_grad_calls": vg.calls - calls,
+                   "value_and_grad_calls": vg.calls - calls + info_a["graph_leaves"],
                    "host_syncs": info_a["host_syncs"]}
     zs_t, stats, info = _run_vectorized(
         kernel, whiten(vg, mu, chol), whitened(z_last, mu, chol), num_warmup - warm_a,
@@ -462,6 +469,7 @@ def _run_dense(kernel, vg, z0, num_warmup, num_samples, gen, target_accept, init
     info["inv_mass"] = cov  # report the dense metric actually used
     if stage_a is not None:
         info["host_syncs"] += stage_a["host_syncs"]
+        info["graph_leaves"] += info_a["graph_leaves"]
     return zs, stats, info, ckpt, stage_a
 
 
@@ -609,6 +617,8 @@ def sample(
             built = comp.__dict__.setdefault("_fused_vg_built", {})
             if dtype not in built:
                 built[dtype] = fam.value_and_grad(dtype=dtype)
+                # the lockstep NUTS engine's graphs over it, kept with it
+                built[dtype].lockstep_trees = {}
             value_and_grad_fn = built[dtype]
             fam_name, bf16_active = fam.family, dtype == "bf16"
             if fused_leapfrog:
@@ -779,7 +789,7 @@ def sample(
         **{k: info[k] for k in ("trajectory_length", "warmup_leapfrog", "chain_leapfrog",
                                 "sampling_seconds") if k in info},
         "total_leapfrog_steps": int(stats["num_steps"].sum()),
-        "value_and_grad_calls": vg.calls,
+        "value_and_grad_calls": vg.calls + info.get("graph_leaves", 0),
         "host_syncs": info["host_syncs"],
         "fused_family": fam_name,
         "fused_dtype": ("bf16" if bf16_active else "f32") if fam_name else None,

@@ -8,10 +8,13 @@ Counterpart of ``brancher_tpu/inference/vectorized_nuts.py``:
 The tree's doubling schedule is deterministic and shared by every chain:
 leaf n belongs to doubling floor(log2 n) at in-subtree position
 m = n - 2^depth.  In the JAX package that schedule is computed on the
-device inside a ``while_loop``; here the loop runs on the host, so n,
-depth, m, the checkpoint slot popcount(m) and the U-turn slot range are
-Python ints and the schedule's branches are Python ``if``s.  Only the
-per-chain direction, proposal swaps and stopping are tensors.  The loop
+device inside a ``while_loop``; here the loop runs on the host, but n is
+a device scalar too and depth, m, the checkpoint slot popcount(m), the
+U-turn slot range and the subtree's start and end flags are read from
+small popcount and floor(log2) tables on the device, so the schedule's
+branches are selects and every leaf issues the same ops
+(``_LockstepTree``).  On CUDA that leaf is captured once into a CUDA graph
+and replayed, so the host issues one graph launch a leaf; the loop
 condition ``any(active)`` costs one host sync per leaf.
 
 The pipelined sampling phase (``NUTS(pipelined=True)``) gives each chain
@@ -40,13 +43,15 @@ ends on its own chains' U-turns.
 
 With ``metrics.tracing()`` on, the lockstep engine records its spans and
 counters (``nuts.warmup``, ``nuts.window``, ``nuts.draws``, ``nuts.leaf``,
-``nuts.sync``; ``nuts.leaves``, ``nuts.live_leaves``, ``nuts.depth_hist``:
+``nuts.sync``, ``nuts.leaf_capture``; ``nuts.leaves``, ``nuts.live_leaves``,
+``nuts.depth_hist``, ``nuts.graph_leaves``, ``nuts.eager_leaves``:
 ``metrics.tracing``'s docstring).  A transition reads the recorder once;
 off, each point in its loop is one ``is None`` test.  The counters are
 summed on the device and change no number the engine computes.
 """
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -98,6 +103,7 @@ class Transition(NamedTuple):
     num_leaves: int  # leaf iterations run (shared by the chains)
     mean_live: Tensor  # mean per-chain live leapfrogs
     host_syncs: int
+    graph_leaves: int  # of num_leaves, those replayed from a CUDA graph
 
 
 class VectorizedNUTSResult(NamedTuple):
@@ -111,6 +117,9 @@ class VectorizedNUTSResult(NamedTuple):
     chain_leapfrog: Tensor  # [S] mean per-chain live leapfrogs per draw
     host_syncs: int  # device->host syncs of the whole run
     sampling_seconds: float  # host clock of the draws' loop (it ends at a host sync)
+    # lockstep leaves replayed from a CUDA graph: value+grad calls that the
+    # function itself did not see
+    graph_leaves: int
 
 
 def _ke(r: Tensor, inv_mass: Tensor) -> Tensor:
@@ -128,6 +137,317 @@ def _sel(mask: Tensor, a: Tensor, b: Tensor) -> Tensor:
     return torch.where(mask[:, None] if a.dim() == 2 else mask, a, b)
 
 
+def _col(mask: Tensor) -> Tensor:
+    """A [C] mask over stacked [k, C, d] points."""
+    return mask[:, None]
+
+
+def _schedule_tables(max_n: int, device) -> Tuple[Tensor, Tensor]:
+    """popcount and floor(log2) of every leaf index a tree of ``max_n``
+    leaves reaches (log2 of 0 read as 0)."""
+    popcount = torch.tensor([bin(i).count("1") for i in range(max_n + 1)], device=device)
+    log2 = torch.tensor([max(i, 1).bit_length() - 1 for i in range(max_n + 1)], device=device)
+    return popcount, log2
+
+
+def _schedule(n: Tensor, popcount: Tensor, log2: Tensor):
+    """The doubling schedule at leaf indices n >= 1 (an int64 tensor), read
+    from ``_schedule_tables``: (depth, m, pc, lo, even, is_end), with depth
+    = floor(log2 n), m = n - 2^depth the leaf's position in that doubling's
+    subtree, pc = popcount(m) the checkpoint slot of an even leaf, [lo, pc)
+    the slots an odd leaf's U-turn checks read, and is_end true at the
+    subtree's last leaf."""
+    depth = log2[n]
+    m = n - (1 << depth)
+    pc = popcount[m]
+    lo = pc - popcount[(m ^ (m + 1)) >> 1]
+    return depth, m, pc, lo, m % 2 == 0, m == (1 << depth) - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device):
+    """The side stream of a device on which every lockstep tree runs its
+    first transition and captures its graphs: K1-K4 keep their scratch per
+    stream, so one stream a device lets every capture share one scratch."""
+    return torch.cuda.Stream(device=device)
+
+
+class _LockstepTree:
+    """The lockstep tree at one shape: C chains of d coordinates in one
+    dtype on one device, to ``max_depth`` doublings.
+
+    Its state lives in buffers that ``start`` and ``leaf`` update in place,
+    and leaf n's schedule is read on the device from n (a device scalar
+    that each leaf advances), so every leaf issues the same ops.  On CUDA
+    with a ``TorchNutsRandom`` the tree's first transition runs eagerly on
+    ``_capture_stream`` (the warm-up), then the start and the leaf are
+    captured into one CUDA graph each over the tree's own generator, whose
+    state is the caller's for the time of a transition; every later
+    transition replays them (``graphs``).  Elsewhere (the CPU, a replayed
+    random stream, a capture that failed: ``graphs`` False) the same two
+    functions run eagerly."""
+
+    def __init__(self, c: int, d: int, dtype, device, max_depth: int, max_delta_energy: float):
+        kdim = max_depth + 1
+        self.max_n = 2**max_depth
+        self.max_delta_energy = max_delta_energy
+
+        def zeros(*shape, kind=dtype):
+            return torch.zeros(shape, dtype=kind, device=device)
+
+        # inputs, copied in at each transition (warmup changes eps and the mass)
+        self.z, self.val, self.grad = zeros(c, d), zeros(c), zeros(c, d)
+        self.eps, self.inv_mass = zeros(), zeros(d)
+        self.n = zeros(1, kind=torch.int64)
+        # leaf n's schedule (``_schedule``), a row a leaf index: ``flags``
+        # the subtree's start and end, then the slots an odd leaf's U-turn
+        # checks read ([lo, pc); none for an even leaf); ``slot`` the
+        # checkpoint row it writes (pc of an even leaf, the spare row kdim
+        # of an odd one)
+        n = torch.arange(self.max_n + 1, device=device).clamp(min=1)
+        _, m, pc, lo, even, is_end = _schedule(n, *_schedule_tables(self.max_n, device))
+        slots = torch.arange(kdim, device=device)
+        self.flags = torch.cat([torch.stack([m == 0, is_end], 1),
+                                (slots >= lo[:, None]) & (slots < pc[:, None]) & ~even[:, None]], 1)
+        self.slot = torch.where(even, pc, kdim)
+        # points are stacked: ends [2, 3, C, d] the (left, right) ends' (z,
+        # grad, r), mov the subtree's moving end, prop and sp the (z, grad)
+        # of the tree's and the subtree's proposals
+        self.ends, self.mov = zeros(2, 3, c, d), zeros(3, c, d)
+        self.prop, self.sp = zeros(2, c, d), zeros(2, c, d)
+        self.prop_val, self.sp_val, self.h0, self.lw = zeros(c), zeros(c), zeros(c), zeros(c)
+        self.s_lw, self.dirn, self.sum_acc, self.cnt = zeros(c), zeros(c), zeros(c), zeros(c)
+        self.r_sum, self.s_cum = zeros(c, d), zeros(c, d)
+        self.s_failed, self.active, self.diverging = (zeros(c, kind=torch.bool) for _ in range(3))
+        # checkpoint stacks, depth-major; row kdim takes the odd leaves' writes
+        self.r_ck, self.rs_ck = zeros(kdim + 1, c, d), zeros(kdim + 1, c, d)
+        self.graphs = self.gen = None
+        self.launched = []
+
+    def start(self, rng) -> None:
+        """The tree's start at the inputs: momenta and energy, both ends at
+        (z, grad, r0), the proposal at z, the accumulators cleared, n = 1.
+        (A subtree's proposal needs none: its first live leaf always takes
+        it.)"""
+        r0 = rng.momentum(self.z) / torch.sqrt(self.inv_mass)[None, :]
+        self.h0.copy_(-self.val + _ke(r0, self.inv_mass))
+        point = torch.stack([self.z, self.grad, r0])
+        self.ends.copy_(point)
+        self.prop.copy_(point[:2])
+        self.prop_val.copy_(self.val)
+        self.r_sum.copy_(r0)
+        for t in (self.lw, self.sum_acc, self.cnt, self.diverging):
+            t.zero_()
+        self.active.fill_(True)
+        self.n.fill_(1)
+
+    def leaf(self, value_and_grad_fn: VG, rng, n: int) -> None:
+        """Leaf n of the tree for every chain, in place; the schedule comes
+        from the device's n (``rng.leaf`` alone is given the host's)."""
+        c, kdim = self.val.shape[0], self.r_ck.shape[0] - 1
+        eps, inv_mass = self.eps, self.inv_mass
+        flags = self.flags[self.n]
+        start, is_end, checks = flags[:, 0], flags[:, 1], flags[0, 2:, None]
+        dir_pos, swap_u, take_u = rng.leaf(n, c, self.val)
+
+        # --- subtree start: per-chain direction + moving end + reset ------
+        torch.where(start, torch.where(dir_pos, 1.0, -1.0).to(self.dirn.dtype), self.dirn,
+                    out=self.dirn)
+        take_right = self.dirn > 0
+        torch.where(start, torch.where(_col(take_right), self.ends[1], self.ends[0]), self.mov,
+                    out=self.mov)
+        self.s_lw.masked_fill_(start, -math.inf)
+        self.s_cum.masked_fill_(start, 0.0)
+        self.s_failed.masked_fill_(start, False)
+
+        # --- one batched leapfrog from the moving end ---------------------
+        eps_c = (eps * self.dirn)[:, None]
+        half = 0.5 * eps_c
+        r_half = self.mov[2] + half * self.mov[1]
+        z_new = self.mov[0] + eps_c * inv_mass[None, :] * r_half
+        val_new, grad_new = value_and_grad_fn(z_new)
+        r_new = r_half + half * grad_new
+
+        # an energy that is not a number counts as +inf (a divergence)
+        h = torch.nan_to_num(_ke(r_new, inv_mass) - val_new, nan=math.inf, posinf=math.inf,
+                             neginf=-math.inf)
+        lw_leaf = self.h0 - h
+        dvg = lw_leaf < -self.max_delta_energy  # h - h0 > max_delta_energy, exactly
+        live = self.active & ~self.s_failed
+
+        acc = torch.exp(torch.clamp(lw_leaf, max=0.0))
+        self.sum_acc += torch.where(live, acc, 0.0)
+        self.cnt += live
+
+        # --- checkpoints (store BEFORE adding this leaf's momentum) -------
+        slot = self.slot[self.n]
+        self.r_ck.index_copy_(0, slot, r_new[None])
+        self.rs_ck.index_copy_(0, slot, self.s_cum[None])
+
+        # --- progressive multinomial within the subtree -------------------
+        s_cum_new = self.s_cum + r_new
+        s_lw_new = torch.logaddexp(self.s_lw, lw_leaf)
+        swap = live & (swap_u < torch.exp(lw_leaf - s_lw_new))
+        point = torch.stack([z_new, grad_new, r_new])
+        torch.where(_col(swap), point[:2], self.sp, out=self.sp)
+        torch.where(swap, val_new, self.sp_val, out=self.sp_val)
+
+        # --- U-turn checks vs the checkpoint slots [lo, pc) (odd leaves) --
+        rho = s_cum_new[None] - self.rs_ck[:kdim]  # [kdim, C, d]
+        dot_a = torch.sum(rho * self.r_ck[:kdim] * inv_mass, -1)
+        dot_b = torch.sum(rho * (r_new * inv_mass[None, :])[None], -1)
+        turn_sub = (((dot_a <= 0.0) | (dot_b <= 0.0)) & checks).any(0)
+        new_fail = live & (dvg | turn_sub)
+        self.s_failed |= new_fail
+        self.diverging |= live & dvg
+
+        upd = live & ~new_fail
+        torch.where(upd, s_lw_new, self.s_lw, out=self.s_lw)
+        torch.where(upd[:, None], s_cum_new, self.s_cum, out=self.s_cum)
+        torch.where(_col(upd), point, self.mov, out=self.mov)
+
+        # --- subtree end: merge into the global tree ----------------------
+        merging = is_end & upd
+        take = merging & (take_u < torch.exp(torch.clamp(self.s_lw - self.lw, max=0.0)))
+        torch.where(_col(take), self.sp, self.prop, out=self.prop)
+        torch.where(take, self.sp_val, self.prop_val, out=self.prop_val)
+        sides = torch.stack([~take_right, take_right]) & merging
+        torch.where(sides[:, None, :, None], self.mov[None], self.ends, out=self.ends)
+        torch.where(merging[:, None], self.r_sum + self.s_cum, self.r_sum, out=self.r_sum)
+        torch.where(merging, torch.logaddexp(self.lw, self.s_lw), self.lw, out=self.lw)
+        full_turn = _turning(self.r_sum, self.ends[0, 2], self.ends[1, 2], inv_mass)
+        # deactivate: a failed leaf, a failed subtree at its end (discarded)
+        # or a full-tree U-turn
+        self.active &= ~(new_fail | (is_end & self.s_failed) | (merging & full_turn))
+        self.n += 1
+
+    def transition(self, value_and_grad_fn: VG, z: Tensor, val: Tensor, grad: Tensor,
+                   eps: Tensor, inv_mass: Tensor, rng) -> Transition:
+        """One NUTS draw for all chains from (z, val, grad) (see
+        ``nuts_transition_batched``)."""
+        for buf, x in ((self.z, z), (self.val, val), (self.grad, grad), (self.eps, eps),
+                       (self.inv_mass, inv_mass)):
+            buf.copy_(x)
+        graphed = z.device.type == "cuda" and isinstance(rng, TorchNutsRandom)
+        if not graphed or self.graphs is False:
+            leaves, syncs = self._walk(value_and_grad_fn, rng, None)
+            replayed = 0
+        elif self.graphs is None:
+            # the first transition at this shape: eagerly, on the stream the
+            # capture takes (its warm-up: the scratch, the handles and the
+            # kernels it will replay are those of that stream), then capture
+            main, side = torch.cuda.current_stream(z.device), _capture_stream(z.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                leaves, syncs = self._walk(value_and_grad_fn, rng, None)
+            main.wait_stream(side)
+            self.graphs = self._capture(value_and_grad_fn, side)
+            replayed = 0
+        else:
+            # the graphs draw from the tree's generator, given the caller's
+            # state for the transition and handing it back after
+            gen = rng.generator
+            if gen is None:
+                gen = torch.cuda.default_generators[z.device.index]
+            self.gen.set_state(gen.get_state())
+            leaves, syncs = self._walk(value_and_grad_fn, rng, self.graphs)
+            gen.set_state(self.gen.get_state())
+            replayed = leaves
+
+        tr = _metrics._tracer
+        if tr is not None:
+            _count_tree(tr, leaves, self.cnt, self.r_ck.shape[0] - 1)
+            tr.count("nuts.graph_leaves", replayed)
+            tr.count("nuts.eager_leaves", leaves - replayed)
+        accept_prob = self.sum_acc / torch.clamp(self.cnt, min=1.0)
+        return Transition(self.prop[0].clone(), self.prop_val.clone(), self.prop[1].clone(),
+                          accept_prob, self.diverging.clone(), leaves, torch.mean(self.cnt),
+                          syncs, replayed)
+
+    def _walk(self, value_and_grad_fn: VG, rng, graphs) -> Tuple[int, int]:
+        """The start and the leaves until every chain has stopped or the
+        tree is full, replayed from ``graphs`` (start, leaf) or run eagerly
+        where it is None; returns (leaves, host syncs)."""
+        tr = _metrics._tracer
+        if graphs is None:
+            self.start(rng)
+        else:
+            graphs[0].replay()
+        n = 1
+        syncs = 0
+        while n < self.max_n:
+            syncs += 1
+            if tr is not None:
+                t_sync = time.perf_counter_ns()
+            if not bool(self.active.any()):
+                if tr is not None:
+                    tr.span("nuts.sync", t_sync, time.perf_counter_ns())
+                break
+            if tr is not None:
+                t_leaf = time.perf_counter_ns()
+            if graphs is None:
+                self.leaf(value_and_grad_fn, rng, n)
+            else:
+                graphs[1].replay()
+                for kernel, count in self.launched:
+                    kernel.launches += count
+            if tr is not None:
+                tr.span("nuts.sync", t_sync, t_leaf,
+                        parent=tr.span("nuts.leaf", t_sync, time.perf_counter_ns()))
+            n += 1
+        return n - 1, syncs
+
+    def _capture(self, value_and_grad_fn: VG, stream):
+        """(start graph, leaf graph) captured on ``stream`` over the tree's
+        buffers, drawing from the tree's own generator; False where the
+        card cannot capture them (a value+grad that waits on it), and the
+        tree runs eagerly from then on.  The port's kernels count in
+        ``launches`` the times they ran: a capture runs none, so the
+        launches it recorded are taken back and ``launched`` adds them at
+        every replay of the leaf."""
+        from ..ops import kernel_wrappers
+
+        t0 = time.perf_counter_ns()
+        kernels = kernel_wrappers().values()
+        before = [k.launches for k in kernels]
+        self.gen = torch.Generator(device=stream.device)
+        rng = TorchNutsRandom(self.gen)
+        graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
+        try:
+            for graph, body in zip(graphs, (lambda: self.start(rng),
+                                            lambda: self.leaf(value_and_grad_fn, rng, 0))):
+                graph.register_generator_state(self.gen)
+                # thread_local: another thread's CUDA calls do not break it
+                with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                    body()
+        except RuntimeError:
+            graphs = False
+        self.launched = [(k, k.launches - b) for k, b in zip(kernels, before) if k.launches > b]
+        for k, count in self.launched:
+            k.launches -= count
+        torch.cuda.synchronize(stream.device)
+        tr = _metrics._tracer
+        if tr is not None:
+            tr.span("nuts.leaf_capture", t0, time.perf_counter_ns())
+        return graphs
+
+
+def _tree(value_and_grad_fn: VG, z: Tensor, max_depth: int,
+          max_delta_energy: float) -> _LockstepTree:
+    """The lockstep tree over ``value_and_grad_fn`` at z's shape: kept in
+    the function's ``lockstep_trees`` where it has them (``sample()``'s
+    cached value+grad functions do, so a later call replays the graphs of
+    the first), else a new one, for the caller to hold while it runs."""
+    trees = getattr(value_and_grad_fn, "lockstep_trees", None)
+    key = (*z.shape, z.dtype, z.device, max_depth, max_delta_energy)
+    if trees is None or key not in trees:
+        tree = _LockstepTree(*z.shape, z.dtype, z.device, max_depth, max_delta_energy)
+        if trees is None:
+            return tree
+        trees[key] = tree
+    return trees[key]
+
+
 def nuts_transition_batched(
     value_and_grad_fn: VG,
     z: Tensor,
@@ -140,148 +460,10 @@ def nuts_transition_batched(
     max_delta_energy: float = 1000.0,
 ) -> Transition:
     """One NUTS draw for all chains.  value/grad are of the LOG posterior.
-    ``rng`` provides the randomness (see ``TorchNutsRandom``)."""
-    c, d = z.shape
-    kdim = max_depth + 1
-    tr = _metrics._tracer
-    r0 = rng.momentum(z) / torch.sqrt(inv_mass)[None, :]
-    h0 = -val + _ke(r0, inv_mass)
-
-    left_z, left_r, left_grad = z, r0, grad
-    right_z, right_r, right_grad = z, r0, grad
-    prop_z, prop_val, prop_grad = z, val, grad
-    lw = torch.zeros_like(val)
-    r_sum = r0
-    m_z, m_r, m_grad = z, r0, grad
-    s_lw = torch.full_like(val, -math.inf)
-    s_cum = torch.zeros_like(z)
-    sp_z, sp_val, sp_grad = z, val, grad
-    s_failed = torch.zeros((c,), dtype=torch.bool, device=z.device)
-    # checkpoint stacks, depth-major [kdim, C, d]; written in place (they
-    # belong to this transition alone)
-    r_ck = torch.zeros((kdim, c, d), dtype=z.dtype, device=z.device)
-    rs_ck = torch.zeros_like(r_ck)
-    dirn = torch.ones_like(val)
-    take_right = dirn > 0
-    active = torch.ones_like(s_failed)
-    diverging = torch.zeros_like(s_failed)
-    sum_acc = torch.zeros_like(val)
-    cnt = torch.zeros_like(val)
-
-    max_n = 2**max_depth
-    n = 1
-    syncs = 0
-    while n < max_n:
-        syncs += 1
-        if tr is not None:
-            t_sync = time.perf_counter_ns()
-        if not bool(active.any()):
-            if tr is not None:
-                tr.span("nuts.sync", t_sync, time.perf_counter_ns())
-            break
-        if tr is not None:
-            t_leaf = time.perf_counter_ns()
-        # static-schedule metadata (host ints)
-        depth = n.bit_length() - 1
-        m = n - (1 << depth)
-        is_end = m == (1 << depth) - 1
-        pc = bin(m).count("1")
-        t_ones = bin((m ^ (m + 1)) >> 1).count("1")
-        even = m % 2 == 0
-        dir_pos, swap_u, take_u = rng.leaf(n, c, val)
-
-        # --- subtree start: per-chain direction + moving end + reset ------
-        if m == 0:
-            dirn = torch.where(dir_pos, 1.0, -1.0).to(val.dtype)
-            take_right = dirn > 0
-            m_z = _sel(take_right, right_z, left_z)
-            m_r = _sel(take_right, right_r, left_r)
-            m_grad = _sel(take_right, right_grad, left_grad)
-            s_lw = torch.full_like(val, -math.inf)
-            s_cum = torch.zeros_like(z)
-            s_failed = torch.zeros_like(s_failed)
-
-        # --- one batched leapfrog from the moving end ---------------------
-        eps_c = (eps * dirn)[:, None]
-        r_half = m_r + 0.5 * eps_c * m_grad
-        z_new = m_z + eps_c * inv_mass[None, :] * r_half
-        val_new, grad_new = value_and_grad_fn(z_new)
-        r_new = r_half + 0.5 * eps_c * grad_new
-
-        h = -val_new + _ke(r_new, inv_mass)
-        h = torch.where(torch.isnan(h), math.inf, h)
-        lw_leaf = h0 - h
-        dvg = (h - h0) > max_delta_energy
-        live = active & ~s_failed
-
-        acc = torch.exp(torch.clamp(lw_leaf, max=0.0))
-        sum_acc = sum_acc + torch.where(live, acc, 0.0)
-        cnt = cnt + live.to(cnt.dtype)
-
-        # --- checkpoints (store BEFORE adding this leaf's momentum) -------
-        if even:
-            r_ck[pc] = r_new
-            rs_ck[pc] = s_cum
-
-        # --- progressive multinomial within the subtree -------------------
-        s_cum_new = s_cum + r_new
-        s_lw_new = torch.logaddexp(s_lw, lw_leaf)
-        swap = live & (swap_u < torch.exp(lw_leaf - s_lw_new))
-        sp_z = _sel(swap, z_new, sp_z)
-        sp_val = _sel(swap, val_new, sp_val)
-        sp_grad = _sel(swap, grad_new, sp_grad)
-
-        # --- U-turn checks vs the checkpoint slots [pc - t_ones, pc) ------
-        if even:
-            new_fail = live & dvg
-        else:
-            lo = pc - t_ones
-            rho = s_cum_new[None] - rs_ck[lo:pc]  # [K', C, d]
-            dot_a = torch.sum(rho * r_ck[lo:pc] * inv_mass, -1)
-            dot_b = torch.sum(rho * (r_new * inv_mass[None, :])[None], -1)
-            turn_sub = ((dot_a <= 0.0) | (dot_b <= 0.0)).any(0)
-            new_fail = live & (dvg | turn_sub)
-        s_failed = s_failed | new_fail
-        diverging = diverging | (live & dvg)
-
-        upd = live & ~new_fail
-        s_lw = _sel(upd, s_lw_new, s_lw)
-        s_cum = _sel(upd, s_cum_new, s_cum)
-        m_z = _sel(upd, z_new, m_z)
-        m_r = _sel(upd, r_new, m_r)
-        m_grad = _sel(upd, grad_new, m_grad)
-
-        active = active & ~new_fail
-        if is_end:
-            # --- subtree end: merge into the global tree ------------------
-            merging = upd
-            take = merging & (take_u < torch.exp(torch.clamp(s_lw - lw, max=0.0)))
-            prop_z = _sel(take, sp_z, prop_z)
-            prop_val = _sel(take, sp_val, prop_val)
-            prop_grad = _sel(take, sp_grad, prop_grad)
-            right_sel = merging & take_right
-            left_sel = merging & ~take_right
-            right_z = _sel(right_sel, m_z, right_z)
-            right_r = _sel(right_sel, m_r, right_r)
-            right_grad = _sel(right_sel, m_grad, right_grad)
-            left_z = _sel(left_sel, m_z, left_z)
-            left_r = _sel(left_sel, m_r, left_r)
-            left_grad = _sel(left_sel, m_grad, left_grad)
-            r_sum = _sel(merging, r_sum + s_cum, r_sum)
-            lw = _sel(merging, torch.logaddexp(lw, s_lw), lw)
-            full_turn = _turning(r_sum, left_r, right_r, inv_mass)
-            # deactivate: failed subtree (discarded) or full-tree U-turn
-            active = active & ~s_failed & ~(merging & full_turn)
-        if tr is not None:
-            tr.span("nuts.sync", t_sync, t_leaf,
-                    parent=tr.span("nuts.leaf", t_sync, time.perf_counter_ns()))
-        n += 1
-
-    if tr is not None:
-        _count_tree(tr, n - 1, cnt, kdim)
-    accept_prob = sum_acc / torch.clamp(cnt, min=1.0)
-    return Transition(prop_z, prop_val, prop_grad, accept_prob, diverging,
-                      n - 1, torch.mean(cnt), syncs)
+    ``rng`` provides the randomness (see ``TorchNutsRandom``).  The tree is
+    ``_LockstepTree``'s, kept with the function where it can be (``_tree``)."""
+    tree = _tree(value_and_grad_fn, z, max_depth, max_delta_energy)
+    return tree.transition(value_and_grad_fn, z, val, grad, eps, inv_mass, rng)
 
 
 def _count_tree(tr, leaves: int, cnt: Tensor, kdim: int) -> None:
@@ -346,14 +528,10 @@ def _pipelined_sampling(
     s_len = num_samples
     ring = max(2, min(int(lookahead), s_len))
     # popcount and floor(log2) of every leaf index a tree reaches
-    popcount = torch.tensor([bin(i).count("1") for i in range(max_n + 1)], device=dev)
-    log2 = torch.tensor([max(i, 1).bit_length() - 1 for i in range(max_n + 1)], device=dev)
+    popcount, log2 = _schedule_tables(max_n, dev)
     slots = torch.arange(kdim, device=dev)[:, None]
     chains = torch.arange(c, device=dev)
     false_c = torch.zeros((c,), dtype=torch.bool, device=dev)
-
-    def col(mask):  # a [C] mask over stacked [k, C, d] points
-        return mask[:, None]
 
     draw = torch.zeros((c,), dtype=torch.int64, device=dev)
     n = torch.zeros_like(draw)  # 0: start a fresh draw
@@ -393,8 +571,8 @@ def _pipelined_sampling(
         starting = (n == 0) & working & (draw - flushed < ring)
         r0 = mom / torch.sqrt(inv_mass)[None, :]
         h0 = torch.where(starting, -val + _ke(r0, inv_mass), h0)
-        ends = torch.where(col(starting), torch.cat([cur, r0[None]])[None], ends)
-        prop = torch.where(col(starting), cur, prop)
+        ends = torch.where(_col(starting), torch.cat([cur, r0[None]])[None], ends)
+        prop = torch.where(_col(starting), cur, prop)
         prop_val = torch.where(starting, val, prop_val)
         lw = torch.where(starting, 0.0, lw)
         r_sum = _sel(starting, r0, r_sum)
@@ -405,19 +583,13 @@ def _pipelined_sampling(
         n = torch.where(starting, 1, n)  # leaf 1 runs this iteration
 
         # --- per-chain schedule ------------------------------------------
-        n_safe = torch.clamp(n, min=1)
-        depth = log2[n_safe]
-        m = n_safe - (1 << depth)
+        _, m, pc, lo, even, is_end = _schedule(torch.clamp(n, min=1), popcount, log2)
         is_start = m == 0
-        is_end = m == (1 << depth) - 1
-        pc = popcount[m]
-        lo = pc - popcount[(m ^ (m + 1)) >> 1]
-        even = m % 2 == 0
 
         # --- subtree start: per-chain direction + moving end + reset ------
         dirn = torch.where(is_start, torch.where(dir_pos, 1.0, -1.0).to(dtype), dirn)
         take_right = dirn > 0
-        mov = torch.where(col(is_start), torch.where(col(take_right), ends[1], ends[0]), mov)
+        mov = torch.where(_col(is_start), torch.where(_col(take_right), ends[1], ends[0]), mov)
         s_lw = torch.where(is_start, -math.inf, s_lw)
         s_cum = torch.where(is_start[:, None], 0.0, s_cum)
         s_failed = s_failed & ~is_start
@@ -446,7 +618,7 @@ def _pipelined_sampling(
         s_cum_new = s_cum + r_new
         s_lw_new = torch.logaddexp(s_lw, lw_leaf)
         swap = live & (swap_u < torch.exp(lw_leaf - s_lw_new))
-        sp = torch.where(col(swap), leaf[:2], sp)
+        sp = torch.where(_col(swap), leaf[:2], sp)
         sp_val = torch.where(swap, val_new, sp_val)
 
         # --- U-turn checks vs the slots [lo, pc) (odd leaves) -------------
@@ -462,12 +634,12 @@ def _pipelined_sampling(
         upd = live & ~new_fail
         s_lw = torch.where(upd, s_lw_new, s_lw)
         s_cum = _sel(upd, s_cum_new, s_cum)
-        mov = torch.where(col(upd), leaf, mov)
+        mov = torch.where(_col(upd), leaf, mov)
 
         # --- subtree end: merge into the global tree ----------------------
         merging = is_end & upd
         take = merging & (take_u < torch.exp(torch.clamp(s_lw - lw, max=0.0)))
-        prop = torch.where(col(take), sp, prop)
+        prop = torch.where(_col(take), sp, prop)
         prop_val = torch.where(take, sp_val, prop_val)
         sides = torch.stack([merging & ~take_right, merging & take_right])
         ends = torch.where(sides[:, None, :, None], mov[None], ends)
@@ -489,7 +661,7 @@ def _pipelined_sampling(
         cnts[chains, row] = cnt
         draw = draw + finished.to(draw.dtype)
         flushed = flushed + (draw.min() > flushed).to(flushed.dtype)
-        cur = torch.where(col(finished), prop, cur)
+        cur = torch.where(_col(finished), prop, cur)
         val = torch.where(finished, prop_val, val)
         n = torch.where(finished, 0, n)
         active = active & ~finished
@@ -527,12 +699,10 @@ def nuts_batched(
     rng = TorchNutsRandom(generator) if rng is None else rng
     z, (val, grad) = z0, value_and_grad_fn(z0)
     in_slow, window_end = build_warmup_schedule(num_warmup)
+    tree = _tree(value_and_grad_fn, z0, max_depth, max_delta_energy)
 
     def transition(z, val, grad, eps, inv_mass):
-        return nuts_transition_batched(
-            value_and_grad_fn, z, val, grad, eps, inv_mass, rng,
-            max_depth=max_depth, max_delta_energy=max_delta_energy,
-        )
+        return tree.transition(value_and_grad_fn, z, val, grad, eps, inv_mass, rng)
 
     da = da_init(torch.tensor(init_step_size, dtype=dtype, device=dev))
     inv_mass = (torch.ones((d,), dtype=dtype, device=dev) if inv_mass0 is None
@@ -542,6 +712,7 @@ def nuts_batched(
     n_acc = 0
     warmup_leapfrog = 0
     syncs = 0
+    graph_leaves = 0
     if tr is not None:
         warmup = tr.open("nuts.warmup")
     for start, stop in _warmup_windows(in_slow, window_end):
@@ -552,6 +723,7 @@ def nuts_batched(
             z, val, grad = t.z, t.val, t.grad
             warmup_leapfrog += t.num_leaves
             syncs += t.host_syncs
+            graph_leaves += t.graph_leaves
             da = da_update(da, pmean_if(torch.mean(t.accept_prob), axis),
                            target_accept=target_accept)
             if in_slow[i]:
@@ -586,7 +758,7 @@ def nuts_batched(
             num_leapfrog=torch.full((num_samples,), -(-iters // max(num_samples, 1)), dtype=torch.int64),
             step_size=eps_final, inv_mass=inv_mass, warmup_leapfrog=warmup_leapfrog,
             chain_leapfrog=c_leaps, host_syncs=syncs + pipe_syncs,
-            sampling_seconds=(t_end - t_sampling) * 1e-9,
+            sampling_seconds=(t_end - t_sampling) * 1e-9, graph_leaves=graph_leaves,
         )
 
     zs = torch.empty((num_samples, c, d), dtype=dtype, device=dev)
@@ -600,6 +772,7 @@ def nuts_batched(
         zs[s], aps[s], dvgs[s], c_leaps[s] = z, t.accept_prob, t.diverging, t.mean_live
         n_leaps.append(t.num_leaves)
         syncs += t.host_syncs
+        graph_leaves += t.graph_leaves
     num_leapfrog = torch.tensor(n_leaps, dtype=torch.int64)
     t_end = time.perf_counter_ns()
     if tr is not None:
@@ -615,4 +788,5 @@ def nuts_batched(
         chain_leapfrog=c_leaps,
         host_syncs=syncs,
         sampling_seconds=(t_end - t_sampling) * 1e-9,
+        graph_leaves=graph_leaves,
     )

@@ -306,14 +306,18 @@ def tracing():
       before it to the end of its issue; its child ``nuts.sync`` is the
       wait at ``bool(active.any())``.  The sync that ends a tree has no
       leaf: it is a ``nuts.sync`` of its own;
+    - ``nuts.leaf_capture``: the capture of a lockstep tree's start and
+      leaf into CUDA graphs, after the tree's first transition at a shape;
     - ``sample.constrain``, ``sample.diagnostics``: the rest of the call.
 
     Counters, per call: ``nuts.leaves`` (leaves run), ``nuts.live_leaves``
     (the sum over leaves of the chains whose own tree was still growing),
     ``nuts.depth_hist`` (chain-draws by the depth of their own tree, 0 to
     ``max_depth``; at ``max_depth`` a tree saturated, Stan's "maximum
-    treedepth" warning).  The counters of the NUTS engine are summed on the
-    device and read when ``sample()``'s engine span ends."""
+    treedepth" warning), ``nuts.graph_leaves`` and ``nuts.eager_leaves``
+    (the leaves replayed from a CUDA graph and those run eagerly: their
+    sum is ``nuts.leaves``).  The counters of the NUTS engine are summed on
+    the device and read when ``sample()``'s engine span ends."""
     global _tracer
     if _tracer is not None:
         yield _tracer

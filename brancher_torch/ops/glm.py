@@ -505,12 +505,16 @@ class GlmScratch:
     tensors of the last (device, stream, C, X) it served, and the bf16
     kernels' four TMA tensor maps of that X and scratch.  The next call
     with the same key runs after the last in stream order and reuses them;
-    a call with another key replaces them."""
+    a call with another key replaces them.  A launch inside a CUDA-graph
+    capture keeps its key's (plan, tensors, maps) in ``captured``, as long
+    as the data lives: the graph replays on those buffers whatever key the
+    slot serves next, and a later call with that key takes them again."""
 
-    __slots__ = ("key", "plan", "tensors", "maps")
+    __slots__ = ("key", "plan", "tensors", "maps", "captured")
 
     def __init__(self):
         self.key = self.plan = self.tensors = self.maps = None
+        self.captured = {}
 
 
 class GlmKernel:
@@ -630,10 +634,15 @@ class GlmKernel:
         with torch.cuda.device(z.device):
             stream = torch.cuda.current_stream(z.device).cuda_stream
             key = (z.device, stream, c, x.data_ptr(), x.stride(0), n, d)
-            if scratch.key != key:
-                self._fill(scratch, key, x, c)
-            plan, (zs, resid, ll_part, g_part) = scratch.plan, scratch.tensors
-            maps = None if scratch.maps is None else ctypes.addressof(scratch.maps)
+            entry = scratch.captured.get(key)
+            if entry is None:
+                if scratch.key != key:
+                    self._fill(scratch, key, x, c)
+                entry = scratch.plan, scratch.tensors, scratch.maps
+                if torch.cuda.is_current_stream_capturing():
+                    scratch.captured[key] = entry
+            plan, (zs, resid, ll_part, g_part), maps = entry
+            maps = None if maps is None else ctypes.addressof(maps)
             err = fn(z.data_ptr(), x.data_ptr(), maps, data.y.data_ptr(), data.b.data_ptr(),
                      data.prior_mean.data_ptr(), data.prior_inv_var.data_ptr(), u_ptr,
                      float(data.c0), float(data.ll_scale), float(n), val.data_ptr(),

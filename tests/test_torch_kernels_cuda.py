@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import brancher_torch.inference.vectorized_nuts as TV
 import brancher_torch.ops.glm as G
 import brancher_torch.ops.leapfrog as TL
 import brancher_torch.ops.logreg as TLR
@@ -536,3 +537,155 @@ def test_a_model_saved_on_the_cpu_loads_onto_the_card(cuda, tmp_path):
     back = load_model(str(tmp_path / "m2.pkl"), device="cpu")
     assert back.get_variable("x").observed_value.device.type == "cpu"
     torch.testing.assert_close(back.calculate_log_probability(vals, device="cpu"), lp, rtol=0, atol=0)
+
+
+# The lockstep NUTS tree on the card (inference/vectorized_nuts.py): after
+# its first transition at a shape, the start and every leaf replay CUDA
+# graphs.  Replayed, a tree must take the leaves and give the bits of the
+# same tree run eagerly from the same generator state (a random source of
+# another type than TorchNutsRandom runs it eagerly); a later sample() call
+# captures nothing and replays every leaf; a value+grad the card cannot
+# capture runs every leaf eagerly, on the caller's stream of numbers.
+class _EagerRandom:
+    """TorchNutsRandom's draws from the same generator, under another type."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self._rng = TV.TorchNutsRandom(generator)
+
+    def momentum(self, z):
+        return self._rng.momentum(z)
+
+    def leaf(self, n, c, like):
+        return self._rng.leaf(n, c, like)
+
+
+@pytest.fixture(scope="module")
+def covtype_k1():
+    """K1's value+grad at UCI Covertype's shape (N 581012, D 55)."""
+    from brancher_torch.models import make_logreg_data
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 runs only there")
+    x, y, _ = make_logreg_data(581_012, 55, seed=3)
+    d = x.shape[1]
+    return G.build_glm_vg("bernoulli_logit", x, y, np.zeros(len(y), np.float32),
+                          np.zeros(d, np.float32), np.ones(d, np.float32), device="cuda")
+
+
+def _ard_value_and_grad():
+    """The graphed autodiff value+grad of the sparse ARD logistic regression
+    at German Credit's shape (N 1000, D 25; 51 latents)."""
+    import brancher_torch as BT
+    import brancher_torch.functions as BF
+    from brancher_torch.inference.hmc import autodiff_value_and_grad
+    from brancher_torch.inference.mcmc import make_potential
+
+    n, d = 1000, 25
+    g = torch.Generator().manual_seed(1000)
+    w = torch.zeros(d)
+    w[torch.randperm(d, generator=g)[:5]] = torch.randn(5, generator=g)
+    x = torch.randn(n, d, generator=g)
+    x[:, 0] = 1.0
+    y = (torch.rand(n, generator=g) < torch.sigmoid(x @ w)).to(torch.int32)
+    glob = BT.GammaVariable(0.5, 0.5, "global_scale")
+    local = BT.GammaVariable(0.5 * torch.ones(d), 0.5 * torch.ones(d), "local_scales")
+    unscaled = BT.NormalVariable(torch.zeros(d), torch.ones(d), "unscaled_weights")
+    yv = BT.BernoulliVariable(logits=BF.matmul(x, unscaled * local * glob), name="y")
+    yv.observe(y)
+    comp = BT.ProbabilisticModel([yv]).compiled("cuda")
+    pot, _, _ = make_potential(comp, comp.initial_params)
+    return autodiff_value_and_grad(pot), comp.dim
+
+
+def _graphed_and_eager(vg, z0, **kw):
+    """``nuts_batched`` from z0 at generator seed 0 with the recorder on,
+    graphed and then eagerly: [(result, counters, capture spans)] each."""
+    from brancher_torch import metrics
+
+    runs = []
+    for random in (TV.TorchNutsRandom, _EagerRandom):
+        gen = torch.Generator(device=z0.device).manual_seed(0)
+        with metrics.tracing() as tr:
+            res = TV.nuts_batched(vg, z0, generator=gen, rng=random(gen), **kw)
+        runs.append((res, tr.counters[0], [s for s in tr.spans if s.name == "nuts.leaf_capture"]))
+    return runs
+
+
+@pytest.mark.parametrize("target", ["k1_covtype", "ard_autodiff", "dense_k1"])
+def test_graphed_lockstep_tree_matches_eager(cuda, covtype_k1, target):
+    from brancher_torch.inference.mcmc import whiten
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    if target == "ard_autodiff":
+        vg, d = _ard_value_and_grad()
+        z0, eps = torch.rand((128, d), generator=gen, device=cuda) * 4.0 - 2.0, 0.05
+    else:
+        d = 55
+        z0, eps, vg = 0.01 * torch.randn((64, d), generator=gen, device=cuda), 0.002, covtype_k1
+        if target == "dense_k1":
+            # the whitened value+grad of mass="dense": z = mu + zt @ L.T
+            lower = torch.tril(torch.randn((d, d), generator=gen, device=cuda), -1)
+            vg, eps = whiten(covtype_k1, 0.01 * z0[0], 0.002 * (torch.eye(d, device=cuda) + 0.1 * lower)), 0.5
+            z0 = z0 / 0.002
+    (graphed, c_g, captures), (eager, c_e, none) = _graphed_and_eager(
+        vg, z0, num_warmup=10, num_samples=20, max_depth=8, init_step_size=eps)
+    assert len(captures) == 1 and not none
+    assert graphed.warmup_leapfrog == eager.warmup_leapfrog
+    assert torch.equal(graphed.num_leapfrog, eager.num_leapfrog)
+    assert torch.equal(graphed.samples, eager.samples)
+    assert torch.equal(graphed.accept_prob, eager.accept_prob)
+    assert torch.equal(graphed.step_size, eager.step_size)
+    # every leaf after the first transition replayed: value+grad calls that
+    # the function did not see, counted by the engine
+    leaves = graphed.warmup_leapfrog + int(graphed.num_leapfrog.sum())
+    assert c_g["nuts.leaves"] == leaves == c_e["nuts.leaves"]
+    assert c_g["nuts.graph_leaves"] == graphed.graph_leaves > 0
+    assert c_g["nuts.graph_leaves"] + c_g["nuts.eager_leaves"] == leaves
+    assert c_e["nuts.eager_leaves"] == leaves and eager.graph_leaves == 0
+
+
+@pytest.mark.parametrize("potential", ["auto", "off"], ids=["k1", "autodiff"])
+def test_second_sample_call_replays_every_lockstep_leaf(cuda, potential):
+    """The trees live with sample()'s cached value+grad: a second call
+    captures nothing and replays every leaf, and K1's launches and the
+    value+grad calls count the replays."""
+    from brancher_torch import metrics
+    from brancher_torch.inference import NUTS, sample
+    from brancher_torch.models import logistic_regression_model, make_logreg_data
+
+    x, y, _ = make_logreg_data(20_000, 55, seed=3)
+    model = logistic_regression_model(x, y)
+    kw = dict(kernel=NUTS(max_depth=8), num_chains=64, device="cuda",
+              diagnostics_backend="none", fused_potential=potential)
+    kernel = G.kernel_for("bernoulli_logit", "f32")
+    with metrics.tracing() as tr:
+        first = sample(model, num_warmup=10, num_samples=5, key=1, **kw)
+        before = kernel.launches
+        second = sample(model, num_warmup=0, num_samples=5, key=2,
+                        resume_state=first.diagnostics["resume_state"], **kw)
+    d = second.diagnostics
+    assert (d["fused_family"] == "bernoulli_logit") == (potential == "auto")
+    assert [s.call for s in tr.spans if s.name == "nuts.leaf_capture"] == [1]
+    c1, c2 = tr.counters[1], tr.counters[2]
+    assert c1["nuts.graph_leaves"] + c1["nuts.eager_leaves"] == c1["nuts.leaves"]
+    assert c2["nuts.graph_leaves"] == c2["nuts.leaves"] > 0 and c2["nuts.eager_leaves"] == 0
+    # one call a leaf, replayed or not, and the engine's first at z0
+    assert d["value_and_grad_calls"] == c2["nuts.leaves"] + 1
+    if potential == "auto":
+        assert kernel.launches - before == d["value_and_grad_calls"]
+
+
+def test_a_tree_whose_value_and_grad_waits_on_the_card_runs_eagerly(cuda):
+    def waits(z):
+        s = float(z.sum())  # a read back: no capture
+        return -0.5 * (z * z).sum(-1) + 0.0 * s, -z
+
+    z0 = torch.randn((16, 3), generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    (tried, counters, captures), (eager, _, _) = _graphed_and_eager(
+        waits, z0, num_warmup=5, num_samples=10, max_depth=6)
+    assert len(captures) == 1  # tried once, failed, and not again
+    assert counters["nuts.graph_leaves"] == 0 == tried.graph_leaves
+    assert counters["nuts.eager_leaves"] == counters["nuts.leaves"] > 0
+    # the failed capture drew nothing from the caller's generator
+    assert torch.equal(tried.samples, eager.samples)

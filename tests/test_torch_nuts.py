@@ -56,14 +56,17 @@ def _target(seed):
     return jvg, tvg, d
 
 
-@pytest.mark.parametrize("seed,eps,max_delta", [
-    (0, 0.15, 1000.0),   # typical trees
-    (1, 0.05, 1000.0),   # small steps: deep trees, several doublings
-    (2, 1.2, 3.0),       # large steps and a low threshold: divergences
+@pytest.mark.parametrize("seed,eps,max_delta,max_depth", [
+    (0, 0.15, 1000.0, 6),   # typical trees
+    (1, 0.05, 1000.0, 6),   # small steps: deep trees, several doublings
+    (2, 1.2, 3.0, 6),       # large steps and a low threshold: divergences
+    # the cells' depth, steps small enough to fill it: leaf 255 checks the
+    # checkpoint slots [0, 7), the most any U-turn check reads
+    (3, 0.005, 1000.0, 8),
 ])
-def test_transition_replays_jax_stream(seed, eps, max_delta):
+def test_transition_replays_jax_stream(seed, eps, max_delta, max_depth):
     jvg, tvg, d = _target(seed)
-    c, max_depth = 9, 6
+    c = 9
     z = np.random.RandomState(10 + seed).normal(0, 0.5, size=(c, d)).astype(np.float32)
     inv_mass = np.linspace(0.7, 1.3, d).astype(np.float32)
     key = jax.random.PRNGKey(seed)
@@ -90,6 +93,33 @@ def test_transition_replays_jax_stream(seed, eps, max_delta):
     assert float(t.mean_live) == pytest.approx(float(jcnt), rel=1e-6)
     if seed == 2:
         assert bool(t.diverging.any())
+    if max_depth == 8:
+        assert t.num_leaves == 255
+
+
+def _python_schedule(n):
+    """The doubling schedule of leaf n from Python ints: (depth, m, pc, lo,
+    even, is_end)."""
+    depth = n.bit_length() - 1
+    m = n - (1 << depth)
+    pc = bin(m).count("1")
+    t_ones = bin((m ^ (m + 1)) >> 1).count("1")
+    return depth, m, pc, pc - t_ones, m % 2 == 0, m == (1 << depth) - 1
+
+
+def test_device_schedule_matches_the_python_schedule():
+    n = torch.arange(1, 2**10)
+    got = TV._schedule(n, *TV._schedule_tables(2**10, n.device))
+    want = list(zip(*(_python_schedule(i) for i in range(1, 2**10))))
+    for g, w in zip(got, want):
+        assert g.tolist() == list(w)
+    # the lockstep tree's rows: start, end, the U-turn slots, the row written
+    tree = TV._LockstepTree(2, 1, torch.float32, "cpu", 10, 1000.0)
+    for i in range(1, 2**10):
+        _, m, pc, lo, even, is_end = _python_schedule(i)
+        checks = [not even and lo <= k < pc for k in range(11)]
+        assert tree.flags[i].tolist() == [m == 0, is_end] + checks
+        assert int(tree.slot[i]) == (pc if even else 11)
 
 
 def test_torch_stream_is_reproducible():
