@@ -841,7 +841,10 @@ def sample(
     if stage_a is not None:
         diagnostics["dense_stage_a"] = stage_a
     # checkpointable sampler state: feed back via sample(resume_state=...)
-    resume = {"z": zs[:, -1], "step_size": info["step_size"], "inv_mass": info["inv_mass"]}
+    # contiguous: a pipelined run's last draws are a strided view of its
+    # samples, and the fused GLM kernels take [C, D] rows as they lie
+    resume = {"z": zs[:, -1].contiguous(), "step_size": info["step_size"],
+              "inv_mass": info["inv_mass"]}
     if "trajectory_length" in info:  # ChEES: the adapted length resumes too
         resume["trajectory_length"] = info["trajectory_length"]
     if dense_ckpt is not None:

@@ -44,10 +44,13 @@ ends on its own chains' U-turns.
 With ``metrics.tracing()`` on, the lockstep engine records its spans and
 counters (``nuts.warmup``, ``nuts.window``, ``nuts.draws``, ``nuts.leaf``,
 ``nuts.sync``, ``nuts.leaf_capture``; ``nuts.leaves``, ``nuts.live_leaves``,
-``nuts.depth_hist``, ``nuts.graph_leaves``, ``nuts.eager_leaves``:
-``metrics.tracing``'s docstring).  A transition reads the recorder once;
-off, each point in its loop is one ``is None`` test.  The counters are
-summed on the device and change no number the engine computes.
+``nuts.depth_hist``, ``nuts.graph_leaves``, ``nuts.eager_leaves``,
+``nuts.tree_state_bytes``: ``metrics.tracing``'s docstring), and the
+pipelined sampling phase its ``nuts.draws``, a ``nuts.leaf`` with its
+``nuts.sync`` each iteration, ``nuts.leaves`` and ``nuts.live_leaves``.  A
+transition or a pipelined loop reads the recorder once; off, each point in
+its loop is one ``is None`` test.  The counters are summed on the device
+and change no number the engine computes.
 """
 from __future__ import annotations
 
@@ -221,6 +224,10 @@ class _LockstepTree:
         self.s_failed, self.active, self.diverging = (zeros(c, kind=torch.bool) for _ in range(3))
         # checkpoint stacks, depth-major; row kdim takes the odd leaves' writes
         self.r_ck, self.rs_ck = zeros(kdim + 1, c, d), zeros(kdim + 1, c, d)
+        # the bytes of the device state above (37 [C, d] tensors and a few
+        # [C] ones), counted once a transition as ``nuts.tree_state_bytes``
+        self.state_bytes = sum(t.numel() * t.element_size() for t in vars(self).values()
+                               if isinstance(t, Tensor))
         self.graphs = self.gen = None
         self.launched = []
 
@@ -359,6 +366,7 @@ class _LockstepTree:
             _count_tree(tr, leaves, self.cnt, self.r_ck.shape[0] - 1)
             tr.count("nuts.graph_leaves", replayed)
             tr.count("nuts.eager_leaves", leaves - replayed)
+            tr.count("nuts.tree_state_bytes", self.state_bytes)
         accept_prob = self.sum_acc / torch.clamp(self.cnt, min=1.0)
         return Transition(self.prop[0].clone(), self.prop_val.clone(), self.prop[1].clone(),
                           accept_prob, self.diverging.clone(), leaves, torch.mean(self.cnt),
@@ -560,11 +568,18 @@ def _pipelined_sampling(
     cnts = torch.zeros((c, s_len + 1), dtype=dtype, device=dev)
     it = 0
     syncs = 0
+    tr = _metrics._tracer
     while True:
         working = draw < s_len  # chains with draws left
         syncs += 1
+        if tr is not None:
+            t_sync = time.perf_counter_ns()
         if not bool(working.any()):
+            if tr is not None:
+                tr.span("nuts.sync", t_sync, time.perf_counter_ns())
             break
+        if tr is not None:
+            t_leaf = time.perf_counter_ns()
         mom, dir_pos, swap_u, take_u = rng.iteration(it, z)
 
         # --- per-chain draw start: refresh momentum, reset the tree ------
@@ -666,6 +681,14 @@ def _pipelined_sampling(
         n = torch.where(finished, 0, n)
         active = active & ~finished
         it += 1
+        if tr is not None:
+            tr.span("nuts.sync", t_sync, t_leaf,
+                    parent=tr.span("nuts.leaf", t_sync, time.perf_counter_ns()))
+    if tr is not None:
+        # an iteration is one leaf over every chain; a chain's live leaves
+        # are the sum of its draws' counts
+        tr.count("nuts.leaves", it)
+        tr.count("nuts.live_leaves", cnts[:, :s_len].to(torch.int64).sum())
     return (zs[:, :s_len], aps[:, :s_len], dvgs[:, :s_len], it,
             torch.mean(cnts[:, :s_len], dim=0), syncs)
 
@@ -752,7 +775,7 @@ def nuts_batched(
         )
         t_end = time.perf_counter_ns()
         if tr is not None:
-            tr.close(draws, t_end, iterations=iters)
+            tr.close(draws, t_end, leaves=iters)
         return VectorizedNUTSResult(
             samples=zs, accept_prob=aps, diverging=dvgs,
             num_leapfrog=torch.full((num_samples,), -(-iters // max(num_samples, 1)), dtype=torch.int64),

@@ -305,7 +305,10 @@ def tracing():
     - ``nuts.leaf``: one leaf of the lockstep tree, from the host's sync
       before it to the end of its issue; its child ``nuts.sync`` is the
       wait at ``bool(active.any())``.  The sync that ends a tree has no
-      leaf: it is a ``nuts.sync`` of its own;
+      leaf: it is a ``nuts.sync`` of its own.  In the pipelined sampling
+      phase (``NUTS(pipelined=True)``) a ``nuts.leaf`` is one iteration,
+      a leaf over every chain, and its ``nuts.sync`` the wait at
+      ``bool(working.any())``;
     - ``nuts.leaf_capture``: the capture of a lockstep tree's start and
       leaf into CUDA graphs, after the tree's first transition at a shape;
     - ``sample.constrain``, ``sample.diagnostics``: the rest of the call.
@@ -316,8 +319,14 @@ def tracing():
     ``max_depth``; at ``max_depth`` a tree saturated, Stan's "maximum
     treedepth" warning), ``nuts.graph_leaves`` and ``nuts.eager_leaves``
     (the leaves replayed from a CUDA graph and those run eagerly: their
-    sum is ``nuts.leaves``).  The counters of the NUTS engine are summed on
-    the device and read when ``sample()``'s engine span ends."""
+    sum is ``nuts.leaves``), ``nuts.tree_state_bytes`` (the bytes of the
+    lockstep tree's device state, 37 [C, d] tensors and a few [C] ones,
+    added once a transition: over a call, the bytes times the
+    transitions, which ``nuts.depth_hist`` counts per chain).  The
+    pipelined sampling phase adds its iterations to ``nuts.leaves`` and
+    its chains' live leaves to ``nuts.live_leaves``.  The counters of the
+    NUTS engine are summed on the device and read when ``sample()``'s
+    engine span ends."""
     global _tracer
     if _tracer is not None:
         yield _tracer

@@ -362,6 +362,26 @@ def test_pipelined_run_launches_once_a_call(cuda):
     assert bool(torch.isfinite(res.samples["coeffs"]).all())
 
 
+# a resumed pipelined call starts on the kernel from the last call's draws,
+# which the resume state holds as contiguous rows
+def test_a_resumed_pipelined_run_runs_on_the_kernel(cuda):
+    from brancher_torch.inference import NUTS, sample
+    from brancher_torch.models import logistic_regression_model, make_logreg_data
+
+    x, y, _ = make_logreg_data(1000, 32, seed=0)
+    model = logistic_regression_model(x, y)
+    kw = dict(kernel=NUTS(max_depth=6, pipelined=True), num_chains=64, device="cuda")
+    first = sample(model, num_warmup=40, num_samples=10, key=0, **kw)
+    state = first.diagnostics["resume_state"]
+    assert state["z"].is_contiguous()
+    kernel = G.kernel_for("bernoulli_logit", "f32")
+    before = kernel.launches
+    res = sample(model, num_warmup=0, num_samples=10, key=1, resume_state=state, **kw)
+    assert res.diagnostics["fused_family"] == "bernoulli_logit"
+    assert kernel.launches - before == res.diagnostics["value_and_grad_calls"] > 0
+    assert bool(torch.isfinite(res.samples["w"]).all())
+
+
 # The autodiff value+grad of sample()'s autodiff paths (no kernel of the
 # port's) replays a CUDA graph on the card: the eager call's numbers at
 # every replay, new inputs copied in; a function that waits on the card

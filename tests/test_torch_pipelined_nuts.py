@@ -143,6 +143,22 @@ def test_pipelined_nuts_conjugate_short_run():
     assert 0 < d["sampling_seconds"] < d["sampler_seconds"]  # the draws' loop alone
 
 
+def test_a_pipelined_resume_state_holds_contiguous_rows():
+    """A pipelined run's last draws are a strided view of its samples; its
+    resume state holds them as contiguous [C, d] rows, which the fused GLM
+    kernels take as they lie on the card, and a resumed call goes on from
+    them."""
+    m, _, _ = _conjugate(0)
+    kw = dict(kernel=NUTS(max_depth=5, pipelined=True), num_chains=4, device="cpu")
+    first = sample(m, num_samples=6, num_warmup=20, key=1, **kw)
+    z = first.diagnostics["resume_state"]["z"]
+    assert z.is_contiguous() and z.shape == (4, 1)
+    assert torch.equal(z[:, 0], first.samples["mu"][:, -1])
+    more = sample(m, num_samples=4, num_warmup=0, key=2, resume_state=first.diagnostics["resume_state"],
+                  **kw)
+    assert more.samples["mu"].shape == (4, 4)
+
+
 @pytest.mark.slow  # about 2.5 min on a CPU
 def test_pipelined_matches_lockstep_on_funnel():
     """Eight-schools geometry (mirrors tests/test_vectorized_nuts.py:254,

@@ -15,7 +15,9 @@ import torch
 from brancher_torch import metrics
 from brancher_torch.inference import HMC, NUTS, ChEESHMC, sample
 from brancher_torch.inference.adaptation import build_warmup_schedule
-from brancher_torch.inference.vectorized_nuts import _count_tree, _warmup_windows
+from brancher_torch.inference.vectorized_nuts import (
+    _count_tree, _LockstepTree, _warmup_windows,
+)
 from brancher_torch.models import logistic_regression_model, make_logreg_data
 
 torch.set_num_threads(2)
@@ -167,6 +169,52 @@ def test_live_leaves_and_depths_match_the_chains_trees(model):
     live = tr.counters[2]["nuts.live_leaves"]
     assert live == round(CHAINS * float(resumed.diagnostics["chain_leapfrog"].sum()))
     assert live <= CHAINS * tr.counters[2]["nuts.leaves"]
+
+
+def test_pipelined_leaves_and_syncs_match_the_engine_counts(model):
+    """The pipelined sampling phase: one ``nuts.leaf`` a loop iteration,
+    each with one ``nuts.sync`` child, a last sync alone; its leaves and
+    live leaves in the call's counters."""
+    pipelined = KERNELS["nuts_pipelined"]
+    with metrics.tracing() as tr:
+        first = _run(model, **pipelined)
+        resumed = _run(model, **pipelined, num_warmup=0, resume_state=first.diagnostics["resume_state"])
+    draws = _by_name(tr, "nuts.draws", call=2)[0]
+    leaves = [s for s in _by_name(tr, "nuts.leaf", call=2) if tr.spans[s.parent] is draws]
+    syncs = _by_name(tr, "nuts.sync", call=2)
+    assert len(leaves) == draws.args["leaves"] == tr.counters[2]["nuts.leaves"] > 0
+    assert len(syncs) == resumed.diagnostics["host_syncs"] == len(leaves) + 1
+    assert sorted(tr.spans[s.parent].name for s in syncs) == ["nuts.draws"] + ["nuts.leaf"] * len(leaves)
+    assert all(_inside(s, draws) for s in leaves)
+    live = tr.counters[2]["nuts.live_leaves"]
+    assert live == round(CHAINS * float(resumed.diagnostics["chain_leapfrog"].sum()))
+    assert 0 < live <= CHAINS * len(leaves)
+    assert "nuts.tree_state_bytes" not in tr.counters[2]  # no lockstep tree in the draws
+    warmup = first.diagnostics["warmup_leapfrog"]
+    assert tr.counters[1]["nuts.leaves"] == warmup + _by_name(tr, "nuts.draws", call=1)[0].args["leaves"]
+
+
+@pytest.mark.parametrize("c,d,max_depth", [(4, 5, 6), (3, 7, 8)])
+def test_tree_state_bytes_count_the_lockstep_trees_buffers(c, d, max_depth):
+    """37 [C, d] float tensors (z, grad, the ends' and the moving end's
+    points, the proposals, the momentum sums and the two checkpoint stacks
+    of max_depth + 2 rows), nine [C] floats, three [C] flags, eps, the mass,
+    n and the per-leaf schedule tables."""
+    kdim, rows = max_depth + 1, 2**max_depth + 1
+    tree = _LockstepTree(c, d, torch.float32, "cpu", max_depth, 1000.0)
+    per_chain = 2 + 6 + 3 + 2 + 2 + 2 + 2 * (kdim + 1)
+    assert per_chain == 37 + 2 * (max_depth - 8)
+    assert tree.state_bytes == (4 * per_chain * c * d + 4 * 9 * c + 3 * c + 4 + 4 * d + 8
+                                + rows * (2 + kdim) + 8 * rows)
+
+
+def test_tree_state_bytes_are_added_once_a_transition(model):
+    with metrics.tracing() as tr:
+        res = _run(model)
+    d = res.diagnostics["inv_mass"].shape[-1]
+    one = _LockstepTree(CHAINS, d, torch.float32, "cpu", 6, 1000.0).state_bytes
+    assert tr.counters[1]["nuts.tree_state_bytes"] == (WARMUP + DRAWS) * one
+    assert sum(tr.counters[1]["nuts.depth_hist"]) == CHAINS * (WARMUP + DRAWS)
 
 
 def test_depth_of_a_chain_is_the_doublings_its_live_leaves_fill():
