@@ -48,6 +48,16 @@
 // The wrapper's planner (ops/glm.py plan_glm) chooses the strides, the row
 // tiles and the splits; the launch checks them against the tiles here.
 //
+// Narrow width (f32, D up to the planner's threshold): one fused pass takes
+// the place of passes 0, A and B.  At D = 55 (UCI Covertype's width) the
+// passes' tiles, chosen for D = 1024, ran at a quarter of the f32 bound:
+// pass A wrote a [C, N] f32 residual and pass B read it back (2.38 GB each
+// way at C = 1024, N = 581,012), and pass B's 128-column block was 43 %
+// full.  The fused pass (f32_narrow) keeps a chain tile's gradient in
+// registers and each tile of residuals in shared memory, runs both products
+// over one tile of X back to back, and writes only per-split partials; the
+// same finish sums them.  Its products are exact f32 FMA as the passes'.
+//
 // bf16 mainloops (K2, K4): one warpgroup per block runs wgmma.m64n64k16
 // (bf16 in, f32 accumulators in registers) on tiles that TMA brings into a
 // 3-stage ring of shared memory, each stage completed by an mbarrier.  At
@@ -102,6 +112,26 @@ constexpr int F_SMEM_A = F_STAGES * 2 * F_BM * F_LDK * 4;
 constexpr int F_SMEM_B = F_STAGES * (F_BM * F_LDK + F_BK * F_LDD) * 4;
 constexpr int F_ALIGN = 4;      // elements in 16 bytes of f32
 constexpr int F_BLOCKS_PER_SM = 2;  // 128 registers a thread, 80 KB of ring
+
+// ---- f32 at narrow width: one fused pass (CUDA cores, cp.async) -------------
+constexpr int N_ROWS = 64;         // X rows per tile; a split is whole tiles
+constexpr int N_THREADS = 256;
+constexpr int N_DEPTH_ALIGN = 8;   // z and X staged D' = D rounded up to 8 wide, rows
+                                   // D' + 4 floats apart: an odd count of 16-byte pieces
+constexpr int N_MAX_DEPTH = 64;    // the widest D' the pass takes
+constexpr int N_LDR = N_ROWS + 4;  // the residual tile's row stride
+
+constexpr int N_BLOCKS_PER_SM = 2;  // the launch bounds' 128 registers a thread
+
+// shared memory of one narrow block of bc chains at staged width dp: the z
+// tile, the residual tile, and two stages of X, y and b
+__host__ __device__ constexpr int narrow_smem_bytes(int bc, int dp) {
+  return 4 * (bc * (dp + 4) + bc * N_LDR + 2 * (N_ROWS * (dp + 4) + 2 * N_ROWS));
+}
+// the widest block and the 1 KB an H100 keeps back for each: two fit in an
+// SM's 228 KB, so shared memory never cuts the planner's two blocks
+static_assert(N_BLOCKS_PER_SM * (narrow_smem_bytes(128, N_MAX_DEPTH) + 1024) <= 228 * 1024,
+              "two narrow blocks a multiprocessor");
 
 constexpr int FINISH_THREADS = 256;
 
@@ -176,6 +206,11 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
                "r"(bytes)
                : "memory");
 }
@@ -580,6 +615,209 @@ __global__ void __launch_bounds__(F_THREADS, 2) f32_pass_b(
   }
 }
 
+// ---- f32 narrow pass (both families) ----------------------------------------
+// The narrow pass's elementwise middle: middle's, but the Bernoulli family
+// takes softplus and sigmoid from one exponential, e = exp(-|l|), and
+// 1 / (1 + e) from the reciprocal's approximation and one Newton step
+// (1 + e lies in [1, 2]), so that no branch keeps the compiler from
+// interleaving a thread's 32 elements.
+template <int FAMILY>
+__device__ __forceinline__ float middle_one_exp(float acc, float yv, float bv, float& part) {
+  if (FAMILY == NORMAL) return middle<NORMAL>(acc, yv, bv, part);
+  const float l = acc + bv;
+  const float e = expf(-fabsf(l)), t = 1.f + e;
+  float q = __fdividef(1.f, t);
+  q = fmaf(q, fmaf(-t, q, 1.f), q);
+  part += yv * l - (fmaxf(l, 0.f) + log1pf(e));  // softplus_f(l)
+  return yv - (l >= 0.f ? q : e * q);
+}
+
+// Grid (chain tile, row split).  The block stages its z tile [BC, D'] once
+// (D' = D rounded up to N_DEPTH_ALIGN, zeros past D), then walks the split's
+// rows in tiles of N_ROWS, each tile's X rows, y and b brought by cp.async
+// into a two-stage ring while the block works on the one before.  For each
+// tile:
+//   product 1  l = z X^T + b: thread (tx, ty) owns chains ty + 16 i and rows
+//              tx + 16 j, both operands read as float4 along the depth;
+//   middle     the family's elementwise middle; the tile's log-likelihood
+//              (or rss) added to the thread's per-chain registers, the
+//              residual to a shared tile R [BC, N_ROWS], 0 on rows past the
+//              split's end (masked: a zero-filled row would otherwise add the
+//              Bernoulli residual -1/2 and its log-likelihood);
+//   product 2  g[BC, D'] += R X[tile rows, :]: the thread owns columns
+//              4 cg .. 4 cg + 3 of chains cr + (256 / CGP) k, in registers for
+//              the whole split.
+// Then the block writes one gradient partial [BC, D] to g_part[split] and,
+// per chain, the sum of the 16 row lanes' partials to ll_part[c, split], for
+// the finish.  No [C, N] tensor reaches device memory, every sum has a fixed
+// order and there are no atomics.  CGP, the column groups of product 2's
+// thread grid, is D'/4 rounded up to 4 or 16; threads past D'/4 idle in
+// product 2.
+template <int FAMILY, int BC, int CGP>
+__global__ void __launch_bounds__(N_THREADS, N_BLOCKS_PER_SM) f32_narrow(
+    const float* __restrict__ z, const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ b, float* __restrict__ ll_part, float* __restrict__ g_part, int C,
+    int N, int D, int ldx, int ldg, int splits, int rows_per_split) {
+  constexpr int MI = BC / 16;              // product 1: chains a thread
+  constexpr int CSTEP = N_THREADS / CGP;   // product 2: chain stride
+  constexpr int NCH = BC / CSTEP;          // product 2: chains a thread
+  static_assert(NCH >= 1 && BC % 16 == 0 && N_ROWS % CSTEP == 0, "narrow tile");
+  extern __shared__ float4 fsm4[];
+  const int dp = (D + N_DEPTH_ALIGN - 1) / N_DEPTH_ALIGN * N_DEPTH_ALIGN;
+  const int ldk = dp + 4, dq = dp / 4;
+  float* zs = reinterpret_cast<float*>(fsm4);  // [BC][ldk]
+  float* rs = zs + BC * ldk;                   // [BC][N_LDR]
+  float* xs = rs + BC * N_LDR;                 // [stage][N_ROWS][ldk]
+  float* ys = xs + 2 * N_ROWS * ldk;           // [stage][N_ROWS]
+  float* bs = ys + 2 * N_ROWS;                 // [stage][N_ROWS]
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int cg = tid % CGP, cr = tid / CGP;
+  const int c_base = blockIdx.x * BC, s = blockIdx.y;
+  const int row0 = s * rows_per_split, row_end = min(row0 + rows_per_split, N);
+  const int tiles = (row_end - row0 + N_ROWS - 1) / N_ROWS;
+
+  auto load = [&](int t, int st) {
+    const int n0 = row0 + t * N_ROWS;
+    float* xd = xs + st * N_ROWS * ldk;
+    // the 16-byte piece cg of rows cr, cr + 256 / CGP, ... (CGP >= D'/4 pieces a row)
+    if (cg < dq) {
+      const int q = 4 * cg;
+#pragma unroll
+      for (int k = 0; k < N_ROWS / CSTEP; ++k) {
+        const int r = cr + CSTEP * k, gn = n0 + r;
+        const int nb = gn < row_end ? 4 * clamp4(D - q) : 0;
+        cp_async16(xd + r * ldk + q, nb ? x + static_cast<size_t>(gn) * ldx + q : x, nb);
+      }
+    }
+    if (tid < 2 * N_ROWS) {  // y and b in 4-byte pieces: no alignment asked of them
+      const int r = tid % N_ROWS, gn = n0 + r;
+      const float* src = tid < N_ROWS ? y : b;
+      cp_async4((tid < N_ROWS ? ys : bs) + st * N_ROWS + r, gn < row_end ? src + gn : src,
+                gn < row_end ? 4 : 0);
+    }
+  };
+
+  if (tiles > 0) load(0, 0);
+  cp_commit();
+  for (int e = tid; e < BC * dp; e += N_THREADS) {
+    const int c = e / dp, d = e - c * dp, gc = c_base + c;
+    zs[c * ldk + d] = gc < C && d < D ? z[static_cast<size_t>(gc) * D + d] : 0.f;
+  }
+  float g[NCH][4], ll[MI];
+#pragma unroll
+  for (int k = 0; k < NCH; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) g[k][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) ll[i] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t & 1;
+    cp_wait<0>();
+    __syncthreads();  // tile t landed and z is staged; every thread is done with tile t - 1
+    if (t + 1 < tiles) load(t + 1, st ^ 1);
+    cp_commit();
+    const float* xt = xs + st * N_ROWS * ldk;
+
+    float acc[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+    for (int k4 = 0; k4 < dp; k4 += 4) {
+      float4 xv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        xv[j] = *reinterpret_cast<const float4*>(xt + (tx + 16 * j) * ldk + k4);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const float4 zv = *reinterpret_cast<const float4*>(zs + (ty + 16 * i) * ldk + k4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(zv.x, xv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(zv.y, xv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(zv.z, xv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(zv.w, xv[j].w, acc[i][j]);
+        }
+      }
+    }
+
+    const int live = row_end - (row0 + t * N_ROWS);  // rows of the tile inside the split
+    float part[MI];  // the tile's four rows of each chain, then added to ll: shorter sums
+#pragma unroll
+    for (int i = 0; i < MI; ++i) part[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = tx + 16 * j;
+      const bool in = r < live;  // a masked row's X, y and b read 0: finite, then dropped
+      const float yv = ys[st * N_ROWS + r], bv = bs[st * N_ROWS + r];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        float p = 0.f;
+        const float res = middle_one_exp<FAMILY>(acc[i][j], yv, bv, p);
+        part[i] += in ? p : 0.f;
+        rs[(ty + 16 * i) * N_LDR + r] = in ? res : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) ll[i] += part[i];
+    __syncthreads();  // the residual tile is whole
+
+    if (cg < dq) {
+#pragma unroll 2
+      for (int n4 = 0; n4 < N_ROWS; n4 += 4) {
+        float4 xv[4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          xv[kk] = *reinterpret_cast<const float4*>(xt + (n4 + kk) * ldk + 4 * cg);
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) {
+          const float4 rv = *reinterpret_cast<const float4*>(rs + (cr + CSTEP * k) * N_LDR + n4);
+          g[k][0] = fmaf(rv.x, xv[0].x, g[k][0]);
+          g[k][1] = fmaf(rv.x, xv[0].y, g[k][1]);
+          g[k][2] = fmaf(rv.x, xv[0].z, g[k][2]);
+          g[k][3] = fmaf(rv.x, xv[0].w, g[k][3]);
+          g[k][0] = fmaf(rv.y, xv[1].x, g[k][0]);
+          g[k][1] = fmaf(rv.y, xv[1].y, g[k][1]);
+          g[k][2] = fmaf(rv.y, xv[1].z, g[k][2]);
+          g[k][3] = fmaf(rv.y, xv[1].w, g[k][3]);
+          g[k][0] = fmaf(rv.z, xv[2].x, g[k][0]);
+          g[k][1] = fmaf(rv.z, xv[2].y, g[k][1]);
+          g[k][2] = fmaf(rv.z, xv[2].z, g[k][2]);
+          g[k][3] = fmaf(rv.z, xv[2].w, g[k][3]);
+          g[k][0] = fmaf(rv.w, xv[3].x, g[k][0]);
+          g[k][1] = fmaf(rv.w, xv[3].y, g[k][1]);
+          g[k][2] = fmaf(rv.w, xv[3].z, g[k][2]);
+          g[k][3] = fmaf(rv.w, xv[3].w, g[k][3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // the 16 row lanes of a chain, in a fixed order
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    float v = ll[i];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    const int c = c_base + ty + 16 * i;
+    if (tx == 0 && c < C) ll_part[static_cast<size_t>(c) * splits + s] = v;
+  }
+  const int d = 4 * cg;  // ldg is D rounded up to 4: the float4 lies in the row
+  if (d < D) {
+    float* gp = g_part + static_cast<size_t>(s) * C * ldg;
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = c_base + cr + CSTEP * k;
+      if (c < C)
+        *reinterpret_cast<float4*>(gp + static_cast<size_t>(c) * ldg + d) =
+            make_float4(g[k][0], g[k][1], g[k][2], g[k][3]);
+    }
+  }
+}
+
 // ---- finish: fixed-order sums of the partials, prior, epilogue --------------
 // ll_part holds log-likelihood partials (bernoulli_logit) or rss partials
 // (normal_learned); u, c0 and n_real are read for normal_learned only.
@@ -686,6 +924,18 @@ inline bool plan_ok(bool bf16, int C, int N, int D, int ldx, int ldz, int ldr, i
   return covered >= N && covered - rows_per_split < N && splits <= 65535;
 }
 
+// the same for the narrow pass: no operand scratch, one partial per split
+inline bool narrow_plan_ok(int C, int N, int D, int ldx, int ldg, int row_tiles, int splits,
+                           int rows_per_split, int chain_tile) {
+  if (C <= 0 || N <= 0 || D <= 0 || D > N_MAX_DEPTH) return false;
+  if (chain_tile != 64 && chain_tile != 128) return false;
+  if (ldx < D || ldg < D || ldx % F_ALIGN || ldg % 4) return false;
+  if (row_tiles != splits || splits < 1 || rows_per_split <= 0 || rows_per_split % N_ROWS)
+    return false;
+  const long long covered = static_cast<long long>(splits) * rows_per_split;
+  return covered >= N && covered - rows_per_split < N && splits <= 65535;
+}
+
 #define GLM90_CHECK(call)                               \
   do {                                                  \
     call;                                               \
@@ -720,48 +970,116 @@ inline int encode_maps(const void* x, int ldx, const void* zs, int ldz, const vo
   return err;
 }
 
+// The narrow pass's product-2 column groups CGP for width D (f32_narrow)
+inline int narrow_column_groups(int D) {
+  const int dp = (D + N_DEPTH_ALIGN - 1) / N_DEPTH_ALIGN * N_DEPTH_ALIGN;
+  return dp <= 16 ? 4 : 16;
+}
+
+// One launch of the narrow pass, the kernel opted in to the shared memory
+// of its widest D'; or, with occupancy set, the blocks of it that one
+// multiprocessor holds at width D, as the runtime counts them, to *occupancy.
+template <int FAMILY, int BC, int CGP>
+int narrow_cgp(const float* z, const float* x, const float* y, const float* b, float* ll_part,
+               float* g_part, int C, int N, int D, int ldx, int ldg, int splits,
+               int rows_per_split, cudaStream_t st, int* occupancy) {
+  const auto kernel = f32_narrow<FAMILY, BC, CGP>;
+  GLM90_SMEM_ONCE(kernel, narrow_smem_bytes(BC, 4 * CGP));
+  const int smem = narrow_smem_bytes(BC, (D + N_DEPTH_ALIGN - 1) / N_DEPTH_ALIGN * N_DEPTH_ALIGN);
+  if (occupancy != nullptr) {
+    GLM90_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, N_THREADS, smem));
+    return 0;
+  }
+  GLM90_CHECK((f32_narrow<FAMILY, BC, CGP><<<dim3((C + BC - 1) / BC, splits), N_THREADS, smem,
+                                            st>>>(z, x, y, b, ll_part, g_part, C, N, D, ldx, ldg,
+                                                  splits, rows_per_split)));
+  return 0;
+}
+
+template <int FAMILY, int BC>
+int narrow(const float* z, const float* x, const float* y, const float* b, float* ll_part,
+           float* g_part, int C, int N, int D, int ldx, int ldg, int splits, int rows_per_split,
+           cudaStream_t st, int* occupancy = nullptr) {
+  return narrow_column_groups(D) == 4
+             ? narrow_cgp<FAMILY, BC, 4>(z, x, y, b, ll_part, g_part, C, N, D, ldx, ldg, splits,
+                                         rows_per_split, st, occupancy)
+             : narrow_cgp<FAMILY, BC, 16>(z, x, y, b, ll_part, g_part, C, N, D, ldx, ldg,
+                                          splits, rows_per_split, st, occupancy);
+}
+
+// The narrow pass's blocks a multiprocessor holds at chain tile 64 or 128
+// and width D (the Bernoulli kernel; the families share tiles and launch
+// bounds): out[0]
+inline int narrow_occupancy(int chain_tile, int D, int* out) {
+  if ((chain_tile != 64 && chain_tile != 128) || D <= 0 || D > N_MAX_DEPTH)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return chain_tile == 64
+             ? narrow<BERNOULLI, 64>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, D,
+                                     D, D, 1, N_ROWS, nullptr, out)
+             : narrow<BERNOULLI, 128>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1,
+                                      D, D, D, 1, N_ROWS, nullptr, out);
+}
+
 // One value+grad call: every pass, on one stream.  For bf16, maps holds the
 // four tensor maps of encode_maps for these X and scratch; f32 takes none.
 // u, c0 and n_real (the number of rows) are read for normal_learned only.
+// chain_tile 0 runs passes 0, A and B; 64 or 128 (f32 only) runs the narrow
+// pass with that chain tile instead, which takes neither z_s nor resid
+// (they may be null; ldz and ldr are not read) and row_tiles equal to
+// splits: one log-likelihood partial per split.
 template <int FAMILY, bool BF16>
 int launch(const float* z, const void* x, const void* maps, const float* y, const float* b,
            const float* m, const float* iv, const float* u, float c0, float ll_scale,
            float n_real, float* val, float* grad, void* zs, void* resid, float* ll_part,
            float* g_part, int C, int N, int D, int ldx, int ldz, int ldr, int ldg, int row_tiles,
-           int splits, int rows_per_split, void* stream) {
-  if (!plan_ok(BF16, C, N, D, ldx, ldz, ldr, ldg, row_tiles, splits, rows_per_split) ||
-      !aligned16(x) || !aligned16(zs) || !aligned16(resid) || !aligned16(g_part) ||
-      (BF16 && maps == nullptr) || (FAMILY == NORMAL && u == nullptr))
+           int splits, int rows_per_split, int chain_tile, void* stream) {
+  const bool fused = chain_tile != 0;
+  const bool plan = fused ? !BF16 && narrow_plan_ok(C, N, D, ldx, ldg, row_tiles, splits,
+                                                    rows_per_split, chain_tile)
+                          : plan_ok(BF16, C, N, D, ldx, ldz, ldr, ldg, row_tiles, splits,
+                                    rows_per_split) && aligned16(zs) && aligned16(resid);
+  if (!plan || !aligned16(x) || !aligned16(g_part) || (BF16 && maps == nullptr) ||
+      (FAMILY == NORMAL && u == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   typedef typename std::conditional<BF16, __nv_bfloat16, float>::type OT;
-  const int z_blocks = static_cast<int>(
-      std::min<long long>((static_cast<long long>(C) * D + 255) / 256, 4096));
-  GLM90_CHECK((stage_z<OT><<<z_blocks, 256, 0, st>>>(z, static_cast<OT*>(zs), C, D, ldz)));
-  if (BF16) {
-    CUtensorMap m4[4];  // X for pass A, X for pass B, z scratch, residual
-    memcpy(m4, maps, sizeof(m4));
-    GLM90_SMEM_ONCE(bf16_pass_a<FAMILY>, T_SMEM);
-    GLM90_SMEM_ONCE(bf16_pass_b, T_SMEM);
-    GLM90_CHECK((bf16_pass_a<FAMILY><<<dim3((C + T_BM - 1) / T_BM, row_tiles), T_THREADS, T_SMEM,
-                                       st>>>(m4[2], m4[0], y, b,
-                                             static_cast<__nv_bfloat16*>(resid), ll_part, C, N,
-                                             D, ldr, row_tiles)));
-    GLM90_CHECK((bf16_pass_b<<<dim3((C + T_BM - 1) / T_BM, (D + T_COLS_B - 1) / T_COLS_B, splits),
-                               T_THREADS, T_SMEM, st>>>(m4[3], m4[1], g_part, C, N, D, ldg,
-                                                        rows_per_split)));
+  if (fused) {
+    const float* xf = static_cast<const float*>(x);
+    const int err = chain_tile == 64
+                        ? narrow<FAMILY, 64>(z, xf, y, b, ll_part, g_part, C, N, D, ldx, ldg,
+                                             splits, rows_per_split, st)
+                        : narrow<FAMILY, 128>(z, xf, y, b, ll_part, g_part, C, N, D, ldx, ldg,
+                                              splits, rows_per_split, st);
+    if (err != 0) return err;
   } else {
-    GLM90_SMEM_ONCE(f32_pass_a<FAMILY>, F_SMEM_A);
-    GLM90_SMEM_ONCE(f32_pass_b, F_SMEM_B);
-    GLM90_CHECK((f32_pass_a<FAMILY><<<dim3((C + F_BM - 1) / F_BM, row_tiles), F_THREADS, F_SMEM_A,
-                                      st>>>(static_cast<const float*>(zs),
-                                            static_cast<const float*>(x), y, b,
-                                            static_cast<float*>(resid), ll_part, C, N, D, ldz,
-                                            ldx, ldr, row_tiles)));
-    GLM90_CHECK((f32_pass_b<<<dim3((C + F_BM - 1) / F_BM, (D + F_BN - 1) / F_BN, splits),
-                              F_THREADS, F_SMEM_B, st>>>(static_cast<const float*>(resid),
-                                                         static_cast<const float*>(x), g_part, C,
-                                                         N, D, ldr, ldx, ldg, rows_per_split)));
+    const int z_blocks = static_cast<int>(
+        std::min<long long>((static_cast<long long>(C) * D + 255) / 256, 4096));
+    GLM90_CHECK((stage_z<OT><<<z_blocks, 256, 0, st>>>(z, static_cast<OT*>(zs), C, D, ldz)));
+    if (BF16) {
+      CUtensorMap m4[4];  // X for pass A, X for pass B, z scratch, residual
+      memcpy(m4, maps, sizeof(m4));
+      GLM90_SMEM_ONCE(bf16_pass_a<FAMILY>, T_SMEM);
+      GLM90_SMEM_ONCE(bf16_pass_b, T_SMEM);
+      GLM90_CHECK((bf16_pass_a<FAMILY><<<dim3((C + T_BM - 1) / T_BM, row_tiles), T_THREADS, T_SMEM,
+                                         st>>>(m4[2], m4[0], y, b,
+                                               static_cast<__nv_bfloat16*>(resid), ll_part, C, N,
+                                               D, ldr, row_tiles)));
+      GLM90_CHECK((bf16_pass_b<<<dim3((C + T_BM - 1) / T_BM, (D + T_COLS_B - 1) / T_COLS_B, splits),
+                                 T_THREADS, T_SMEM, st>>>(m4[3], m4[1], g_part, C, N, D, ldg,
+                                                          rows_per_split)));
+    } else {
+      GLM90_SMEM_ONCE(f32_pass_a<FAMILY>, F_SMEM_A);
+      GLM90_SMEM_ONCE(f32_pass_b, F_SMEM_B);
+      GLM90_CHECK((f32_pass_a<FAMILY><<<dim3((C + F_BM - 1) / F_BM, row_tiles), F_THREADS, F_SMEM_A,
+                                        st>>>(static_cast<const float*>(zs),
+                                              static_cast<const float*>(x), y, b,
+                                              static_cast<float*>(resid), ll_part, C, N, D, ldz,
+                                              ldx, ldr, row_tiles)));
+      GLM90_CHECK((f32_pass_b<<<dim3((C + F_BM - 1) / F_BM, (D + F_BN - 1) / F_BN, splits),
+                                F_THREADS, F_SMEM_B, st>>>(static_cast<const float*>(resid),
+                                                           static_cast<const float*>(x), g_part, C,
+                                                           N, D, ldr, ldx, ldg, rows_per_split)));
+    }
   }
   GLM90_CHECK((finish<FAMILY><<<C, FINISH_THREADS, 0, st>>>(z, m, iv, u, ll_part, g_part, val,
                                                            grad, C, D, row_tiles, splits, ldg,

@@ -1,9 +1,9 @@
 // Fused GLM value + gradient, written by hand for Hopper (sm_90a): the C
 // entries of one family of passes.
 //
-// The passes are in glm_sm90.cuh (four launches per call, no atomics, every
-// sum in a fixed order; wgmma fed by TMA for a bf16 X, register-tiled f32
-// FMA fed by cp.async for an f32 X).  This source defines the elementwise
+// The passes are in glm_sm90.cuh (four launches per call, two for the f32
+// narrow pass; no atomics, every sum in a fixed order; wgmma fed by TMA for
+// a bf16 X, register-tiled f32 FMA fed by cp.async for an f32 X).  This source defines the elementwise
 // helpers they use and one C entry per TPU kernel, each with its own symbol
 // so that its launches are counted apart:
 //   K1-K4, the GLM kernels of brancher_tpu/ops/pallas_glm.py (_bern_kernel,
@@ -43,19 +43,21 @@ __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-
 // operand type, ll_part [C,row_tiles] and g_part [splits,C,ldg] in f32, as
 // ops/glm.py plan_glm lays them out; maps the four tensor maps of
 // glm_sm90_encode_maps (bf16 only); u [D], c0 and n_real (= N) for
-// normal_learned only (u may be null for bernoulli_logit).  Each kernel has
-// its own symbol, so that its launches are counted apart.
+// normal_learned only (u may be null for bernoulli_logit).  chain_tile 0
+// runs passes 0, A and B; 64 or 128 the f32 narrow pass, which takes no
+// z_s or resid.  Each kernel has its own symbol, so that its launches are
+// counted apart.
 #define GLM90_ENTRY(NAME, FAMILY, BF16)                                                  \
   extern "C" int NAME(const float* z, const void* x, const void* maps, const float* y,  \
                       const float* b, const float* m, const float* iv, const float* u,  \
                       float c0, float ll_scale, float n_real, float* val, float* grad,  \
                       void* z_s, void* resid, float* ll_part, float* g_part, int C, int N, \
                       int D, int ldx, int ldz, int ldr, int ldg, int row_tiles, int splits, \
-                      int rows_per_split, void* stream) {                                \
+                      int rows_per_split, int chain_tile, void* stream) {                \
     return glm90::launch<FAMILY, BF16>(z, x, maps, y, b, m, iv, u, c0, ll_scale, n_real, \
                                        val, grad, z_s, resid, ll_part, g_part, C, N, D,  \
                                        ldx, ldz, ldr, ldg, row_tiles, splits,            \
-                                       rows_per_split, stream);                          \
+                                       rows_per_split, chain_tile, stream);              \
   }
 
 GLM90_ENTRY(glm_vg_bernoulli_f32, glm90::BERNOULLI, false)
@@ -76,6 +78,23 @@ extern "C" int glm_sm90_tiles(int bf16, int* out) {
        glm90::T_BLOCKS_PER_SM}};
   for (int i = 0; i < 7; ++i) out[i] = t[bf16 ? 1 : 0][i];
   return 0;
+}
+
+// The f32 narrow pass's tiles (rows a tile, the alignment of its staged
+// width, the widest D it takes, threads a block, blocks one SM holds),
+// which the planner must match: out[5]
+extern "C" int glm_sm90_narrow_tiles(int* out) {
+  const int t[5] = {glm90::N_ROWS, glm90::N_DEPTH_ALIGN, glm90::N_MAX_DEPTH, glm90::N_THREADS,
+                    glm90::N_BLOCKS_PER_SM};
+  for (int i = 0; i < 5; ++i) out[i] = t[i];
+  return 0;
+}
+
+// The narrow pass's blocks that one multiprocessor of the current device
+// holds at chain tile 64 or 128 and width D, as the runtime counts them
+// (registers and shared memory): out[0]
+extern "C" int glm_sm90_narrow_blocks(int chain_tile, int D, int* out) {
+  return glm90::narrow_occupancy(chain_tile, D, out);
 }
 
 // The bf16 kernels' four tensor maps (glm90::encode_maps) of a bf16 X [N,D]

@@ -12,7 +12,9 @@ K1 (Bernoulli, f32), K2 (Bernoulli, bf16), K3 (Normal, f32), K4 (Normal,
 bf16).  All four run the passes of ``csrc/glm_sm90.cuh``, planned by
 ``plan_glm``: the bf16 kernels on the tensor cores through ``wgmma`` fed
 by TMA, the f32 ones register-tiled on the CUDA cores fed by ``cp.async``;
-the families differ only in the elementwise middle and the epilogue.  The
+at narrow width (``takes_narrow_pass``) the f32 ones run one fused pass
+instead of two, with no residual scratch.
+The families differ only in the elementwise middle and the epilogue.  The
 wrapper (``GlmKernel``) takes a tensor on the CPU to the plain version and
 a tensor on a CUDA device to the kernel; there is no fallback from the
 kernel to the plain version.
@@ -426,9 +428,35 @@ GLM_TILES = {
 }
 
 
+class NarrowTiles(NamedTuple):
+    """Tiles of the f32 narrow pass (``csrc/glm_sm90.cuh`` f32_narrow), in
+    the order ``glm_sm90_narrow_tiles`` reports them."""
+
+    rows: int  # X rows a tile; a split is whole tiles
+    depth_align: int  # z and X are staged D rounded up to a multiple of this
+    max_depth: int  # the widest D the pass takes
+    threads: int  # threads a block
+    blocks_per_sm: int  # blocks one multiprocessor holds (registers, shared memory)
+
+
+NARROW_TILES = NarrowTiles(64, 8, 64, 256, 2)
+
+# The f32 kernels (K1, K3, K6) run the narrow pass for D up to this width
+# and passes A and B above it.  On an H100 (700 W), K1 at N = 581,012 took
+# (narrow pass / passes A and B, ms) at C = 1024: D = 32 3.98 / 7.37, 55
+# 4.72 / 8.22, 64 4.93 / 8.23; at C = 64: 0.297 / 0.948, 0.355 / 1.074,
+# 0.367 / 1.068.  Past D' = 64 the pass's gradient tile leaves one block a
+# multiprocessor, and a first build of it lost at C = 1024: D = 96 9.56 /
+# 9.15, 128 10.56 / 10.10 (PERF.md).
+NARROW_MAX_D = 64
+
+
 class GlmPlan(NamedTuple):
     """How one K1-K4 call is cut: the scratch strides (elements), the row
-    tiles of pass A and the row splits of pass B."""
+    tiles of pass A and the row splits of pass B; or, where ``chain_tile``
+    is not 0, the splits of the f32 narrow pass, which has no operand
+    scratch (``ldz`` and ``ldr`` 0) and one log-lik or rss partial per
+    split (``row_tiles`` = ``splits``)."""
 
     ldz: int  # z scratch [C, ldz], operand type
     ldr: int  # residual scratch [C, ldr], operand type
@@ -436,10 +464,17 @@ class GlmPlan(NamedTuple):
     row_tiles: int  # log-lik or rss partials [C, row_tiles], f32
     splits: int
     rows_per_split: int
+    chain_tile: int = 0  # the narrow pass's chains a block (64 or 128); 0: passes A and B
+
+    @property
+    def narrow(self) -> bool:
+        return self.chain_tile > 0
 
     def scratch_shapes(self, c: int) -> Dict[str, Tuple[int, ...]]:
-        return {"z": (c, self.ldz), "resid": (c, self.ldr),
-                "ll_part": (c, self.row_tiles), "g_part": (self.splits, c, self.ldg)}
+        parts = {"ll_part": (c, self.row_tiles), "g_part": (self.splits, c, self.ldg)}
+        if self.narrow:
+            return parts
+        return {"z": (c, self.ldz), "resid": (c, self.ldr), **parts}
 
 
 def _round_up(v: int, m: int) -> int:
@@ -455,10 +490,24 @@ def _round_up(v: int, m: int) -> int:
 ROW_BYTES = 128
 
 
+def takes_narrow_pass(d: int, dtype: str) -> bool:
+    """Whether a call at width ``d`` runs the f32 narrow pass (K1, K3, K6
+    at D <= ``NARROW_MAX_D``); the bf16 kernels never do."""
+    return dtype == "f32" and d <= NARROW_MAX_D
+
+
 def plan_glm(c: int, n: int, d: int, dtype: str, sms: int) -> GlmPlan:
     """The passes of one value+grad call over z [C,D] and N rows on a card
-    with ``sms`` multiprocessors, for the f32 kernels (K1, K3; dtype 'f32')
-    or the bf16 ones (K2, K4; 'bf16'): both families share the passes.
+    with ``sms`` multiprocessors: the narrow pass where
+    ``takes_narrow_pass``, else passes A and B (``plan_two_pass``)."""
+    if takes_narrow_pass(d, dtype):
+        return plan_narrow(c, n, d, sms)
+    return plan_two_pass(c, n, d, dtype, sms)
+
+
+def plan_two_pass(c: int, n: int, d: int, dtype: str, sms: int) -> GlmPlan:
+    """Passes A and B for the f32 kernels (K1, K3; dtype 'f32') or the bf16
+    ones (K2, K4; 'bf16'): both families share the passes.
     Every operand scratch row stride is a multiple of ``ROW_BYTES`` (TMA
     and 16-byte copies need 16; f32 partials a multiple of 4 elements).
     Pass A has one
@@ -476,6 +525,24 @@ def plan_glm(c: int, n: int, d: int, dtype: str, sms: int) -> GlmPlan:
     return GlmPlan(ldz=_round_up(d, row), ldr=_round_up(n, row),
                    ldg=_round_up(d, 4), row_tiles=-(-n // t.rows_a), splits=splits,
                    rows_per_split=steps_per_split * t.rows_b)
+
+
+def plan_narrow(c: int, n: int, d: int, sms: int) -> GlmPlan:
+    """The f32 narrow pass: a chain tile of 64 where C <= 64, else 128, and
+    the rows cut into splits of whole tiles, as many as let every (chain
+    tile, split) block run in one wave of ``blocks_per_sm`` blocks per
+    multiprocessor, none empty."""
+    t = NARROW_TILES
+    if d > t.max_depth:
+        raise ValueError(f"the narrow pass takes D <= {t.max_depth}, got {d}")
+    chains = 64 if c <= 64 else 128
+    tiles = -(-n // t.rows)
+    blocks = -(-c // chains)
+    splits = max(1, min(tiles, t.blocks_per_sm * sms // blocks))
+    tiles_per_split = -(-tiles // splits)
+    splits = -(-tiles // tiles_per_split)
+    return GlmPlan(ldz=0, ldr=0, ldg=_round_up(d, 4), row_tiles=splits, splits=splits,
+                   rows_per_split=tiles_per_split * t.rows, chain_tile=chains)
 
 
 def x_row_aligned(x: Tensor) -> bool:
@@ -503,7 +570,9 @@ class GlmScratch:
     """K1-K4's workspace for one FusedFamily (``build_glm_data`` makes it
     with the data, so it is freed with the data): the plan and the scratch
     tensors of the last (device, stream, C, X) it served, and the bf16
-    kernels' four TMA tensor maps of that X and scratch.  The next call
+    kernels' four TMA tensor maps of that X and scratch.  A narrow plan's
+    tensors are its partials alone: no staged z and no [C, N] residual, in
+    a graph's capture as anywhere.  The next call
     with the same key runs after the last in stream order and reuses them;
     a call with another key replaces them.  A launch inside a CUDA-graph
     capture keeps its key's (plan, tensors, maps) in ``captured``, as long
@@ -521,7 +590,11 @@ class GlmKernel:
     """Wrapper of one value+grad kernel K1-K4, or K6 (``ops/logreg.py``)
     (passes in ``csrc/glm_sm90.cuh``, C entries in ``glm_vg.cu``).  One
     call launches the passes ``plan_glm`` lays out and counts one launch in
-    ``launches``.
+    ``launches``, and one in ``path_launches`` under its path: "narrow"
+    (the f32 narrow pass) or "two_pass" (passes A and B).  A CUDA graph
+    that holds a launch replays it without a call here: the lockstep NUTS
+    engine adds its replays to ``launches``, and ``path_launches`` counts
+    none of them (a capture counts once).
 
     The scratch of a call (z staged, the residual, the partials) and the
     bf16 kernels' tensor maps live in the data's ``GlmScratch``, so the
@@ -540,6 +613,7 @@ class GlmKernel:
         self.symbol = symbol
         self.replaces = replaces
         self.launches = 0
+        self.path_launches = {"narrow": 0, "two_pass": 0}
         self._fn = self._encode = None
 
     def _c_function(self):
@@ -547,16 +621,19 @@ class GlmKernel:
             from .cuda_build import load_library
 
             lib = load_library("glm_vg")
-            lib.glm_sm90_tiles.argtypes = [ctypes.c_int, ctypes.c_void_p]
-            lib.glm_sm90_tiles.restype = ctypes.c_int
-            got = (ctypes.c_int * len(GlmTiles._fields))()
-            lib.glm_sm90_tiles(int(self.dtype == "bf16"), ctypes.addressof(got))
-            if tuple(got) != tuple(GLM_TILES[self.dtype]):
-                raise RuntimeError(f"{self.name}: the library's tiles {tuple(got)} are not "
-                                   f"the planner's {tuple(GLM_TILES[self.dtype])}")
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.glm_sm90_tiles.argtypes = [i, p]
+            lib.glm_sm90_narrow_tiles.argtypes = [p]
+            for query, want in ((lambda out: lib.glm_sm90_tiles(int(self.dtype == "bf16"), out),
+                                 GLM_TILES[self.dtype]),
+                                (lib.glm_sm90_narrow_tiles, NARROW_TILES)):
+                got = (ctypes.c_int * len(want))()
+                query(ctypes.addressof(got))
+                if tuple(got) != tuple(want):
+                    raise RuntimeError(f"{self.name}: the library's tiles {tuple(got)} are not "
+                                       f"the planner's {tuple(want)}")
             fn = getattr(lib, self.symbol)
-            fn.argtypes = [p] * 8 + [f] * 3 + [p] * 6 + [i] * 10 + [p]
+            fn.argtypes = [p] * 8 + [f] * 3 + [p] * 6 + [i] * 11 + [p]
             fn.restype = ctypes.c_int
             lib.glm_sm90_encode_maps.argtypes = [p, i, p, i, p, i, i, i, i, p]
             lib.glm_sm90_encode_maps.restype = ctypes.c_int
@@ -587,17 +664,22 @@ class GlmKernel:
         if c == 0 or n == 0 or d == 0:
             raise ValueError(f"{self.name}: empty input (C={c}, N={n}, D={d})")
 
-    def _fill(self, scratch: GlmScratch, key: tuple, x: Tensor, c: int):
-        """Plan, allocate and (bf16) encode ``scratch`` for ``key``.  A
+    def _fill(self, scratch: GlmScratch, key: tuple, x: Tensor, c: int,
+              plan: Optional[GlmPlan] = None):
+        """Plan (``plan_glm``, unless ``plan`` is given), allocate and (bf16)
+        encode ``scratch`` for ``key``.  A
         tensor map holds the pointer, shape and strides it was encoded for,
         so the key holds X's pointer and stride, and the scratch is new with
         it."""
         device, n, d = x.device, x.shape[0], x.shape[1]
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = plan_glm(c, n, d, self.dtype, sms)
+        if plan is None:
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            plan = plan_glm(c, n, d, self.dtype, sms)
         shapes = plan.scratch_shapes(c)
-        zs = torch.empty(shapes["z"], device=device, dtype=self.x_dtype)
-        resid = torch.empty(shapes["resid"], device=device, dtype=self.x_dtype)
+        zs = resid = None
+        if not plan.narrow:
+            zs = torch.empty(shapes["z"], device=device, dtype=self.x_dtype)
+            resid = torch.empty(shapes["resid"], device=device, dtype=self.x_dtype)
         tensors = (zs, resid, torch.empty(shapes["ll_part"], device=device, dtype=torch.float32),
                    torch.empty(shapes["g_part"], device=device, dtype=torch.float32))
         maps = None
@@ -615,11 +697,20 @@ class GlmKernel:
         return self._launch(z, data)[:2]
 
     def residual(self, z: Tensor, data: FusedFamily) -> Tensor:
-        """The residual [C, N] of one launch, in the operand type (for the
-        bf16 kernels with its bf16 rounding): what the second product read."""
-        return self._launch(z, data)[2].clone()
+        """The residual [C, N] of one launch of passes A and B, in the
+        operand type (for the bf16 kernels with its bf16 rounding): what the
+        second product read.  The narrow pass keeps none."""
+        resid = self._launch(z, data)[2]
+        if resid is None:
+            raise ValueError(f"{self.name}: the narrow pass at D={z.shape[1]} keeps no residual")
+        return resid.clone()
 
-    def _launch(self, z: Tensor, data: FusedFamily) -> Tuple[Tensor, Tensor, Tensor]:
+    def _launch(self, z: Tensor, data: FusedFamily,
+                plan: Optional[GlmPlan] = None) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+        """One launch: (val, grad, the residual scratch or None).  ``plan``
+        replaces ``plan_glm``'s (a measurement of another path at the same
+        shape); it is part of the scratch's key, so calls with it reuse
+        their scratch and a call without it plans anew."""
         if z.device.type != "cuda":
             raise RuntimeError(f"{self.name} runs on CUDA tensors, got {z.device}")
         self._check(z, data)
@@ -633,26 +724,28 @@ class GlmKernel:
         u_ptr = None if data.u is None else data.u.data_ptr()
         with torch.cuda.device(z.device):
             stream = torch.cuda.current_stream(z.device).cuda_stream
-            key = (z.device, stream, c, x.data_ptr(), x.stride(0), n, d)
+            key = (z.device, stream, c, x.data_ptr(), x.stride(0), n, d, plan)
             entry = scratch.captured.get(key)
             if entry is None:
                 if scratch.key != key:
-                    self._fill(scratch, key, x, c)
+                    self._fill(scratch, key, x, c, plan)
                 entry = scratch.plan, scratch.tensors, scratch.maps
                 if torch.cuda.is_current_stream_capturing():
                     scratch.captured[key] = entry
             plan, (zs, resid, ll_part, g_part), maps = entry
             maps = None if maps is None else ctypes.addressof(maps)
+            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
             err = fn(z.data_ptr(), x.data_ptr(), maps, data.y.data_ptr(), data.b.data_ptr(),
                      data.prior_mean.data_ptr(), data.prior_inv_var.data_ptr(), u_ptr,
                      float(data.c0), float(data.ll_scale), float(n), val.data_ptr(),
-                     grad.data_ptr(), zs.data_ptr(), resid.data_ptr(), ll_part.data_ptr(),
+                     grad.data_ptr(), ptr(zs), ptr(resid), ll_part.data_ptr(),
                      g_part.data_ptr(), c, n, d, x.stride(0), plan.ldz, plan.ldr, plan.ldg,
-                     plan.row_tiles, plan.splits, plan.rows_per_split, stream)
+                     plan.row_tiles, plan.splits, plan.rows_per_split, plan.chain_tile, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
-        return val, grad, resid[:, :n]
+        self.path_launches["narrow" if plan.narrow else "two_pass"] += 1
+        return val, grad, None if resid is None else resid[:, :n]
 
 
 _SRC = "brancher_tpu/ops/pallas_glm.py"
@@ -956,7 +1049,9 @@ __all__ = [
     "residual_reference", "residual_weight", "grad_given_residual", "bf16_rounding_flips",
     "bf16_residual_readings",
     "GlmKernel", "GlmScratch", "KERNELS", "kernel_for", "build_glm_data",
-    "GlmTiles", "GLM_TILES", "GlmPlan", "plan_glm", "ROW_BYTES", "align_rows", "x_row_aligned",
+    "GlmTiles", "GLM_TILES", "GlmPlan", "plan_glm", "plan_two_pass", "plan_narrow",
+    "NarrowTiles", "NARROW_TILES", "NARROW_MAX_D", "takes_narrow_pass",
+    "ROW_BYTES", "align_rows", "x_row_aligned",
     "build_glm_vg", "FusedFamily", "recognize_fused_family",
     "categorical_vg_reference", "CategoricalFusedFamily",
     "glm_flops", "glm_bytes",

@@ -14,13 +14,16 @@ Phases (each prints one or more JSON lines tagged "phase"):
      shape (C=1024, N=1000, D=32), the conjugate shape (C=64, N=20, D=1),
      the MXU-scale GLM shape (C=256, N=131072, D=1024) and a ragged shape
      (C=100, N=1037, D=33: no axis a multiple of 8), K3/K4 also at phase
-     5's linear-Gaussian shape (C=256, N=131072, D=1025); K5 (the fused
+     5's linear-Gaussian shape (C=256, N=131072, D=1025), and K1 at the
+     benchmark's covtype shapes (C=1024 and 64, N=581012, D=55); K5 (the fused
      leapfrog) for both families at the floor and conjugate shapes with 1,
      8 and 32 steps; K6 (logreg) at the floor and MXU shapes.  Each row has
      errors, a control, the determinism check, the kernel's and the plain
      version's median ms, the bound's ms and TFLOP/s; the value+grad rows
      also the median ms of the two products alone through cuBLAS
-     (matmul_pair_ms).  K3/K4 also run at phase 11's AR(1) and AR(2)
+     (matmul_pair_ms), their path (the f32 narrow pass or passes A and B)
+     and, where the narrow pass ran, passes A and B at the same shape
+     (two_pass_ms).  K3/K4 also run at phase 11's AR(1) and AR(2)
      shapes (C=512; N=1999, D=2 and N=998, D=3) and K5 at AR(1)'s, on the
      family the recognizer extracts from those models;
   3. vectorized NUTS at the floor config: make_logreg_data(1000, 32) ->
@@ -229,9 +232,14 @@ SHAPES = {
     # D=16) and 01's conjugate mean (8 chains, N=50, D=1; K3/K4 only)
     "ex02": (64, 1000, 16),
     "ex01": (8, 50, 1),
+    # the benchmark's covtype cells: UCI Covertype's shape at 1024 and 64 chains
+    "covtype_c1024": (1024, 581012, 55),
+    "covtype_c64": (64, 581012, 55),
 }
 # phase 5's linear-Gaussian regression (z = [sigma, w]) and example 01: K3/K4 only
 NORMAL_ONLY_SHAPES = ("linreg", "ex01")
+# the covtype shapes: K1 only
+K1_ONLY_SHAPES = ("covtype_c1024", "covtype_c64")
 LEAPFROG_SHAPES = ("floor", "conjugate")
 LEAPFROG_STEPS = (1, 8, 32)
 LOGREG_SHAPES = ("floor", "mxu")
@@ -453,8 +461,10 @@ def _glm_rows(gen, per_kernel):
         for family in ("bernoulli_logit", "normal_learned"):
             if family != "normal_learned" and shape_name in NORMAL_ONLY_SHAPES:
                 continue
+            if family != "bernoulli_logit" and shape_name in K1_ONLY_SHAPES:
+                continue
             x, y, b, z, m, iv, u = _glm_inputs(c, n, d, family, gen)
-            for dtype in ("f32", "bf16"):
+            for dtype in ("f32",) if shape_name in K1_ONLY_SHAPES else ("f32", "bf16"):
                 data = glm.build_glm_data(
                     family, x, y, b, m, iv, u=u if family == "normal_learned" else None,
                     c0=-0.3, ll_scale=1.3, dtype=dtype, device="cuda")
@@ -508,6 +518,11 @@ def _glm_row(data, z, dtype, shape_name, per_kernel):
     deterministic = bool(torch.equal(v, v2) and torch.equal(g, g2))
     ms = time_ms(lambda: kernel(z, data))
     plain_ms = time_ms(lambda: data.plain(z))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    narrow = glm.plan_glm(c, n, d, dtype, sms).narrow
+    # "before": passes A and B at the same shape, where the narrow pass took their place
+    two_pass = glm.plan_two_pass(c, n, d, dtype, sms)
+    two_pass_ms = time_ms(lambda: kernel._launch(z, data, two_pass)) if narrow else None
     if dtype == "bf16":
         z16, x16 = z.to(torch.bfloat16), data.x
         r16 = torch.zeros((c, n), device="cuda", dtype=torch.bfloat16)
@@ -521,7 +536,8 @@ def _glm_row(data, z, dtype, shape_name, per_kernel):
         **err, **control, "tolerance_rel": TOL, "ok": ok, "deterministic": deterministic,
         **({"tie_units_limit": glm.TIE_UNITS, "flip_share_limit": FLIP_SHARE[family]}
            if ties else {}),
-        "ms": ms, "plain_ms": plain_ms, "matmul_pair_ms": matmul_ms, "library_ms": None,
+        "path": "narrow" if narrow else "two_pass", "ms": ms, "two_pass_ms": two_pass_ms,
+        "plain_ms": plain_ms, "matmul_pair_ms": matmul_ms, "library_ms": None,
         **_bound(glm.glm_bytes(c, n, d, 2 if dtype == "bf16" else 4, family),
                  glm.glm_flops(c, n, d), dtype),
     }

@@ -6,6 +6,7 @@
     python3 scripts/torch_glm_passes.py --family normal_learned --shapes ar1 ar2
     python3 scripts/torch_glm_passes.py --tree DIR                # another checkout's
     python3 scripts/torch_glm_passes.py --k56 [--tree DIR]        # K5 and K6 instead
+    python3 scripts/torch_glm_passes.py --widths                  # narrow pass against A + B
 
 For the floor (C=1024, N=1000, D=32), ragged (100, 1037, 33), MXU-width
 (256, 8192, 1024) and MXU (256, 131072, 1024) shapes, and for the Normal
@@ -34,6 +35,14 @@ inputs, through the entry points both designs share
 (``build_fused_leapfrog``, ``logreg_value_and_grad``): one JSON line each
 with the error against the plain version, bit-reproducibility and the
 median ms.  With ``--tree`` it times another checkout's K5 and K6 alike.
+
+``--widths`` times K1's two designs at UCI Covertype's N (581,012 rows) and
+1024 and 64 chains, at D = 32, 55, 64, 96 and 128: the f32 narrow pass
+(``plan_narrow``, up to its widest D) and passes A and B
+(``plan_two_pass``), each launched with its plan whatever ``plan_glm``
+would choose, on the same inputs; one JSON line each with the errors
+against the plain version and the median ms.  ``ops/glm.py``'s
+``NARROW_MAX_D`` comes from these numbers.
 Needs CUDA; imports no JAX.
 """
 import argparse
@@ -154,6 +163,32 @@ def k5_k6_times(tree):
         torch.cuda.empty_cache()
 
 
+def widths(G):
+    """K1's narrow pass against passes A and B at N = 581,012 (see --widths)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = 581012
+    for c in (1024, 64):
+        for d in (32, 55, 64, 96, 128):
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            data, z = build(G, "bernoulli_logit", c, n, d, "f32", gen)
+            k = G.kernel_for("bernoulli_logit", "f32")
+            v_ref, g_ref = data.plain(z)
+            plans = [G.plan_two_pass(c, n, d, "f32", sms)]
+            if d <= G.NARROW_TILES.max_depth:  # the narrow pass takes D' <= 64
+                plans.insert(0, G.plan_narrow(c, n, d, sms))
+            for plan in plans:
+                run = lambda: k._launch(z, data, plan)  # noqa: E731
+                (v, g, _), (v2, g2, _) = run(), run()
+                print(json.dumps({"C": c, "N": n, "D": d, "kernel": k.name,
+                                  "path": "narrow" if plan.narrow else "two_pass",
+                                  "plan": plan._asdict(), "val_max_rel": rel(v, v_ref),
+                                  "grad_max_rel": rel(g, g_ref),
+                                  "deterministic": bool(torch.equal(v, v2) and torch.equal(g, g2)),
+                                  "ms": time_ms(run)}), flush=True)
+            del data, z, v_ref, g_ref
+            torch.cuda.empty_cache()
+
+
 def passes(G, families, shapes):
     from torch.profiler import ProfilerActivity, profile
 
@@ -199,6 +234,8 @@ def main():
     parser.add_argument("--k56", action="store_true", help="time K5 and K6 instead of K1-K4")
     parser.add_argument("--shapes", nargs="+", choices=list(SHAPES), default=list(SHAPES),
                         help="these shapes only (default: all)")
+    parser.add_argument("--widths", action="store_true",
+                        help="K1's narrow pass against passes A and B at covtype's N")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -213,6 +250,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.k56:
         k5_k6_times(str(args.tree or "."))
+        return 0
+    if args.widths:
+        widths(G)
         return 0
     families = (args.family,) if args.family else FAMILIES
     errors_and_times(G, str(args.tree or "."), families, args.shapes)

@@ -30,18 +30,16 @@ SHAPES = {
     # for the noise coordinate, D = order + 1
     "ar1": (512, 1999, 2),
     "ar2": (512, 998, 3),
+    # the benchmark's covtype cells: UCI Covertype's shape at 1024 and 64 chains
+    "covtype_c1024": (1024, 581012, 55),
+    "covtype_c64": (64, 581012, 55),
 }
 ITEMSIZE = {"f32": 4, "bf16": 2}
 
 
-@pytest.mark.parametrize("sms", [1, 7, 132])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", list(SHAPES))
-def test_plan_covers_every_row_once(shape, dtype, sms):
-    c, n, d = SHAPES[shape]
-    t = G.GLM_TILES[dtype]
-    plan = G.plan_glm(c, n, d, dtype, sms)
-    # pass B's split s takes rows [s rows_per_split, min((s + 1) rows_per_split, N))
+def _check_rows_covered(plan, n, step):
+    """The splits take rows [s rows_per_split, min((s + 1) rows_per_split, N)):
+    contiguous, every row once, none empty, each whole ``step``s."""
     rows = [(s * plan.rows_per_split, min((s + 1) * plan.rows_per_split, n))
             for s in range(plan.splits)]
     assert len(rows) == plan.splits >= 1
@@ -49,7 +47,25 @@ def test_plan_covers_every_row_once(shape, dtype, sms):
     for (a, b), (a2, _) in zip(rows, rows[1:]):
         assert b == a2  # contiguous, no overlap
     assert all(b > a for a, b in rows)  # no split is empty
-    assert plan.rows_per_split % t.rows_b == 0  # splits are whole depth steps
+    assert plan.rows_per_split % step == 0
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_plan_covers_every_row_once(shape, dtype, sms):
+    c, n, d = SHAPES[shape]
+    plan = G.plan_glm(c, n, d, dtype, sms)
+    assert plan.narrow == G.takes_narrow_pass(d, dtype)
+    if plan.narrow:
+        t = G.NARROW_TILES
+        _check_rows_covered(plan, n, t.rows)  # splits are whole row tiles
+        assert plan.row_tiles == plan.splits  # one log-lik partial per split
+        blocks = -(-c // plan.chain_tile)
+        assert plan.splits == 1 or blocks * plan.splits <= t.blocks_per_sm * sms
+        return
+    t = G.GLM_TILES[dtype]
+    _check_rows_covered(plan, n, t.rows_b)  # pass B's splits are whole depth steps
     # pass A: one tile per rows_a rows, the last one not empty
     assert (plan.row_tiles - 1) * t.rows_a < n <= plan.row_tiles * t.rows_a
     # pass B runs in one wave, or has one split
@@ -64,6 +80,12 @@ def test_plan_scratch_layout(shape, dtype):
     plan = G.plan_glm(c, n, d, dtype, 132)
     itemsize = ITEMSIZE[dtype]
     shapes = plan.scratch_shapes(c)
+    # f32 gradient partials: rows a multiple of 4 floats (float4 / float2 stores)
+    assert plan.ldg >= d and plan.ldg % 4 == 0 and plan.ldg - d < 4
+    if plan.narrow:  # no staged z, no [C, N] residual
+        assert shapes == {"ll_part": (c, plan.splits), "g_part": (plan.splits, c, plan.ldg)}
+        assert plan.ldz == plan.ldr == 0
+        return
     assert shapes == {"z": (c, plan.ldz), "resid": (c, plan.ldr),
                       "ll_part": (c, plan.row_tiles), "g_part": (plan.splits, c, plan.ldg)}
     # operand scratch: rows ROW_BYTES apart (TMA needs 16, its 128-byte
@@ -72,8 +94,6 @@ def test_plan_scratch_layout(shape, dtype):
     for ld, width in ((plan.ldz, d), (plan.ldr, n)):
         assert ld >= width and (ld * itemsize) % G.ROW_BYTES == 0 and ld - width < row
     assert plan.ldz % G.GLM_TILES[dtype].align == 0
-    # f32 gradient partials: rows a multiple of 4 floats (float4 / float2 stores)
-    assert plan.ldg >= d and plan.ldg % 4 == 0 and plan.ldg - d < 4
 
 
 def test_plan_at_the_mxu_shape():
@@ -82,6 +102,48 @@ def test_plan_at_the_mxu_shape():
         ldz=1024, ldr=131072, ldg=1024, row_tiles=1024, splits=12, rows_per_split=10944)
     assert G.plan_glm(256, 131072, 1024, "f32", 132) == G.GlmPlan(
         ldz=1024, ldr=131072, ldg=1024, row_tiles=1024, splits=16, rows_per_split=8192)
+
+
+def test_plan_at_the_covtype_shapes():
+    """The covtype cells' narrow plans on an H100: eight chain tiles of 128
+    in 33 splits (264 blocks, two on each multiprocessor), and one tile of
+    64 in 260 splits."""
+    assert G.plan_glm(1024, 581012, 55, "f32", 132) == G.GlmPlan(
+        ldz=0, ldr=0, ldg=56, row_tiles=33, splits=33, rows_per_split=17664, chain_tile=128)
+    assert G.plan_glm(64, 581012, 55, "f32", 132) == G.GlmPlan(
+        ldz=0, ldr=0, ldg=56, row_tiles=260, splits=260, rows_per_split=2240, chain_tile=64)
+
+
+WIDTHS = [1, 2, 3, 7, 32, 33, 55, 64, 65, 96, 127, 128, 129, 200, 1024, 1025]
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", sorted(set(WIDTHS) | {G.NARROW_MAX_D, G.NARROW_MAX_D + 1}))
+def test_narrow_pass_by_width(d, dtype, sms):
+    """f32 takes the narrow pass exactly up to the threshold, bf16 never;
+    its splits cover every row once in one wave, with no residual scratch."""
+    narrow = dtype == "f32" and d <= G.NARROW_MAX_D
+    assert G.takes_narrow_pass(d, dtype) == narrow
+    for c, n in ((1024, 581012), (64, 581012), (100, 1037), (1, 1), (65, 64 * 132 * 3 + 1)):
+        plan = G.plan_glm(c, n, d, dtype, sms)
+        assert plan.narrow == narrow
+        if not narrow:
+            assert plan == G.plan_two_pass(c, n, d, dtype, sms)
+            assert "resid" in plan.scratch_shapes(c)
+            continue
+        assert plan == G.plan_narrow(c, n, d, sms)
+        assert plan.chain_tile == (64 if c <= 64 else 128)
+        _check_rows_covered(plan, n, G.NARROW_TILES.rows)
+        blocks = -(-c // plan.chain_tile) * plan.splits
+        assert blocks <= G.NARROW_TILES.blocks_per_sm * sms or plan.splits == 1  # one wave
+        assert set(plan.scratch_shapes(c)) == {"ll_part", "g_part"}  # no [C, N] residual
+
+
+def test_narrow_pass_has_a_bound():
+    assert G.NARROW_MAX_D <= G.NARROW_TILES.max_depth
+    with pytest.raises(ValueError, match="narrow pass takes"):
+        G.plan_narrow(64, 100, G.NARROW_TILES.max_depth + 1, 132)
 
 
 def _bern_data(d, dtype, n=50, align_x=True, family="bernoulli_logit"):

@@ -83,14 +83,19 @@ def _close(got, ref, rel):
     assert err <= rel, f"relative error {err:.3g} over the limit {rel:.3g}"
 
 
+def _path(d, dtype):
+    return "narrow" if G.takes_narrow_pass(d, dtype) else "two_pass"
+
+
 def _check_kernel(family, dtype, c, n, d, device):
     data, z = _data(family, dtype, c, n, d, device)
     kernel = G.kernel_for(family, dtype)
-    before = kernel.launches
+    before, on_path = kernel.launches, kernel.path_launches[_path(d, dtype)]
     v, g = kernel(z, data)
     v_ref, g_ref = data.plain(z)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert kernel.path_launches[_path(d, dtype)] == on_path + 1
     _close(v, v_ref, TOL)
     if dtype == "bf16":
         _check_bf16_gradient(kernel, z, data, g, g_ref)
@@ -167,6 +172,82 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         G.kernel_for("bernoulli_logit", "bf16")(z, data)  # x is f32
     with pytest.raises(ValueError):
         G.kernel_for("normal_learned", "f32")(z, data)  # wrong family
+
+
+# ---------------------------------------------------------------------------
+# The f32 narrow pass: K1, K3 and K6 at D <= G.NARROW_MAX_D, one fused pass
+# in place of passes A and B, held to the plain version in float64
+# ---------------------------------------------------------------------------
+def _plain_f64(data, z, block=128):
+    """``data.plain`` in float64, by blocks of chains (one block's logits at
+    N = 581,012 are 0.6 GB)."""
+    d64 = data._replace(scratch=None, **{f: getattr(data, f).double() for f in (
+        "x", "y", "b", "prior_mean", "prior_inv_var", "u") if getattr(data, f) is not None})
+    parts = [d64.plain(z[i:i + block].double()) for i in range(0, z.shape[0], block)]
+    return torch.cat([v for v, _ in parts]), torch.cat([g for _, g in parts])
+
+
+T = G.NARROW_MAX_D
+# the covtype cells' shapes, the ragged and floor shapes, and the widths
+# around the threshold on N = 2049 rows (the last row tile holds one live
+# row, the rest are masked) and C = 130 (the second chain tile holds two)
+NARROW_SHAPES = [(1024, 581012, 55), (64, 581012, 55), (100, 1037, 33), (1024, 1000, 32),
+                 (130, 2049, 1), (130, 2049, 2), (130, 2049, 55), (130, 2049, T), (130, 2049, T + 1)]
+
+
+@pytest.mark.parametrize("c,n,d", NARROW_SHAPES)
+@pytest.mark.parametrize("kernel_name", ["glm_bernoulli_f32", "glm_normal_f32", "logreg_f32"])
+def test_narrow_pass_matches_float64(cuda, kernel_name, c, n, d):
+    kernel = TLR.LOGREG if kernel_name == "logreg_f32" else G.KERNELS[kernel_name]
+    data, z = _data(kernel.family, "f32", c, n, d, cuda)
+    if kernel is TLR.LOGREG:  # b = 0, a N(0, 1.5^2) prior, ll_scale 1
+        data = TLR.logreg_data(data.x.contiguous(), data.y, 1.5)
+    path = _path(d, "f32")
+    assert G.plan_glm(c, n, d, "f32", 132).narrow == (path == "narrow") == (d <= T)
+    before, on_path = kernel.launches, kernel.path_launches[path]
+    v, g = kernel(z, data)
+    v2, g2 = kernel(z, data)
+    v_ref, g_ref = _plain_f64(data, z)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2 and kernel.path_launches[path] == on_path + 2
+    _close(v.double(), v_ref, TOL)
+    _close(g.double(), g_ref, TOL)
+    assert torch.equal(v, v2) and torch.equal(g, g2)  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("d", [1, 16, 17, 32, 55, 64])
+@pytest.mark.parametrize("chain_tile", [64, 128])
+def test_narrow_occupancy_holds_the_planners_wave(cuda, chain_tile, d):
+    """The runtime fits at least the narrow blocks a multiprocessor that the
+    planner counts on (registers and shared memory), so its splits run in
+    one wave."""
+    import ctypes
+
+    from brancher_torch.ops.cuda_build import load_library
+
+    fn = load_library("glm_vg").glm_sm90_narrow_blocks
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = ctypes.c_int(0)
+    assert fn(chain_tile, d, ctypes.addressof(out)) == 0
+    assert out.value >= G.NARROW_TILES.blocks_per_sm
+
+
+def test_sample_counts_its_narrow_calls(cuda):
+    """sample()'s recorder counts the fused value+grad's calls that its plan
+    sends through the narrow pass: all of them at D = 55, none at D = 200."""
+    from brancher_torch import metrics
+    from brancher_torch.inference import NUTS, sample
+    from brancher_torch.models import logistic_regression_model, make_logreg_data
+
+    kw = dict(kernel=NUTS(max_depth=4), num_chains=64, num_warmup=5, num_samples=5, key=0,
+              device="cuda", diagnostics_backend="none")
+    for d, narrow in ((55, True), (200, False)):
+        x, y, _ = make_logreg_data(3000, d, seed=2)
+        with metrics.tracing() as tr:
+            res = sample(logistic_regression_model(x, y), **kw)
+        calls = res.diagnostics["value_and_grad_calls"]
+        assert res.diagnostics["fused_family"] == "bernoulli_logit" and calls > 0
+        assert tr.counters[1]["glm.narrow_calls"] == (calls if narrow else 0)
 
 
 # ---------------------------------------------------------------------------

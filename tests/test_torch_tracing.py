@@ -284,3 +284,12 @@ def test_spans_go_onto_a_chrome_trace_and_into_json(model, tmp_path):
     rec = json.loads(json.dumps(tr.to_json()))
     assert len(rec["spans"]) == len(tr.spans) and rec["clock"] == list(tr.clock)
     assert rec["counters"]["1"]["nuts.leaves"] == len(_by_name(tr, "nuts.leaf"))
+
+
+def test_narrow_calls_are_counted_on_the_card_only(model):
+    """``glm.narrow_calls`` counts the GLM kernel's calls on the card; on
+    the CPU the plain version runs and the counter is not recorded."""
+    with metrics.tracing() as tr:
+        res = _run(model)
+    assert res.diagnostics["fused_family"] == "bernoulli_logit"
+    assert tr.counters[1]["nuts.leaves"] > 0 and "glm.narrow_calls" not in tr.counters[1]
