@@ -19,7 +19,8 @@ gradient are the vmapped autodiff of the potential, as in JAX.
 
 Also here, shared by the chain-batched HMC and ChEES engines: their
 injectable randomness source (``TorchHMCRandom``) and the loop
-integrator (``loop_leapfrog``).
+integrator (``loop_leapfrog``); and ``TorchRandom``, the generator and
+the momentum and uniform draws that every engine's source shares.
 """
 from __future__ import annotations
 
@@ -172,7 +173,23 @@ def leapfrog(value_and_grad_fn: VG, z: Tensor, r: Tensor, grad: Tensor, step_siz
     return z, r, pe, grad
 
 
-class TorchChainRandom:
+class TorchRandom:
+    """A source of random numbers drawn from a torch.Generator, the base of
+    the engines' injectable sources: ``momentum(z)``, standard normals
+    shaped like z; ``uniform(c, like)``, uniforms [C] in like's dtype and
+    on its device."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def momentum(self, z: Tensor) -> Tensor:
+        return torch.randn(z.shape, generator=self.generator, device=z.device, dtype=z.dtype)
+
+    def uniform(self, c: int, like: Tensor) -> Tensor:
+        return torch.rand((c,), generator=self.generator, device=like.device, dtype=like.dtype)
+
+
+class TorchChainRandom(TorchRandom):
     """The randomness of the per-chain steps (``HMC.make_step``,
     ``NUTS.make_step``), drawn from a torch.Generator: every chain its own
     numbers.
@@ -185,17 +202,7 @@ class TorchChainRandom:
     direction as ``bernoulli(0.5)``, a uniform below one half.
     """
 
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-
-    def _uniform(self, c: int, like: Tensor) -> Tensor:
-        return torch.rand((c,), generator=self.generator, device=like.device, dtype=like.dtype)
-
-    def momentum(self, z: Tensor) -> Tensor:
-        return torch.randn(z.shape, generator=self.generator, device=z.device, dtype=z.dtype)
-
-    def accept(self, c: int, like: Tensor) -> Tensor:
-        return self._uniform(c, like)
+    accept = TorchRandom.uniform
 
     def num_steps(self, high: int, c: int, device) -> Tensor:
         return torch.randint(1, high + 1, (c,), generator=self.generator, device=device)
@@ -205,10 +212,10 @@ class TorchChainRandom:
         return u[0] < 0.5, u[1]
 
     def leaf(self, depth: int, i: int, c: int, like: Tensor) -> Tensor:
-        return self._uniform(c, like)
+        return self.uniform(c, like)
 
 
-class TorchHMCRandom:
+class TorchHMCRandom(TorchRandom):
     """The randomness of HMC/ChEES transitions, from a torch.Generator.
 
     ``momentum(z)``: standard normals shaped like z; ``accept(c, like)``:
@@ -216,14 +223,7 @@ class TorchHMCRandom:
     in [1, high], drawn on the device (no host sync).
     """
 
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-
-    def momentum(self, z: Tensor) -> Tensor:
-        return torch.randn(z.shape, generator=self.generator, device=z.device, dtype=z.dtype)
-
-    def accept(self, c: int, like: Tensor) -> Tensor:
-        return torch.rand((c,), generator=self.generator, device=like.device, dtype=like.dtype)
+    accept = TorchRandom.uniform
 
     def num_steps(self, high: int, device) -> Tensor:
         return torch.randint(1, high + 1, (), generator=self.generator, device=device)

@@ -86,10 +86,7 @@ GLM recognizer's probe and the fused value+grad's build, where the call
 asks for them), ``sample.engine`` (whose duration
 is ``sampler_seconds``), ``sample.constrain`` and ``sample.diagnostics``;
 the engine's counters on the device are read once, at the end of
-``sample.engine``.  Where a GLM kernel ran on the card, the counter
-``glm.narrow_calls`` holds the value+grad calls that its plan sends through
-the f32 narrow pass (``ops.glm.takes_narrow_pass``): all of them, or 0.
-Off, ``sampler_seconds`` is timed on the same stamps.
+``sample.engine``.  Off, ``sampler_seconds`` is timed on the same stamps.
 """
 from __future__ import annotations
 
@@ -740,11 +737,6 @@ def sample(
     vg_calls = vg.calls + info.get("graph_leaves", 0)
     if tr is not None:
         tr.close(stage, t_end)
-        if fam_name is not None and dev.type == "cuda":
-            from ..ops.glm import takes_narrow_pass
-
-            narrow = takes_narrow_pass(comp.dim, "bf16" if bf16_active else "f32")
-            tr.count("glm.narrow_calls", vg_calls if narrow else 0)
         tr.flush()
         stage = tr.open("sample.constrain")
     # K5 ran when the engine integrated with leapfrog_fn (NUTS, the

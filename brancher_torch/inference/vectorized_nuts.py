@@ -5,26 +5,29 @@ Counterpart of ``brancher_tpu/inference/vectorized_nuts.py``:
 ``nuts_transition_batched`` (lines 100-311), ``_pipelined_sampling``
 (lines 314-728) and ``nuts_batched`` (lines 729-839).
 
-The tree's doubling schedule is deterministic and shared by every chain:
+One tree, two schedules.  The tree's doubling schedule is deterministic:
 leaf n belongs to doubling floor(log2 n) at in-subtree position
-m = n - 2^depth.  In the JAX package that schedule is computed on the
-device inside a ``while_loop``; here the loop runs on the host, but n is
-a device scalar too and depth, m, the checkpoint slot popcount(m), the
-U-turn slot range and the subtree's start and end flags are read from
-small popcount and floor(log2) tables on the device, so the schedule's
-branches are selects and every leaf issues the same ops
-(``_LockstepTree``).  On CUDA that leaf is captured once into a CUDA graph
-and replayed, so the host issues one graph launch a leaf; the loop
-condition ``any(active)`` costs one host sync per leaf.
+m = n - 2^depth.  ``_NutsTree`` holds the tree's state in buffers that its
+``start`` and ``leaf`` update in place, and reads leaf n's schedule (the
+subtree's start and end flags, the U-turn slot range, the checkpoint
+slot) from a precomputed row a leaf index, so the schedule's branches are
+selects and every leaf issues the same ops.  In the JAX package that
+schedule is computed on the device inside a ``while_loop``; here the loop
+runs on the host, and n is a tensor on the device:
 
-The pipelined sampling phase (``NUTS(pipelined=True)``) gives each chain
-its own leaf index, so the schedule is per chain there: [C] tensors, with
-popcount and floor(log2) read from small tables.  A chain refreshes its
-momentum and starts its next draw in the iteration after its U-turn; a
-chain ``lookahead`` draws ahead of the slowest idles (JAX's ring
-backpressure, kept as a counter: the ring itself only dodged XLA's
-scatter copies inside a while loop, so each completed draw is written
-straight into the output by index).  One host sync an iteration.
+- lockstep (``nuts_transition_batched``): n is one leaf index shared by
+  every chain; a transition is the start and the leaves until every chain
+  has stopped.  On CUDA the start and the leaf are captured once into a
+  CUDA graph each and replayed, so the host issues one graph launch a
+  leaf; the loop condition ``any(active)`` costs one host sync per leaf.
+- pipelined (``NUTS(pipelined=True)``, the sampling phase): n is a leaf
+  index per chain, so each chain reads its own row.  A chain refreshes its
+  momentum and starts its next draw (a start masked to it) in the
+  iteration after its U-turn; a chain ``lookahead`` draws ahead of the
+  slowest idles (JAX's ring backpressure, kept as a counter: the ring
+  itself only dodged XLA's scatter copies inside a while loop, so each
+  completed draw is written straight into the output by index).  One leaf
+  and one host sync an iteration.
 
 Randomness is injectable: a transition reads its momenta and, per leaf,
 its direction, swap and take draws from a source object with the
@@ -65,12 +68,13 @@ from .. import metrics as _metrics
 from .adaptation import (
     build_warmup_schedule, da_init, da_restart, da_update, diag_mass_update, pmean_if, psum_if,
 )
+from .hmc import TorchRandom
 
 Tensor = torch.Tensor
 VG = Callable[[Tensor], Tuple[Tensor, Tensor]]
 
 
-class TorchNutsRandom:
+class TorchNutsRandom(TorchRandom):
     """The randomness of NUTS transitions, drawn from a torch.Generator.
 
     ``momentum(z)`` returns standard normals shaped like z; ``leaf(n, c)``
@@ -78,12 +82,6 @@ class TorchNutsRandom:
     swap uniforms [C], take uniforms [C]).  The JAX package draws the
     direction as ``bernoulli(0.5)``, i.e. a uniform below one half.
     """
-
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-
-    def momentum(self, z: Tensor) -> Tensor:
-        return torch.randn(z.shape, generator=self.generator, device=z.device, dtype=z.dtype)
 
     def leaf(self, n: int, c: int, like: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
         u = torch.rand((3, c), generator=self.generator, device=like.device, dtype=like.dtype)
@@ -141,7 +139,8 @@ def _sel(mask: Tensor, a: Tensor, b: Tensor) -> Tensor:
 
 
 def _col(mask: Tensor) -> Tensor:
-    """A [C] mask over stacked [k, C, d] points."""
+    """A [C] mask over [C, d] values or stacked [k, C, d] points (a [1]
+    mask over all of them)."""
     return mask[:, None]
 
 
@@ -175,20 +174,23 @@ def _capture_stream(device: torch.device):
     return torch.cuda.Stream(device=device)
 
 
-class _LockstepTree:
-    """The lockstep tree at one shape: C chains of d coordinates in one
-    dtype on one device, to ``max_depth`` doublings.
+class _NutsTree:
+    """The NUTS tree at one shape: C chains of d coordinates in one dtype
+    on one device, to ``max_depth`` doublings; both engines run it.
 
     Its state lives in buffers that ``start`` and ``leaf`` update in place,
-    and leaf n's schedule is read on the device from n (a device scalar
-    that each leaf advances), so every leaf issues the same ops.  On CUDA
-    with a ``TorchNutsRandom`` the tree's first transition runs eagerly on
-    ``_capture_stream`` (the warm-up), then the start and the leaf are
-    captured into one CUDA graph each over the tree's own generator, whose
-    state is the caller's for the time of a transition; every later
-    transition replays them (``graphs``).  Elsewhere (the CPU, a replayed
-    random stream, a capture that failed: ``graphs`` False) the same two
-    functions run eagerly."""
+    and leaf n's schedule is read on the device from the rows of ``flags``
+    and ``slot`` at n, so every leaf issues the same ops.  n is [1] for the
+    lockstep engine (one leaf index that each leaf advances) and [C] for
+    the pipelined one (a leaf index per chain, 0 for a chain between
+    draws, whose row is leaf 1's); either way the rows broadcast over the
+    chains.  On CUDA with a ``TorchNutsRandom`` the lockstep tree's first
+    transition runs eagerly on ``_capture_stream`` (the warm-up), then the
+    start and the leaf are captured into one CUDA graph each over the
+    tree's own generator, whose state is the caller's for the time of a
+    transition; every later transition replays them (``graphs``).
+    Elsewhere (the CPU, a replayed random stream, a capture that failed:
+    ``graphs`` False) the same two functions run eagerly."""
 
     def __init__(self, c: int, d: int, dtype, device, max_depth: int, max_delta_energy: float):
         kdim = max_depth + 1
@@ -198,7 +200,8 @@ class _LockstepTree:
         def zeros(*shape, kind=dtype):
             return torch.zeros(shape, dtype=kind, device=device)
 
-        # inputs, copied in at each transition (warmup changes eps and the mass)
+        # inputs, copied in at each lockstep transition (warmup changes eps
+        # and the mass); the pipelined engine moves a chain's position here
         self.z, self.val, self.grad = zeros(c, d), zeros(c), zeros(c, d)
         self.eps, self.inv_mass = zeros(), zeros(d)
         self.n = zeros(1, kind=torch.int64)
@@ -231,40 +234,43 @@ class _LockstepTree:
         self.graphs = self.gen = None
         self.launched = []
 
-    def start(self, rng) -> None:
-        """The tree's start at the inputs: momenta and energy, both ends at
-        (z, grad, r0), the proposal at z, the accumulators cleared, n = 1.
-        (A subtree's proposal needs none: its first live leaf always takes
-        it.)"""
-        r0 = rng.momentum(self.z) / torch.sqrt(self.inv_mass)[None, :]
-        self.h0.copy_(-self.val + _ke(r0, self.inv_mass))
+    def start(self, mom: Tensor, mask: Optional[Tensor] = None) -> None:
+        """The tree's start at the inputs from the momentum normals ``mom``:
+        energy, both ends at (z, grad, r0), the proposal at z, the
+        accumulators cleared, n = 1; for every chain, or for those of the
+        [C] ``mask`` alone.  (A subtree's proposal needs none: its first
+        live leaf always takes it.)"""
+        r0 = mom / torch.sqrt(self.inv_mass)[None, :]
+        h0 = -self.val + _ke(r0, self.inv_mass)
         point = torch.stack([self.z, self.grad, r0])
-        self.ends.copy_(point)
-        self.prop.copy_(point[:2])
-        self.prop_val.copy_(self.val)
-        self.r_sum.copy_(r0)
-        for t in (self.lw, self.sum_acc, self.cnt, self.diverging):
-            t.zero_()
-        self.active.fill_(True)
-        self.n.fill_(1)
+        for buf, x in ((self.h0, h0), (self.ends, point), (self.prop, point[:2]),
+                       (self.prop_val, self.val), (self.r_sum, r0)):
+            if mask is None:
+                buf.copy_(x)
+            else:
+                torch.where(_col(mask) if buf.dim() > 1 else mask, x, buf, out=buf)
+        for buf, x in ((self.lw, 0), (self.sum_acc, 0), (self.cnt, 0), (self.diverging, False),
+                       (self.active, True), (self.n, 1)):
+            if mask is None:
+                buf.fill_(x)
+            else:
+                buf.masked_fill_(mask, x)
 
-    def leaf(self, value_and_grad_fn: VG, rng, n: int) -> None:
-        """Leaf n of the tree for every chain, in place; the schedule comes
-        from the device's n (``rng.leaf`` alone is given the host's)."""
-        c, kdim = self.val.shape[0], self.r_ck.shape[0] - 1
+    def leaf(self, value_and_grad_fn: VG, dir_pos: Tensor, swap_u: Tensor, take_u: Tensor) -> None:
+        """The leaf at n for every chain, in place, from the leaf's draws
+        (``TorchNutsRandom.leaf``); every n then advances by one."""
         eps, inv_mass = self.eps, self.inv_mass
         flags = self.flags[self.n]
-        start, is_end, checks = flags[:, 0], flags[:, 1], flags[0, 2:, None]
-        dir_pos, swap_u, take_u = rng.leaf(n, c, self.val)
+        start, is_end, checks = flags[:, 0], flags[:, 1], flags[:, 2:].T
 
         # --- subtree start: per-chain direction + moving end + reset ------
         torch.where(start, torch.where(dir_pos, 1.0, -1.0).to(self.dirn.dtype), self.dirn,
                     out=self.dirn)
         take_right = self.dirn > 0
-        torch.where(start, torch.where(_col(take_right), self.ends[1], self.ends[0]), self.mov,
-                    out=self.mov)
+        torch.where(_col(start), torch.where(_col(take_right), self.ends[1], self.ends[0]),
+                    self.mov, out=self.mov)
         self.s_lw.masked_fill_(start, -math.inf)
-        self.s_cum.masked_fill_(start, 0.0)
+        self.s_cum.masked_fill_(_col(start), 0.0)
         self.s_failed.masked_fill_(start, False)
 
         # --- one batched leapfrog from the moving end ---------------------
@@ -286,10 +292,11 @@ class _LockstepTree:
         self.sum_acc += torch.where(live, acc, 0.0)
         self.cnt += live
 
-        # --- checkpoints (store BEFORE adding this leaf's momentum) -------
-        slot = self.slot[self.n]
-        self.r_ck.index_copy_(0, slot, r_new[None])
-        self.rs_ck.index_copy_(0, slot, self.s_cum[None])
+        # --- checkpoints (store BEFORE adding this leaf's momentum): a
+        # chain's row of its slot, one slot for every chain or one each ----
+        slot = self.slot[self.n].view(1, -1, 1).expand(1, *r_new.shape)
+        self.r_ck.scatter_(0, slot, r_new[None])
+        self.rs_ck.scatter_(0, slot, self.s_cum[None])
 
         # --- progressive multinomial within the subtree -------------------
         s_cum_new = self.s_cum + r_new
@@ -300,6 +307,7 @@ class _LockstepTree:
         torch.where(swap, val_new, self.sp_val, out=self.sp_val)
 
         # --- U-turn checks vs the checkpoint slots [lo, pc) (odd leaves) --
+        kdim = checks.shape[0]
         rho = s_cum_new[None] - self.rs_ck[:kdim]  # [kdim, C, d]
         dot_a = torch.sum(rho * self.r_ck[:kdim] * inv_mass, -1)
         dot_b = torch.sum(rho * (r_new * inv_mass[None, :])[None], -1)
@@ -377,8 +385,9 @@ class _LockstepTree:
         tree is full, replayed from ``graphs`` (start, leaf) or run eagerly
         where it is None; returns (leaves, host syncs)."""
         tr = _metrics._tracer
+        c = self.val.shape[0]
         if graphs is None:
-            self.start(rng)
+            self.start(rng.momentum(self.z))
         else:
             graphs[0].replay()
         n = 1
@@ -394,7 +403,7 @@ class _LockstepTree:
             if tr is not None:
                 t_leaf = time.perf_counter_ns()
             if graphs is None:
-                self.leaf(value_and_grad_fn, rng, n)
+                self.leaf(value_and_grad_fn, *rng.leaf(n, c, self.val))
             else:
                 graphs[1].replay()
                 for kernel, count in self.launched:
@@ -421,9 +430,11 @@ class _LockstepTree:
         self.gen = torch.Generator(device=stream.device)
         rng = TorchNutsRandom(self.gen)
         graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
+        c = self.val.shape[0]
         try:
-            for graph, body in zip(graphs, (lambda: self.start(rng),
-                                            lambda: self.leaf(value_and_grad_fn, rng, 0))):
+            for graph, body in zip(graphs, (
+                    lambda: self.start(rng.momentum(self.z)),
+                    lambda: self.leaf(value_and_grad_fn, *rng.leaf(0, c, self.val)))):
                 graph.register_generator_state(self.gen)
                 # thread_local: another thread's CUDA calls do not break it
                 with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
@@ -441,7 +452,7 @@ class _LockstepTree:
 
 
 def _tree(value_and_grad_fn: VG, z: Tensor, max_depth: int,
-          max_delta_energy: float) -> _LockstepTree:
+          max_delta_energy: float) -> _NutsTree:
     """The lockstep tree over ``value_and_grad_fn`` at z's shape: kept in
     the function's ``lockstep_trees`` where it has them (``sample()``'s
     cached value+grad functions do, so a later call replays the graphs of
@@ -449,7 +460,7 @@ def _tree(value_and_grad_fn: VG, z: Tensor, max_depth: int,
     trees = getattr(value_and_grad_fn, "lockstep_trees", None)
     key = (*z.shape, z.dtype, z.device, max_depth, max_delta_energy)
     if trees is None or key not in trees:
-        tree = _LockstepTree(*z.shape, z.dtype, z.device, max_depth, max_delta_energy)
+        tree = _NutsTree(*z.shape, z.dtype, z.device, max_depth, max_delta_energy)
         if trees is None:
             return tree
         trees[key] = tree
@@ -469,7 +480,7 @@ def nuts_transition_batched(
 ) -> Transition:
     """One NUTS draw for all chains.  value/grad are of the LOG posterior.
     ``rng`` provides the randomness (see ``TorchNutsRandom``).  The tree is
-    ``_LockstepTree``'s, kept with the function where it can be (``_tree``)."""
+    ``_NutsTree``'s, kept with the function where it can be (``_tree``)."""
     tree = _tree(value_and_grad_fn, z, max_depth, max_delta_energy)
     return tree.transition(value_and_grad_fn, z, val, grad, eps, inv_mass, rng)
 
@@ -523,44 +534,25 @@ def _pipelined_sampling(
     Returns (samples [C, S, d], accept [C, S], diverging [C, S],
     iterations, mean live leapfrogs a draw [S], host syncs).
 
-    Points are stacked [3, C, d] tensors of (z, grad, r), so that one
-    select moves a whole point (the host issues every op of an iteration;
-    fewer, larger ops cost it less): ``ends`` [2, 3, C, d] holds the left
-    and right ends, ``mov`` the subtree's moving end, ``prop`` and ``sp``
-    the (z, grad) of the tree's and the subtree's proposals, ``cur`` the
-    chain's position."""
+    An iteration is one leaf of a ``_NutsTree`` whose n holds a leaf index
+    per chain: the chains that start a draw take the tree's start, masked
+    to them, then every chain takes its own leaf; a chain whose tree ended
+    writes its draw, moves to its proposal (the tree's inputs) and waits at
+    n = 0 for its next start.  A waiting chain reads leaf 1's row and is
+    not live: the leaf's writes for it are written again, by its next start
+    and first leaf, before they are read."""
     c, d = z.shape
     dtype, dev = z.dtype, z.device
-    kdim = max_depth + 1
-    max_n = 2**max_depth
     s_len = num_samples
     ring = max(2, min(int(lookahead), s_len))
-    # popcount and floor(log2) of every leaf index a tree reaches
-    popcount, log2 = _schedule_tables(max_n, dev)
-    slots = torch.arange(kdim, device=dev)[:, None]
+    tree = _NutsTree(c, d, dtype, dev, max_depth, max_delta_energy)
+    for buf, x in ((tree.z, z), (tree.val, val), (tree.grad, grad), (tree.eps, eps),
+                   (tree.inv_mass, inv_mass)):
+        buf.copy_(x)
     chains = torch.arange(c, device=dev)
-    false_c = torch.zeros((c,), dtype=torch.bool, device=dev)
-
     draw = torch.zeros((c,), dtype=torch.int64, device=dev)
-    n = torch.zeros_like(draw)  # 0: start a fresh draw
+    tree.n = torch.zeros_like(draw)  # a leaf index per chain; 0: between draws
     flushed = torch.zeros((), dtype=torch.int64, device=dev)
-    cur = torch.stack([z, grad])
-    point = torch.stack([z, grad, torch.zeros_like(z)])
-    ends = torch.stack([point, point])
-    mov = point
-    prop, sp = cur, cur
-    prop_val, sp_val = val, val
-    h0 = torch.zeros_like(val)
-    lw, r_sum = torch.zeros_like(val), torch.zeros_like(z)
-    s_lw, s_cum = torch.full_like(val, -math.inf), torch.zeros_like(z)
-    s_failed = false_c
-    # checkpoint stacks, depth-major; row kdim takes the writes of chains
-    # that store nothing this iteration
-    r_ck = torch.zeros((kdim + 1, c, d), dtype=dtype, device=dev)
-    rs_ck = torch.zeros_like(r_ck)
-    dirn = torch.ones_like(val)
-    active, dvg_draw = false_c, false_c
-    sum_acc, cnt = torch.zeros_like(val), torch.zeros_like(val)
     # outputs; column s_len takes the writes of chains that finish nothing
     zs = torch.zeros((c, s_len + 1, d), dtype=dtype, device=dev)
     aps = torch.zeros((c, s_len + 1), dtype=dtype, device=dev)
@@ -581,105 +573,25 @@ def _pipelined_sampling(
         if tr is not None:
             t_leaf = time.perf_counter_ns()
         mom, dir_pos, swap_u, take_u = rng.iteration(it, z)
+        tree.start(mom, (tree.n == 0) & working & (draw - flushed < ring))
+        in_tree = tree.n > 0
+        tree.leaf(value_and_grad_fn, dir_pos, swap_u, take_u)
 
-        # --- per-chain draw start: refresh momentum, reset the tree ------
-        starting = (n == 0) & working & (draw - flushed < ring)
-        r0 = mom / torch.sqrt(inv_mass)[None, :]
-        h0 = torch.where(starting, -val + _ke(r0, inv_mass), h0)
-        ends = torch.where(_col(starting), torch.cat([cur, r0[None]])[None], ends)
-        prop = torch.where(_col(starting), cur, prop)
-        prop_val = torch.where(starting, val, prop_val)
-        lw = torch.where(starting, 0.0, lw)
-        r_sum = _sel(starting, r0, r_sum)
-        active = active | starting
-        dvg_draw = dvg_draw & ~starting
-        sum_acc = torch.where(starting, 0.0, sum_acc)
-        cnt = torch.where(starting, 0.0, cnt)
-        n = torch.where(starting, 1, n)  # leaf 1 runs this iteration
-
-        # --- per-chain schedule ------------------------------------------
-        _, m, pc, lo, even, is_end = _schedule(torch.clamp(n, min=1), popcount, log2)
-        is_start = m == 0
-
-        # --- subtree start: per-chain direction + moving end + reset ------
-        dirn = torch.where(is_start, torch.where(dir_pos, 1.0, -1.0).to(dtype), dirn)
-        take_right = dirn > 0
-        mov = torch.where(_col(is_start), torch.where(_col(take_right), ends[1], ends[0]), mov)
-        s_lw = torch.where(is_start, -math.inf, s_lw)
-        s_cum = torch.where(is_start[:, None], 0.0, s_cum)
-        s_failed = s_failed & ~is_start
-
-        # --- one batched leapfrog from the moving end ---------------------
-        eps_c = (eps * dirn)[:, None]
-        r_half = mov[2] + 0.5 * eps_c * mov[1]
-        z_new = mov[0] + eps_c * inv_mass[None, :] * r_half
-        val_new, grad_new = value_and_grad_fn(z_new)
-        r_new = r_half + 0.5 * eps_c * grad_new
-        leaf = torch.stack([z_new, grad_new, r_new])
-        h = -val_new + _ke(r_new, inv_mass)
-        h = torch.where(torch.isnan(h), math.inf, h)
-        lw_leaf = h0 - h
-        dvg = (h - h0) > max_delta_energy
-        live = active & ~s_failed & working
-        sum_acc = sum_acc + torch.where(live, torch.exp(torch.clamp(lw_leaf, max=0.0)), 0.0)
-        cnt = cnt + live.to(cnt.dtype)
-
-        # --- checkpoints: slot popcount(m) of even leaves -----------------
-        slot = torch.where(even & live, pc, kdim)
-        r_ck[slot, chains] = r_new
-        rs_ck[slot, chains] = s_cum
-
-        # --- progressive multinomial within the subtree -------------------
-        s_cum_new = s_cum + r_new
-        s_lw_new = torch.logaddexp(s_lw, lw_leaf)
-        swap = live & (swap_u < torch.exp(lw_leaf - s_lw_new))
-        sp = torch.where(_col(swap), leaf[:2], sp)
-        sp_val = torch.where(swap, val_new, sp_val)
-
-        # --- U-turn checks vs the slots [lo, pc) (odd leaves) -------------
-        rho = s_cum_new[None] - rs_ck[:kdim]
-        dot_a = torch.sum(rho * (r_ck[:kdim] * inv_mass), -1)
-        dot_b = torch.sum(rho * (r_new * inv_mass[None, :])[None], -1)
-        in_range = (slots >= lo[None]) & (slots < pc[None])
-        turn_sub = (((dot_a <= 0.0) | (dot_b <= 0.0)) & in_range).any(0) & ~even
-        new_fail = live & (dvg | turn_sub)
-        s_failed = s_failed | new_fail
-        dvg_draw = dvg_draw | (live & dvg)
-
-        upd = live & ~new_fail
-        s_lw = torch.where(upd, s_lw_new, s_lw)
-        s_cum = _sel(upd, s_cum_new, s_cum)
-        mov = torch.where(_col(upd), leaf, mov)
-
-        # --- subtree end: merge into the global tree ----------------------
-        merging = is_end & upd
-        take = merging & (take_u < torch.exp(torch.clamp(s_lw - lw, max=0.0)))
-        prop = torch.where(_col(take), sp, prop)
-        prop_val = torch.where(take, sp_val, prop_val)
-        sides = torch.stack([merging & ~take_right, merging & take_right])
-        ends = torch.where(sides[:, None, :, None], mov[None], ends)
-        r_sum = _sel(merging, r_sum + s_cum, r_sum)
-        lw = torch.where(merging, torch.logaddexp(lw, s_lw), lw)
-        full_turn = _turning(r_sum, ends[0, 2], ends[1, 2], inv_mass)
-        active = active & ~(is_end & s_failed) & ~new_fail & ~(merging & full_turn)
-
-        # --- a finished chain writes its draw and restarts at n = 0 -------
-        # (a stalled chain, n == 0, is in no tree: it neither advances nor
-        # finishes)
-        in_tree = working & (n > 0)
-        n = torch.where(in_tree, n + 1, n)
-        finished = in_tree & (~active | (n >= max_n))
+        # --- a finished chain writes its draw and waits at n = 0 ----------
+        going = tree.active & (tree.n < tree.max_n)
+        finished = in_tree & ~going
         row = torch.where(finished, draw, s_len)
-        zs[chains, row] = prop[0]
-        aps[chains, row] = sum_acc / torch.clamp(cnt, min=1.0)
-        dvgs[chains, row] = dvg_draw
-        cnts[chains, row] = cnt
-        draw = draw + finished.to(draw.dtype)
-        flushed = flushed + (draw.min() > flushed).to(flushed.dtype)
-        cur = torch.where(_col(finished), prop, cur)
-        val = torch.where(finished, prop_val, val)
-        n = torch.where(finished, 0, n)
-        active = active & ~finished
+        zs[chains, row] = tree.prop[0]
+        aps[chains, row] = tree.sum_acc / torch.clamp(tree.cnt, min=1.0)
+        dvgs[chains, row] = tree.diverging
+        cnts[chains, row] = tree.cnt
+        draw += finished
+        flushed += draw.min() > flushed
+        torch.where(_col(finished), tree.prop[0], tree.z, out=tree.z)
+        torch.where(_col(finished), tree.prop[1], tree.grad, out=tree.grad)
+        torch.where(finished, tree.prop_val, tree.val, out=tree.val)
+        tree.n.masked_fill_(~going, 0)
+        tree.active &= going
         it += 1
         if tr is not None:
             tr.span("nuts.sync", t_sync, t_leaf,

@@ -326,9 +326,7 @@ def tracing():
     pipelined sampling phase adds its iterations to ``nuts.leaves`` and
     its chains' live leaves to ``nuts.live_leaves``.  The counters of the
     NUTS engine are summed on the device and read when ``sample()``'s
-    engine span ends.  ``glm.narrow_calls``: where ``sample()`` ran a GLM
-    kernel (K1-K4) on the card, its value+grad calls if their plan takes
-    the f32 narrow pass, else 0."""
+    engine span ends."""
     global _tracer
     if _tracer is not None:
         yield _tracer

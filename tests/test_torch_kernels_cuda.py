@@ -232,24 +232,6 @@ def test_narrow_occupancy_holds_the_planners_wave(cuda, chain_tile, d):
     assert out.value >= G.NARROW_TILES.blocks_per_sm
 
 
-def test_sample_counts_its_narrow_calls(cuda):
-    """sample()'s recorder counts the fused value+grad's calls that its plan
-    sends through the narrow pass: all of them at D = 55, none at D = 200."""
-    from brancher_torch import metrics
-    from brancher_torch.inference import NUTS, sample
-    from brancher_torch.models import logistic_regression_model, make_logreg_data
-
-    kw = dict(kernel=NUTS(max_depth=4), num_chains=64, num_warmup=5, num_samples=5, key=0,
-              device="cuda", diagnostics_backend="none")
-    for d, narrow in ((55, True), (200, False)):
-        x, y, _ = make_logreg_data(3000, d, seed=2)
-        with metrics.tracing() as tr:
-            res = sample(logistic_regression_model(x, y), **kw)
-        calls = res.diagnostics["value_and_grad_calls"]
-        assert res.diagnostics["fused_family"] == "bernoulli_logit" and calls > 0
-        assert tr.counters[1]["glm.narrow_calls"] == (calls if narrow else 0)
-
-
 # ---------------------------------------------------------------------------
 # K5 (csrc/leapfrog.cu) and K6 (the logreg entry of glm_vg.cu, K1's passes)
 # ---------------------------------------------------------------------------

@@ -113,13 +113,21 @@ def test_device_schedule_matches_the_python_schedule():
     want = list(zip(*(_python_schedule(i) for i in range(1, 2**10))))
     for g, w in zip(got, want):
         assert g.tolist() == list(w)
-    # the lockstep tree's rows: start, end, the U-turn slots, the row written
-    tree = TV._LockstepTree(2, 1, torch.float32, "cpu", 10, 1000.0)
-    for i in range(1, 2**10):
+    # the tree's rows: start, end, the U-turn slots, the row written
+    tree = TV._NutsTree(2, 1, torch.float32, "cpu", 10, 1000.0)
+
+    def row(i):
         _, m, pc, lo, even, is_end = _python_schedule(i)
         checks = [not even and lo <= k < pc for k in range(11)]
-        assert tree.flags[i].tolist() == [m == 0, is_end] + checks
-        assert int(tree.slot[i]) == (pc if even else 11)
+        return [m == 0, is_end] + checks, (pc if even else 11)
+
+    for i in range(1, 2**10):
+        assert (tree.flags[i].tolist(), int(tree.slot[i])) == row(i)
+    # read at a leaf index per chain (the pipelined engine's n), where a
+    # chain between draws (n = 0) reads leaf 1's row
+    n = torch.tensor([0, 5, 1, 1023, 0, 2, 6, 512])
+    for flags, slot, i in zip(tree.flags[n].tolist(), tree.slot[n].tolist(), n.tolist()):
+        assert (flags, slot) == row(max(i, 1))
 
 
 def test_torch_stream_is_reproducible():
@@ -135,3 +143,29 @@ def test_torch_stream_is_reproducible():
     a, b = run(), run()
     assert torch.equal(a.z, b.z) and a.num_leaves == b.num_leaves
     assert a.host_syncs >= 1 and a.num_leaves <= 31
+
+
+def test_both_engines_run_the_one_leaf(monkeypatch):
+    """The lockstep transition and the pipelined sampling phase are two
+    schedules of one tree: each calls ``_NutsTree.leaf`` once a leaf (the
+    lockstep's ``num_leaves``) or once an iteration (the pipelined's)."""
+    _, tvg, d = _target(0)
+    calls = []
+    leaf = TV._NutsTree.leaf
+
+    def counted(self, *args):
+        calls.append(1)
+        return leaf(self, *args)
+
+    monkeypatch.setattr(TV._NutsTree, "leaf", counted)
+    z = torch.as_tensor(np.random.RandomState(3).normal(0, 0.5, size=(5, d)).astype(np.float32))
+    v, g = tvg(z)
+    t = TV.nuts_transition_batched(tvg, z, v, g, torch.tensor(0.15), torch.ones(d),
+                                   TV.TorchNutsRandom(torch.Generator().manual_seed(1)),
+                                   max_depth=6)
+    assert t.num_leaves > 1 and len(calls) == t.num_leaves
+    calls.clear()
+    *_, iters, _, _ = TV._pipelined_sampling(
+        tvg, z, v, g, torch.tensor(0.15), torch.ones(d),
+        TV.TorchNutsRandom(torch.Generator().manual_seed(2)), 4, 6, 1000.0, lookahead=2)
+    assert iters > 1 and len(calls) == iters

@@ -16,7 +16,7 @@ from brancher_torch import metrics
 from brancher_torch.inference import HMC, NUTS, ChEESHMC, sample
 from brancher_torch.inference.adaptation import build_warmup_schedule
 from brancher_torch.inference.vectorized_nuts import (
-    _count_tree, _LockstepTree, _warmup_windows,
+    _count_tree, _NutsTree, _warmup_windows,
 )
 from brancher_torch.models import logistic_regression_model, make_logreg_data
 
@@ -201,7 +201,7 @@ def test_tree_state_bytes_count_the_lockstep_trees_buffers(c, d, max_depth):
     of max_depth + 2 rows), nine [C] floats, three [C] flags, eps, the mass,
     n and the per-leaf schedule tables."""
     kdim, rows = max_depth + 1, 2**max_depth + 1
-    tree = _LockstepTree(c, d, torch.float32, "cpu", max_depth, 1000.0)
+    tree = _NutsTree(c, d, torch.float32, "cpu", max_depth, 1000.0)
     per_chain = 2 + 6 + 3 + 2 + 2 + 2 + 2 * (kdim + 1)
     assert per_chain == 37 + 2 * (max_depth - 8)
     assert tree.state_bytes == (4 * per_chain * c * d + 4 * 9 * c + 3 * c + 4 + 4 * d + 8
@@ -212,7 +212,7 @@ def test_tree_state_bytes_are_added_once_a_transition(model):
     with metrics.tracing() as tr:
         res = _run(model)
     d = res.diagnostics["inv_mass"].shape[-1]
-    one = _LockstepTree(CHAINS, d, torch.float32, "cpu", 6, 1000.0).state_bytes
+    one = _NutsTree(CHAINS, d, torch.float32, "cpu", 6, 1000.0).state_bytes
     assert tr.counters[1]["nuts.tree_state_bytes"] == (WARMUP + DRAWS) * one
     assert sum(tr.counters[1]["nuts.depth_hist"]) == CHAINS * (WARMUP + DRAWS)
 
@@ -284,12 +284,3 @@ def test_spans_go_onto_a_chrome_trace_and_into_json(model, tmp_path):
     rec = json.loads(json.dumps(tr.to_json()))
     assert len(rec["spans"]) == len(tr.spans) and rec["clock"] == list(tr.clock)
     assert rec["counters"]["1"]["nuts.leaves"] == len(_by_name(tr, "nuts.leaf"))
-
-
-def test_narrow_calls_are_counted_on_the_card_only(model):
-    """``glm.narrow_calls`` counts the GLM kernel's calls on the card; on
-    the CPU the plain version runs and the counter is not recorded."""
-    with metrics.tracing() as tr:
-        res = _run(model)
-    assert res.diagnostics["fused_family"] == "bernoulli_logit"
-    assert tr.counters[1]["nuts.leaves"] > 0 and "glm.narrow_calls" not in tr.counters[1]
