@@ -48,9 +48,10 @@ With ``metrics.tracing()`` on, the lockstep engine records its spans and
 counters (``nuts.warmup``, ``nuts.window``, ``nuts.draws``, ``nuts.leaf``,
 ``nuts.sync``, ``nuts.leaf_capture``; ``nuts.leaves``, ``nuts.live_leaves``,
 ``nuts.depth_hist``, ``nuts.graph_leaves``, ``nuts.eager_leaves``,
-``nuts.tree_state_bytes``: ``metrics.tracing``'s docstring), and the
-pipelined sampling phase its ``nuts.draws``, a ``nuts.leaf`` with its
-``nuts.sync`` each iteration, ``nuts.leaves`` and ``nuts.live_leaves``.  A
+``nuts.kernel_leaves``, ``nuts.tree_state_bytes``: ``metrics.tracing``'s
+docstring), and the pipelined sampling phase its ``nuts.draws``, a
+``nuts.leaf`` with its ``nuts.sync`` each iteration, ``nuts.leaves``,
+``nuts.kernel_leaves`` and ``nuts.live_leaves``.  A
 transition or a pipelined loop reads the recorder once; off, each point in
 its loop is one ``is None`` test.  The counters are summed on the device
 and change no number the engine computes.
@@ -190,7 +191,9 @@ class _NutsTree:
     tree's own generator, whose state is the caller's for the time of a
     transition; every later transition replays them (``graphs``).
     Elsewhere (the CPU, a replayed random stream, a capture that failed:
-    ``graphs`` False) the same two functions run eagerly."""
+    ``graphs`` False) the same two functions run eagerly.  On CUDA a
+    leaf's bookkeeping is kernel K7 (``ops/nuts_leaf.py``), eager or
+    replayed; on the CPU it is ``plain_leaf``."""
 
     def __init__(self, c: int, d: int, dtype, device, max_depth: int, max_delta_energy: float):
         kdim = max_depth + 1
@@ -227,8 +230,19 @@ class _NutsTree:
         self.s_failed, self.active, self.diverging = (zeros(c, kind=torch.bool) for _ in range(3))
         # checkpoint stacks, depth-major; row kdim takes the odd leaves' writes
         self.r_ck, self.rs_ck = zeros(kdim + 1, c, d), zeros(kdim + 1, c, d)
+        # on CUDA the leaf's bookkeeping is kernel K7 (``ops/nuts_leaf.py``):
+        # the drift it hands the potential, each chain's schedule row from
+        # its head to its tail, and its launch arguments over these buffers
+        self.z_new = self.row = self.leaf_args = None
+        if torch.device(device).type == "cuda":
+            from ..ops.nuts_leaf import BUFFERS, NUTS_LEAF
+
+            self.z_new, self.row = zeros(c, d), zeros(c, kind=torch.int64)
+            self.leaf_args = NUTS_LEAF.bind({f: getattr(self, f) for f in BUFFERS},
+                                            max_delta_energy)
         # the bytes of the device state above (37 [C, d] tensors and a few
-        # [C] ones), counted once a transition as ``nuts.tree_state_bytes``
+        # [C] ones; on CUDA K7's two more), counted once a transition as
+        # ``nuts.tree_state_bytes``
         self.state_bytes = sum(t.numel() * t.element_size() for t in vars(self).values()
                                if isinstance(t, Tensor))
         self.graphs = self.gen = None
@@ -258,7 +272,25 @@ class _NutsTree:
 
     def leaf(self, value_and_grad_fn: VG, dir_pos: Tensor, swap_u: Tensor, take_u: Tensor) -> None:
         """The leaf at n for every chain, in place, from the leaf's draws
-        (``TorchNutsRandom.leaf``); every n then advances by one."""
+        (``TorchNutsRandom.leaf``); every n then advances by one.  On CUDA
+        the bookkeeping runs in kernel K7, its head before the potential and
+        its tail after it; elsewhere ``plain_leaf`` runs it."""
+        if self.leaf_args is None:
+            self.plain_leaf(value_and_grad_fn, dir_pos, swap_u, take_u)
+            return
+        from ..ops.nuts_leaf import NUTS_LEAF
+
+        dtype = self.z.dtype
+        z_new = NUTS_LEAF.head(self.leaf_args, self.n, dir_pos.to(torch.bool).contiguous())
+        val_new, grad_new = value_and_grad_fn(z_new)
+        NUTS_LEAF.tail(self.leaf_args, self.n, val_new.to(dtype).contiguous(),
+                       grad_new.to(dtype).contiguous(), swap_u.to(dtype).contiguous(),
+                       take_u.to(dtype).contiguous())
+
+    def plain_leaf(self, value_and_grad_fn: VG, dir_pos: Tensor, swap_u: Tensor,
+                   take_u: Tensor) -> None:
+        """``leaf`` in PyTorch ops: what the CPU runs, and what K7 is held
+        to on the card."""
         eps, inv_mass = self.eps, self.inv_mass
         flags = self.flags[self.n]
         start, is_end, checks = flags[:, 0], flags[:, 1], flags[:, 2:].T
@@ -374,6 +406,7 @@ class _NutsTree:
             _count_tree(tr, leaves, self.cnt, self.r_ck.shape[0] - 1)
             tr.count("nuts.graph_leaves", replayed)
             tr.count("nuts.eager_leaves", leaves - replayed)
+            tr.count("nuts.kernel_leaves", 0 if self.leaf_args is None else leaves)
             tr.count("nuts.tree_state_bytes", self.state_bytes)
         accept_prob = self.sum_acc / torch.clamp(self.cnt, min=1.0)
         return Transition(self.prop[0].clone(), self.prop_val.clone(), self.prop[1].clone(),
@@ -441,6 +474,12 @@ class _NutsTree:
                     body()
         except RuntimeError:
             graphs = False
+            # a capture registers the default generator as capturing and
+            # only a capture that ends clears it: the failed one did not, so
+            # a capture that ends does, else the next default draw would
+            # raise; it is never replayed
+            with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream):
+                self.n.add_(0)  # one node: an empty graph warns
         self.launched = [(k, k.launches - b) for k, b in zip(kernels, before) if k.launches > b]
         for k, count in self.launched:
             k.launches -= count
@@ -600,6 +639,7 @@ def _pipelined_sampling(
         # an iteration is one leaf over every chain; a chain's live leaves
         # are the sum of its draws' counts
         tr.count("nuts.leaves", it)
+        tr.count("nuts.kernel_leaves", 0 if tree.leaf_args is None else it)
         tr.count("nuts.live_leaves", cnts[:, :s_len].to(torch.int64).sum())
     return (zs[:, :s_len], aps[:, :s_len], dvgs[:, :s_len], it,
             torch.mean(cnts[:, :s_len], dim=0), syncs)

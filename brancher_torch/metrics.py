@@ -319,12 +319,16 @@ def tracing():
     ``max_depth``; at ``max_depth`` a tree saturated, Stan's "maximum
     treedepth" warning), ``nuts.graph_leaves`` and ``nuts.eager_leaves``
     (the leaves replayed from a CUDA graph and those run eagerly: their
-    sum is ``nuts.leaves``), ``nuts.tree_state_bytes`` (the bytes of the
+    sum is ``nuts.leaves``), ``nuts.kernel_leaves`` (the leaves whose
+    bookkeeping ran in the hand-written kernel K7, ``ops/nuts_leaf.py``:
+    every leaf on the card, none on the CPU; over ``nuts.leaves``, the
+    kernel's engagement share), ``nuts.tree_state_bytes`` (the bytes of the
     lockstep tree's device state, 37 [C, d] tensors and a few [C] ones,
     added once a transition: over a call, the bytes times the
     transitions, which ``nuts.depth_hist`` counts per chain).  The
-    pipelined sampling phase adds its iterations to ``nuts.leaves`` and
-    its chains' live leaves to ``nuts.live_leaves``.  The counters of the
+    pipelined sampling phase adds its iterations to ``nuts.leaves`` (and,
+    on the card, to ``nuts.kernel_leaves``) and its chains' live leaves to
+    ``nuts.live_leaves``.  The counters of the
     NUTS engine are summed on the device and read when ``sample()``'s
     engine span ends."""
     global _tracer

@@ -7,9 +7,9 @@
 Phases (each prints one or more JSON lines tagged "phase"):
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the builds of brancher_torch/csrc/glm_vg.cu (with
-     the header glm_sm90.cuh it includes) and leapfrog.cu (one nvcc each,
-     started together) with ptxas's register, spill and shared-memory
-     lines;
+     the header glm_sm90.cuh it includes), leapfrog.cu and nuts_leaf.cu
+     (one nvcc each, started together) with ptxas's register, spill and
+     shared-memory lines;
   2. every kernel against its plain PyTorch version: K1-K4 at the floor
      shape (C=1024, N=1000, D=32), the conjugate shape (C=64, N=20, D=1),
      the MXU-scale GLM shape (C=256, N=131072, D=1024) and a ragged shape
@@ -25,7 +25,13 @@ Phases (each prints one or more JSON lines tagged "phase"):
      and, where the narrow pass ran, passes A and B at the same shape
      (two_pass_ms).  K3/K4 also run at phase 11's AR(1) and AR(2)
      shapes (C=512; N=1999, D=2 and N=998, D=3) and K5 at AR(1)'s, on the
-     family the recognizer extracts from those models;
+     family the recognizer extracts from those models.  K7 (the NUTS
+     leaf's head and tail) runs at the benchmark cells' (C, d) in
+     LEAF_SHAPES: LEAF_COUNT leaves, n one index and one a chain, against
+     the plain leaf from the card tests' random states (every buffer to
+     TOL_LEAF, the flags exactly, a second K7 tree bit for bit), then on
+     live trees, both walks captured in CUDA graphs and timed, ms a leaf,
+     beside the least bytes a leaf moves;
   3. vectorized NUTS at the floor config: make_logreg_data(1000, 32) ->
      logistic_regression_model -> sample(NUTS(max_depth=8), 500 warmup,
      1000 draws, 1024 chains) with fused_potential "auto" (K1), "bf16" (K2)
@@ -186,16 +192,21 @@ Phases (each prints one or more JSON lines tagged "phase"):
      pipelined floor, for phase 16's floor run, for phase 17's sharded
      floor and for example 02, K3 once for each of its eight paths
      (example 01's among them), K4 for each of its three, K5 for each of
-     its six), the card's name and power limit, and the last line
+     its six, K7 once for each of its shapes with the leaves of every
+     sample() run), the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 
 Every launch counter is set to 0 just before each sample() or
 perform_inference() run and read just after it; a run whose kernels did
 not launch as expected (the value+grad kernel once per value+grad call,
-K5 once per transition, none on the paths of phases 8-10, 12, 14 and 15,
+K5 once per transition, K7 once a leaf of the vectorized NUTS engine (the
+leaves its diagnostics report; in SBC its result's, in the examples the
+recorder's "nuts.leaves"), and no kernel on the paths of phases 8-10, 12,
+14 and 15,
 on phase 13's vmap and ARD runs, on phase 16's SVI and posterior
 predictive, on phase 17's shard_map, SVI and particle runs and on phase
-18's examples 04, 05 and 07, SBC, funnel, filter and SVI runs) fails the
+18's examples 04, 05 and 07, SBC, funnel, filter and SVI runs, K7 aside
+where they run that engine) fails the
 script.  The whole script must end within 1200 s on
 one card.  Any failed check raises: the script then exits
 non-zero and prints no "ok" line.  Without CUDA, or without the
@@ -243,7 +254,7 @@ K1_ONLY_SHAPES = ("covtype_c1024", "covtype_c64")
 LEAPFROG_SHAPES = ("floor", "conjugate")
 LEAPFROG_STEPS = (1, 8, 32)
 LOGREG_SHAPES = ("floor", "mxu")
-SOURCES = ("glm_vg", "leapfrog")
+SOURCES = ("glm_vg", "leapfrog", "nuts_leaf")
 # each value+grad kernel's shape on its main path (phase 3 and 6 for K1,
 # K2 and K6)
 MAIN_SHAPE = {"glm_bernoulli_f32": "floor", "glm_bernoulli_bf16": "floor", "logreg_f32": "floor"}
@@ -337,6 +348,22 @@ AR2_WARMUP, AR2_DRAWS = 300, 300
 # well inside the integrator's stability limit there (about 2)
 AR_INV_MASS = 2.5e-4
 AR_EPS = 0.5
+
+# K7, the NUTS leaf's bookkeeping (csrc/nuts_leaf.cu), at the (C, d) of the
+# benchmark's cells: covtype at 1024 and 64 chains (D 55), German Credit's
+# ARD (51 latents) and stochastic volatility (3,002 latents)
+LEAF_SHAPES = {"covtype_c1024": (1024, 55), "covtype_c64": (64, 55),
+               "ard_c1024": (1024, 51), "sv_c1024": (1024, 3002)}
+# the leaves checked and timed: n = 128 .. 143 of a depth-8 tree, the first
+# 16 of its last doubling (a subtree's start, then even and odd leaves)
+LEAF_FIRST, LEAF_COUNT = 128, 16
+# Limit on max|kernel - plain| / max(max|plain|, 1) over every buffer a
+# later leaf or transition reads.  K7 rounds each product and sum as the
+# plain leaf's ops do, so every elementwise value agrees bit for bit; the
+# energy and the dots are summed in another order, which moves the
+# per-chain log weights and accept sums by a few f32 units in their last
+# place (tests/test_torch_nuts_leaf_cuda.py holds the same limit).
+TOL_LEAF = 1e-5
 
 RESULTS: dict = {}
 
@@ -709,6 +736,167 @@ def _logreg_rows(gen, per_kernel):
         torch.cuda.empty_cache()
 
 
+def _live_leaf_tree(c, d, seed):
+    """A float32 depth-8 tree whose chains all stay live through the
+    LEAF_COUNT leaves from LEAF_FIRST, for the timing: every momentum 1 on
+    every axis (the moving end's, the checkpoints', the sums'), no gradient
+    and a flat energy, so no U-turn and no divergence; positions drawn from
+    ``seed``."""
+    import torch
+    from brancher_torch.inference.vectorized_nuts import _NutsTree
+
+    tree = _NutsTree(c, d, torch.float32, "cuda", 8, 1000.0)
+    z = torch.randn((c, d), generator=torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    for point in (tree.ends[0], tree.ends[1], tree.mov):
+        point[0].copy_(z)
+        point[2].fill_(1.0)
+    tree.r_ck.fill_(1.0)
+    tree.r_sum.fill_(float(LEAF_FIRST - 1))
+    tree.eps.fill_(0.01)
+    tree.inv_mass.fill_(1.0)
+    tree.h0.fill_(0.5 * d)  # the kinetic energy at r = 1: a leaf's log weight is 0
+    tree.active.fill_(True)
+    return tree
+
+
+def _leaf_cases():
+    """tests/test_torch_nuts_leaf_cuda.py, whose tree states away from ties
+    (random per-chain gradients, inverse mass and mixed momenta; planted
+    NaN, +-inf and divergent energies; stopped, failed and waiting chains)
+    and comparison this phase shares."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "test_torch_nuts_leaf_cuda.py"
+    spec = importlib.util.spec_from_file_location("nuts_leaf_cases", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _rel_leaf(got, ref) -> float:
+    """``_rel`` over the entries where got and ref differ: an infinity or a
+    NaN equal to its reference counts 0, one that is not counts inf."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
+    diff = (got - ref).abs()
+    diff = torch.where(same, 0.0, torch.where(torch.isnan(diff), math.inf, diff))
+    finite = ref[torch.isfinite(ref)]
+    return float(diff.max()) / max(float(finite.abs().max()) if finite.numel() else 0.0, 1.0)
+
+
+def _leaf_check(cases, c, d, seed):
+    """K7 against the plain leaf and against itself at the LEAF_COUNT leaves
+    from LEAF_FIRST, with n one index for every chain and one a chain, each
+    leaf from the card tests' random float32 state of ``seed``: (max_rel
+    over the buffers a later leaf or transition reads, flags and n equal,
+    two K7 trees bit for bit)."""
+    import torch
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    s = cases._state(c, d, f32, dev, seed)
+    plain, kern, again = (cases.TV._NutsTree(c, d, f32, dev, cases.DEPTH, cases.MAX_DELTA)
+                          for _ in range(3))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    chains = torch.arange(c, device=dev)
+    err, flags_equal, same = 0.0, True, True
+    for per_chain in (False, True):
+        for leaf in range(LEAF_FIRST, LEAF_FIRST + LEAF_COUNT):
+            n = (leaf + chains) % 2**cases.DEPTH if per_chain else torch.tensor([leaf], device=dev)
+            entry = dict(s, active=s["active"] & (n > 0))
+            start = kern.flags[n.expand(c), 0]
+            live = entry["active"] & (start | ~entry["s_failed"])
+            swap_u, take_u = cases._uniforms(s, start, gen)
+            for tree in (plain, kern, again):
+                cases._load(tree, entry, n)
+            plain.plain_leaf(cases._potential(plain, s), s["dir_pos"], swap_u, take_u)
+            for tree in (kern, again):
+                tree.leaf(cases._potential(tree, s), s["dir_pos"], swap_u, take_u)
+            for f, got, want in cases._pairs(plain, kern, entry, live, entry["active"]):
+                if f in cases.FLAGS + ("n",):
+                    flags_equal &= torch.equal(got, want)
+                else:
+                    err = max(err, _rel_leaf(got, want))
+            same &= all(torch.equal(getattr(kern, f), getattr(again, f))
+                        for f in cases.STATE + ("z_new", "n"))
+    del plain, kern, again, s
+    return err, flags_equal, same
+
+
+def _graph_ms(fn) -> float:
+    """``time_ms`` of a CUDA graph of ``fn``, run once eagerly first."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay)
+
+
+def _nuts_leaf_rows(per_kernel):
+    """K7 at LEAF_SHAPES: checked against the plain leaf on the card tests'
+    random states (``_leaf_check``), then timed on live trees, both walks of
+    LEAF_COUNT leaves captured in CUDA graphs, ms a leaf, beside the least
+    bytes the leaves move."""
+    import torch
+    from brancher_torch.ops import NUTS_LEAF
+    from brancher_torch.ops.nuts_leaf import leaf_bytes
+
+    cases = _leaf_cases()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for seed, (shape_name, (c, d)) in enumerate(LEAF_SHAPES.items(), start=21):
+        err, flags_equal, deterministic = _leaf_check(cases, c, d, seed)
+        ok = err <= TOL_LEAF and flags_equal
+        torch.cuda.empty_cache()
+        val0 = torch.zeros((c,), device="cuda")
+        grad0 = torch.zeros((c, d), device="cuda")
+        draws = [(torch.rand((c,), generator=gen, device="cuda") < 0.5,
+                  torch.rand((c,), generator=gen, device="cuda"),
+                  torch.rand((c,), generator=gen, device="cuda")) for _ in range(LEAF_COUNT)]
+
+        def walk(tree, plain):
+            tree.n.fill_(LEAF_FIRST)
+            for dr in draws:
+                (tree.plain_leaf if plain else tree.leaf)(lambda z: (val0, grad0), *dr)
+
+        plain, kern = (_live_leaf_tree(c, d, 5) for _ in range(2))
+        walk(kern, False)
+        torch.cuda.synchronize()
+        live = bool(kern.active.all()) and not bool(kern.s_failed.any())
+        kdim = kern.r_ck.shape[0] - 1
+        rows = range(LEAF_FIRST, LEAF_FIRST + LEAF_COUNT)
+        flags = kern.flags.cpu()
+        nbytes = sum(leaf_bytes(c, d, 4, int(flags[n, 2:].sum()), int(kern.slot[n]) < kdim)
+                     for n in rows) // LEAF_COUNT
+        row = {
+            "phase": 2, "kernel": NUTS_LEAF.name, "shape": shape_name, "C": c, "N": None, "D": d,
+            "tiling": list(NUTS_LEAF.tiling(d)), "leaves": [rows[0], rows[-1]],
+            "max_rel": err, "flags_equal": flags_equal, "tolerance_rel": TOL_LEAF, "ok": ok,
+            "deterministic": deterministic, "timed_all_live": live,
+            "ms": _graph_ms(lambda: walk(kern, False)) / LEAF_COUNT,
+            "plain_ms": _graph_ms(lambda: walk(plain, True)) / LEAF_COUNT, "library_ms": None,
+            # the head alone, LEAF_COUNT times at the leaf after the walk (144, even)
+            "head_ms": _graph_ms(lambda: [NUTS_LEAF.head(kern.leaf_args, kern.n, dr[0])
+                                          for dr in draws]) / LEAF_COUNT,
+            **_bound(nbytes, 0),
+        }
+        row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+        emit(row)
+        per_kernel[NUTS_LEAF.name].append(row)
+        check(ok, f"K7 at {shape_name} disagrees with the plain leaf: {err}, flags {flags_equal}")
+        check(deterministic, f"K7 at {shape_name} is not bit-reproducible")
+        check(live, f"K7 at {shape_name}: the timed tree did not stay live")
+        del plain, kern, val0, grad0, draws
+        torch.cuda.empty_cache()
+
+
 def phase_kernels():
     import torch
 
@@ -718,16 +906,40 @@ def phase_kernels():
     _leapfrog_rows(gen, per_kernel)
     _logreg_rows(gen, per_kernel)
     _ar_rows(per_kernel)
+    _nuts_leaf_rows(per_kernel)
     _reset_launches()  # comparison launches do not count for the main path
     RESULTS["kernels"] = per_kernel
+
+
+def _leaf_range(kw, d, draw_leaves):
+    """(least, most) launches of K7 in a sample() run: 0 unless the kernel
+    is NUTS on the vectorized engine, else one a leaf, the warmup's and the
+    draws' (stage A's too under mass="dense").  The pipelined engine reports
+    its draws' leaves as a whole number a draw, rounded up, so up to
+    num_samples - 1 fewer ran."""
+    from brancher_torch.inference import NUTS
+
+    kernel = kw.get("kernel")
+    if not isinstance(kernel, NUTS) or kw.get("chain_method", "vectorized") != "vectorized":
+        return 0, 0
+    parts = [(d.get("warmup_leapfrog") or 0, draw_leaves, kw["num_samples"])]
+    if "dense_stage_a" in d:
+        a = d["dense_stage_a"]
+        parts.append((a["warmup_leapfrog"] or 0, a["sampling_leapfrog"], a["num_samples"]))
+    most = sum(round(w) + s for w, s, _ in parts)
+    slack = sum(n - 1 for _, _, n in parts) if kernel.pipelined else 0
+    return most - slack, most
 
 
 def _run_sample(model, tag, kernel_name, transition_kernel=None, **kw):
     """One sample() run with every launch counter at 0 before it; checks
     that the value+grad kernel ran once per value+grad call, the
-    trajectory kernel (K5) once per transition, and no other kernel."""
+    trajectory kernel (K5) once per transition, the NUTS leaf's (K7) once a
+    leaf of the vectorized NUTS engine (``_leaf_range``), and no other
+    kernel."""
     import torch
     from brancher_torch.inference import sample
+    from brancher_torch.ops import NUTS_LEAF
 
     _reset_launches()
     gc.collect()  # an earlier phase's tensors held in reference cycles
@@ -739,14 +951,19 @@ def _run_sample(model, tag, kernel_name, transition_kernel=None, **kw):
     d = res.diagnostics
     calls = d["value_and_grad_calls"]
     transitions = kw.get("num_warmup", 0) + kw["num_samples"]
+    steps = int(res.stats["num_steps"][0].sum())
+    leaves = _leaf_range(kw, d, steps)
     for name, count in launches.items():
+        if name == NUTS_LEAF.name:
+            check(leaves[0] <= count <= leaves[1],
+                  f"{tag}: {name} launched {count} times, expected {leaves[0]}-{leaves[1]}")
+            continue
         want = calls if name == kernel_name else transitions if name == transition_kernel else 0
         check(count == want, f"{tag}: {name} launched {count} times, expected {want}")
     check(kernel_name is None or calls > 0, f"{tag}: no value+grad call")
     check(d["fused_leapfrog"] == (transition_kernel is not None),
           f"{tag}: fused_leapfrog diagnostic is {d['fused_leapfrog']}")
     draws = res.stats["num_steps"].shape[1]
-    steps = int(res.stats["num_steps"][0].sum())
     info = {
         "run": tag, "kernel": kernel_name, "transition_kernel": transition_kernel,
         "launches": launches, "fused_family": d["fused_family"], "fused_dtype": d["fused_dtype"],
@@ -2891,6 +3108,8 @@ def _jsonable(v):
 
 def _phase18_examples():
     import torch
+    from brancher_torch import metrics
+    from brancher_torch.ops import NUTS_LEAF
 
     for stem, why in EXAMPLES_NOT_RUN.items():
         emit({"phase": 18, "example": stem, "reduced": f"not run: {why}"})
@@ -2901,10 +3120,13 @@ def _phase18_examples():
         gc.collect()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = module.main(device="cuda", **sizes)
+        # the recorder counts the vectorized NUTS engine's leaves, K7's launches
+        with metrics.tracing() as tr:
+            out = module.main(device="cuda", **sizes)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: k.launches for name, k in _all_kernels().items()}
+        leaves = sum(c.get("nuts.leaves", 0) for c in tr.counters.values())
         kname = EXAMPLE_KERNELS.get(stem)
         limits = _example_limits(stem, out, module)
         line = {"phase": 18, "example": stem, "file": f"examples/torch/{Path(module.__file__).name}",
@@ -2918,7 +3140,8 @@ def _phase18_examples():
         emit(line)
         RESULTS.setdefault("examples", {})[stem] = line
         for name, count in launches.items():
-            want = out["value_and_grad_calls"] if name == kname else 0
+            want = (out["value_and_grad_calls"] if name == kname
+                    else leaves if name == NUTS_LEAF.name else 0)
             check(count == want, f"example {stem}: {name} launched {count} times, expected {want}")
         if kname is not None:
             check(out["fused_family"] is not None and out["value_and_grad_calls"] > 0,
@@ -3113,6 +3336,7 @@ def _phase18_sbc():
     import torch
     from brancher_torch.inference.chees import chees_hmc
     from brancher_torch.inference.vectorized_nuts import nuts_batched
+    from brancher_torch.ops import NUTS_LEAF
 
     post_var = 1.0 / (1 / SBC_PRIOR**2 + SBC_N_OBS / SBC_LIK**2)
     for engine, seeds in SBC_SEEDS.items():
@@ -3160,7 +3384,12 @@ def _phase18_sbc():
             line["launches"] = {name: k.launches for name, k in _all_kernels().items()}
             emit(line)
             RESULTS.setdefault("sbc", {})[f"{engine}/{seed}"] = line
-            check(not any(line["launches"].values()), f"sbc {engine}: a kernel launched")
+            # the NUTS leaf's kernel (K7) once a leaf of the lockstep engine
+            leaves = (int(res.warmup_leapfrog) + int(res.num_leapfrog.sum())
+                      if engine != "chees" else 0)
+            for name, count in line["launches"].items():
+                want = leaves if name == NUTS_LEAF.name else 0
+                check(count == want, f"sbc {engine}: {name} launched {count} times, expected {want}")
             check(all(p > SBC_P_MIN for p in line["p_values"]),
                   f"sbc {engine} seed {seed}: p {line['p_values']} <= {SBC_P_MIN}")
             if "median_mean_err" in line:
@@ -3241,10 +3470,15 @@ def _summary_entry(name, k, rows, main, launches, err_keys):
 
 
 def summary_line():
+    from brancher_torch.ops import NUTS_LEAF
+
     main_launches = _main_launches()
     out = []
     for name, k in _all_kernels().items():
         rows = RESULTS["kernels"][name]
+        if k is NUTS_LEAF:
+            out.extend(_leaf_summary(rows, main_launches[name]))
+            continue
         if name in MAIN_SHAPE:
             main = next(r for r in rows if r["shape"] == MAIN_SHAPE[name])
             out.append(_summary_entry(name, k, rows, main, main_launches[name],
@@ -3270,6 +3504,21 @@ def summary_line():
             out.append(_summary_entry(label, k, path_rows, main, run["launches"][name],
                                       ("max_abs",)))
     return {"kernels": out}
+
+
+def _leaf_summary(rows, launches):
+    """K7's entries: one per cell shape, with the leaves of every sample()
+    path."""
+    from brancher_torch.ops import NUTS_LEAF
+
+    check(launches > 0, "nuts_leaf was never launched on a sample() path")
+    return [{"name": f"{NUTS_LEAF.name}/{row['shape']}", "route": "cuda",
+             "source": NUTS_LEAF.source, "replaces": "none", "launches": launches,
+             "max_rel_err": max(r["max_rel"] for r in rows), "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": None, "gb_per_s": row["gb_per_s"],
+             "shape": [row["C"], row["D"]], "tiling": row["tiling"],
+             "ok": all(r["ok"] for r in rows)} for row in rows]
 
 
 STEPS = {1: phase_environment, 2: phase_kernels, 3: phase_floor, 4: phase_conjugate,

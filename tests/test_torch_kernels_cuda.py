@@ -772,3 +772,25 @@ def test_a_tree_whose_value_and_grad_waits_on_the_card_runs_eagerly(cuda):
     assert counters["nuts.eager_leaves"] == counters["nuts.leaves"] > 0
     # the failed capture drew nothing from the caller's generator
     assert torch.equal(tried.samples, eager.samples)
+
+
+def test_a_failed_capture_leaves_the_default_generator_usable(cuda):
+    """A capture registers the process's default CUDA generator as
+    capturing, and a capture that fails never clears it: the tree ends one
+    more capture after the failure, so a later draw from the default
+    generator works."""
+    from brancher_torch import metrics
+
+    def waits(z):
+        s = float(z.sum())  # a read back: no capture
+        return -0.5 * (z * z).sum(-1) + 0.0 * s, -z
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    z0 = torch.randn((8, 3), generator=gen, device=cuda)
+    with metrics.tracing() as tr:
+        res = TV.nuts_batched(waits, z0, num_warmup=2, num_samples=3, max_depth=4,
+                              generator=gen, rng=TV.TorchNutsRandom(gen))
+    assert len([s for s in tr.spans if s.name == "nuts.leaf_capture"]) == 1
+    assert res.graph_leaves == 0
+    u, x = torch.rand(16, device=cuda), torch.randn(16, device=cuda)
+    assert bool(((u >= 0) & (u < 1)).all()) and bool(torch.isfinite(x).all())

@@ -171,6 +171,16 @@ def test_live_leaves_and_depths_match_the_chains_trees(model):
     assert live <= CHAINS * tr.counters[2]["nuts.leaves"]
 
 
+@pytest.mark.parametrize("engine", ["nuts", "nuts_pipelined"])
+def test_no_leaf_runs_in_the_kernel_on_the_cpu(model, engine):
+    """``nuts.kernel_leaves`` counts the leaves whose bookkeeping ran in
+    kernel K7, which runs on the card alone: 0 here, in the lockstep and
+    the pipelined engines."""
+    with metrics.tracing() as tr:
+        _run(model, **KERNELS[engine])
+    assert tr.counters[1]["nuts.kernel_leaves"] == 0 < tr.counters[1]["nuts.leaves"]
+
+
 def test_pipelined_leaves_and_syncs_match_the_engine_counts(model):
     """The pipelined sampling phase: one ``nuts.leaf`` a loop iteration,
     each with one ``nuts.sync`` child, a last sync alone; its leaves and

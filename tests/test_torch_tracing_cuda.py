@@ -108,6 +108,28 @@ def test_tracing_leaves_the_card_draws_unchanged(cuda, covtype):
     assert sum(hist) == 64 * (10 + 4) and len(hist) == 9
 
 
+def test_every_leaf_on_the_card_runs_in_the_kernel(cuda, covtype):
+    """On the card every leaf's bookkeeping runs in kernel K7: replayed from
+    the lockstep tree's graph (run eagerly in the tree's first transition)
+    and in the pipelined loop.  ``nuts.kernel_leaves`` equals
+    ``nuts.leaves`` in each call, and K7's launches count every leaf."""
+    from brancher_torch.ops import NUTS_LEAF
+
+    kw = dict(num_chains=64, device="cuda", diagnostics_backend="none", num_samples=5)
+    before = NUTS_LEAF.launches
+    with metrics.tracing() as tr:
+        first = sample(covtype, kernel=NUTS(max_depth=8), num_warmup=20, key=1, **kw)
+        state = first.diagnostics["resume_state"]
+        sample(covtype, kernel=NUTS(max_depth=8), num_warmup=0, resume_state=state, key=2, **kw)
+        sample(covtype, kernel=NUTS(max_depth=8, pipelined=True), num_warmup=0,
+               resume_state=state, key=3, **kw)
+    counters = [tr.counters[call] for call in (1, 2, 3)]
+    for c in counters:
+        assert c["nuts.kernel_leaves"] == c["nuts.leaves"] > 0
+    assert counters[1]["nuts.graph_leaves"] == counters[1]["nuts.leaves"]
+    assert NUTS_LEAF.launches - before == sum(c["nuts.leaves"] for c in counters)
+
+
 def test_graph_capture_is_a_span(cuda):
     mu = NormalVariable(0.0, 2.0, "mu")
     sigma = LogNormalVariable(0.0, 0.5, "sigma")
